@@ -1,0 +1,564 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (qllm_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases, each of which fails the run on any error or disagreement:
+
+  1. build: nvcc compiles qllm_tpu_torch/csrc/*.cu for sm_90a into
+     build/qllm_tpu_torch/ (qllm_tpu_torch/ops/_build.py);
+  2. kernels: each hand-written kernel at the Llama-2-7B shapes of the
+     main path against its plain PyTorch version on the same inputs,
+     with the kernel's, the plain version's and (where one exists) a
+     single PyTorch library call's time (CUDA events, median of 20 runs
+     after warm-up, L2 flushed before each run);
+  3. main path: a Llama-2-7B-shape W4 g128 model (32 layers, random
+     weights drawn on the card, quantized lm_head) is stacked for
+     serving, prefills 8 prompts of 128 tokens into an int8 KV cache
+     (max_seq 256) and decodes 64 greedy steps, with every kernel's
+     launch count read before and after;
+  4. cross-check: the same widths at 2 layers on the card and on the
+     CPU (plain versions), B=2, T=32, 8 steps: logits within tolerance.
+
+The line before the last is a JSON object listing every kernel; the last
+line is {"ok": true, "device": {...}}. Without CUDA, or without the
+package beside this file, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor-core
+# flop/s (the operands of every kernel here are bf16, int8 or 4-bit)
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+
+SEVEN_B = dict(
+    vocab_size=32000,
+    hidden_size=4096,
+    intermediate_size=11008,
+    num_attention_heads=32,
+    num_key_value_heads=32,
+    max_position_embeddings=2048,
+)
+# (name, K, N) of the stacked projections at 7B
+PROJECTIONS = (
+    ("qkv", 4096, 12288),
+    ("o", 4096, 4096),
+    ("gateup", 4096, 22016),
+    ("down", 11008, 4096),
+    ("lm_head", 4096, 32000),
+)
+# the main path: batch, prompt length, decode steps, cache length, depth
+MAIN = dict(B=8, T=128, STEPS=64, MAX_SEQ=256, LAYERS=32)
+# the card-vs-CPU cross-check at full width
+CROSS = dict(B=2, T=32, STEPS=8, MAX_SEQ=64, LAYERS=2)
+# the K3a / K3b phase: layers, batch, kv heads, cache length, head width
+ATTN_SHAPE = dict(L=2, B=8, Hkv=32, S=256, D=128)
+K4_SHAPE = (32, 512, 22016)  # the gateup stack, [L, 4096/8, N]
+DEV = "cuda"
+QMM_TOL = 2e-2  # atol 2e-2 * max|y|, rtol 2e-2 (tests/test_pallas_qmm.py)
+ATTN_TOL = 2e-2  # tests/test_pallas_attention.py:59
+LOGIT_TOL = 5e-2  # tests/test_pallas_attention.py:83
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(bytes_moved: float, flops: float = 0.0):
+    """The least time (ms) for the work and what sets it."""
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Timer:
+    """CUDA-event timing, median over runs, L2 flushed before each run."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+
+    def __call__(self, fn, reps: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def gpu_name_and_limit() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+        check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def phase_kernels(torch, timer):
+    """Every kernel at the main path's 7B shapes against its plain version."""
+    from qllm_tpu_torch.ops import attention as att
+    from qllm_tpu_torch.ops import qmm, repack
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1234)
+    dev = DEV
+    rows = []
+
+    def stack(Kf, Np, L=2):
+        qw = torch.randint(-(2**31), 2**31, (L, Kf // 8, Np), dtype=torch.int32, device=dev, generator=gen)
+        sc = ((torch.rand((L, Kf // 128, Np), device=dev, generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+        zs = (sc.float() * 8.0).to(torch.bfloat16)
+        return qw, sc, zs
+
+    def dequant(qw, sc, zs, layer, Kf):
+        v = qmm._planar_values(qw[layer], Kf).reshape(Kf // 128, 128, -1)
+        w = v * sc[layer].float()[:, None, :] - zs[layer].float()[:, None, :]
+        return w.reshape(Kf, -1).to(torch.bfloat16)
+
+    # K1 / K2: M = 8 decode rows and M = 1024 prefill rows (8 x 128)
+    for kname, M, fn, plain in (
+        ("w4_planar_gemv", 8, qmm.w4_planar_gemv, qmm.w4_planar_gemv_plain),
+        ("w4_planar_gemm", 1024, qmm.w4_planar_gemm, qmm.w4_planar_gemm_plain),
+    ):
+        for pname, Kf, N in PROJECTIONS:
+            Np = -(-N // 512) * 512
+            qw, sc, zs = stack(Kf, Np)
+            x = torch.randn((M, Kf), device=dev, generator=gen).to(torch.bfloat16)
+            norms = (False, True) if kname == "w4_planar_gemv" else (False,)
+            for norm in norms:
+                nw = (torch.rand((2, Kf), device=dev, generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+                args = (x, qw, sc, zs, 1) + ((nw, 1e-5) if kname == "w4_planar_gemv" else ())
+                y = fn(*args)
+                torch.cuda.synchronize()
+                y_ref = plain(*args)
+                scale = float(y_ref.float().abs().max())
+                err = float((y.float() - y_ref.float()).abs().max())
+                ok = torch.allclose(y.float(), y_ref.float(), atol=QMM_TOL * scale, rtol=QMM_TOL)
+                w = dequant(qw, sc, zs, 1, Kf)
+                xin = qmm._rms_norm_rows(x, nw[1], 1e-5) if norm else x
+                lib_ms = timer(lambda: torch.matmul(xin, w))
+                del w
+                ms = timer(lambda: fn(*args))
+                plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
+                nbytes = qw[1].numel() * 4 + 2 * sc[1].numel() * 2 + M * Kf * 2 + M * Np * 2
+                nbytes += Kf * 2 if norm else 0
+                b_ms, b_by = bound(nbytes, 2.0 * M * Kf * Np)
+                rows.append(
+                    dict(kernel=kname, case=f"{pname} K={Kf} N={Np} M={M}" + (" +norm" if norm else ""),
+                         max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok),
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                )
+                log(f"[kernel] {json.dumps(rows[-1])}")
+                if not ok:
+                    raise AssertionError(f"{kname} {pname}: max_abs_err {err} outside tolerance")
+            del qw, sc, zs, x
+
+    # K3a / K3b: B=8, Hkv=32, d=128, S=256, layer 1 of 2
+    L, B, Hkv, S, D = (ATTN_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D"))
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    ks = (torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005)
+    vs = (torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005)
+    pos = torch.randint(S // 2, 3 * S // 4, (B,), dtype=torch.int32, device=dev, generator=gen)
+    k_new = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    v_new = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    caches = [t.clone() for t in (kc, vc, ks, vs)]
+    att.kv_write_int8(k_new, v_new, *caches, 1, pos)
+    torch.cuda.synchronize()
+    refs = [t.clone() for t in (kc, vc, ks, vs)]
+    att.kv_write_int8_plain(k_new, v_new, *refs, 1, pos)
+    err_q = max(float((a.float() - b.float()).abs().max()) for a, b in zip(caches[:2], refs[:2]))
+    err_s = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(caches[2:], refs[2:]))
+    ok = err_q == 0.0 and err_s <= 1e-6
+    ms = timer(lambda: att.kv_write_int8(k_new, v_new, *caches, 1, pos))
+    plain_ms = timer(lambda: att.kv_write_int8_plain(k_new, v_new, *refs, 1, pos))
+    b_ms, b_by = bound(2 * B * Hkv * D * 2 + 2 * B * Hkv * D + 2 * B * Hkv * 4 + B * 4)
+    rows.append(dict(kernel="kv_write_int8", case=f"B={B} Hkv={Hkv} D={D} S={S}", max_abs_err=err_q,
+                     tol="int8 exact, scales rtol 1e-6", scale_rel_err=err_s, ok=bool(ok), ms=ms,
+                     plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if not ok:
+        raise AssertionError(f"kv_write_int8: int8 err {err_q}, scale rel err {err_s}")
+
+    lengths = pos + 1
+    q = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    args = (q, kc, vc, ks, vs, lengths, 1)
+    out = att.decode_attn_int8(*args)
+    torch.cuda.synchronize()
+    ref = att.decode_attn_int8_plain(*args)
+    err = float((out - ref).abs().max())
+    ok = torch.allclose(out, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
+    kd = (kc[1].float() * ks[1][..., None]).to(torch.bfloat16)
+    vd = (vc[1].float() * vs[1][..., None]).to(torch.bfloat16)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer(lambda: sdpa(q[:, :, None, :], kd, vd, attn_mask=mask))
+    ms = timer(lambda: att.decode_attn_int8(*args))
+    plain_ms = timer(lambda: att.decode_attn_int8_plain(*args))
+    n_rows = int(lengths.sum()) * Hkv
+    b_ms, b_by = bound(n_rows * (2 * D + 8) + B * Hkv * D * 2 + B * Hkv * D * 4 + B * 4,
+                       4.0 * n_rows * D)
+    rows.append(dict(kernel="decode_attn_int8", case=f"B={B} H=Hkv={Hkv} D={D} S={S} lengths {int(lengths.min())}-{int(lengths.max())}",
+                     max_abs_err=err, tol=f"atol/rtol {ATTN_TOL}", ok=bool(ok), ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if not ok:
+        raise AssertionError(f"decode_attn_int8: max_abs_err {err}")
+    del kc, vc, ks, vs, caches, refs, kd, vd
+
+    # K4: the gateup stack at load time, [32, 4096/8, 22016]
+    words = torch.randint(-(2**31), 2**31, K4_SHAPE, dtype=torch.int32, device=dev, generator=gen)
+    k4 = K4_SHAPE[1] * 8
+    out = repack.planarize_w4(words, k4)
+    torch.cuda.synchronize()
+    ref = repack.planarize_w4_plain(words, k4)
+    mism = int((out != ref).sum())
+    del ref
+    ms = timer(lambda: repack.planarize_w4(words, k4))
+    plain_ms = timer(lambda: repack.planarize_w4_plain(words, k4), reps=5, warmup=1)
+    b_ms, b_by = bound(2 * words.numel() * 4)
+    rows.append(dict(kernel="planarize_w4", case=f"{list(K4_SHAPE)} int32 (gateup stack)",
+                     max_abs_err=float(mism), tol="bit-exact", ok=mism == 0, ms=ms, plain_ms=plain_ms,
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if mism:
+        raise AssertionError(f"planarize_w4: {mism} words differ")
+    del words, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def counts(K):
+    return {name: fn.launches for name, fn in K.items()}
+
+
+def phase_main(torch, K):
+    """The full-depth 7B main path: load + stack, prefill 8x128, 64 steps."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import make_cache, prefill
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+    from qllm_tpu_torch.utils.testing import random_quantized_params
+
+    cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
+    B, T, STEPS, MAX_SEQ = (MAIN[k] for k in ("B", "T", "STEPS", "MAX_SEQ"))
+    t0 = time.time()
+    params = random_quantized_params(cfg, 0, bits=4, group_size=128, quantize_lm_head=True, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[main] random W4 g128 params drawn on the card in {time.time() - t0:.2f} s")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, device=DEV, generator=gen)
+
+    for fn in K.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    phases = {}
+    t0 = time.time()
+    sp = stack_layer_params(params)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    del params
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    phases["load"] = counts(K)
+    cache = make_cache(cfg, B, MAX_SEQ, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, cfg, prompts, cache, device=DEV)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    phases["prefill"] = counts(K)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    t0 = time.perf_counter()
+    toks, cache = decode_loop(sp, cfg, first, cache, T, STEPS, device=DEV)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    total = counts(K)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in b}
+
+    per_phase = {
+        "load": phases["load"],
+        "prefill": delta(phases["load"], phases["prefill"]),
+        "decode": delta(phases["prefill"], total),
+    }
+    per_step = {k: v / STEPS for k, v in per_phase["decode"].items()}
+    log(f"[main] launches per phase {json.dumps(per_phase)}")
+    log(f"[main] launches per decode step {json.dumps(per_step)}")
+    expected = {
+        "load": {"planarize_w4": 5},
+        "prefill": {"w4_planar_gemm": 4 * cfg.num_hidden_layers + 1},
+        "decode": {
+            "w4_planar_gemv": (4 * cfg.num_hidden_layers + 1) * STEPS,
+            "kv_write_int8": cfg.num_hidden_layers * STEPS,
+            "decode_attn_int8": cfg.num_hidden_layers * STEPS,
+        },
+    }
+    for ph, want in expected.items():
+        for k, n in want.items():
+            if per_phase[ph][k] != n:
+                raise AssertionError(f"{ph}: {k} launched {per_phase[ph][k]} times, expected {n}")
+    for name, n in total.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    lf = logits.float()
+    if tuple(lf.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(lf).all()):
+        raise AssertionError("prefill logits are not finite [B, V]")
+    if tuple(toks.shape) != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("decoded ids out of range")
+
+    # a second, warm run on a fresh cache (allocator and clocks warm)
+    cache = make_cache(cfg, B, MAX_SEQ, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits2, cache = prefill(sp, cfg, prompts, cache, device=DEV)
+    torch.cuda.synchronize()
+    prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    toks2, cache = decode_loop(
+        sp, cfg, torch.argmax(logits2, -1).to(torch.int32)[:, None], cache, T, STEPS, device=DEV
+    )
+    torch.cuda.synchronize()
+    decode_warm_s = time.perf_counter() - t0
+    same = bool(torch.equal(toks, toks2))
+    busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + STEPS)
+    result = {
+        "config": f"Llama-2-7B shape, {cfg.num_hidden_layers} layers, W4 g128, quantized lm_head, "
+        f"int8 KV, B={B}, T={T}, max_seq {MAX_SEQ}",
+        "load_s": load_s,
+        "prefill_ms": prefill_ms,
+        "prefill_warm_ms": prefill_warm_ms,
+        "prefill_tok_s_warm": B * T / (prefill_warm_ms / 1e3),
+        "decode_steps": STEPS,
+        "decode_tok_s": B * STEPS / decode_s,
+        "decode_tok_s_warm": B * STEPS / decode_warm_s,
+        "decode_ms_per_step_warm": decode_warm_s / STEPS * 1e3,
+        "peak_mem_gib": peak_gib,
+        **busy,
+        "repeat_run_same_ids": same,
+    }
+    log(f"[main] {json.dumps(result)}")
+    if not same:
+        raise AssertionError("a second run on the same prompts decoded other ids")
+    del sp, cache, logits, logits2
+    torch.cuda.empty_cache()
+    return total
+
+
+def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4):
+    """Device busy share of a few warm decode steps (torch.profiler, CUDA
+    kernel time over host wall time) and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        return {"device_busy_share": "not measured"}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        log(f"[profile] {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  x{e.count // steps:4d}  {e.key[:90]}")
+    return {
+        "profiled_steps": steps,
+        "profiled_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "device_busy_share": busy_ms / wall_ms,
+    }
+
+
+def phase_cross(torch):
+    """2 layers at full width: the card's kernels against the CPU's plain versions."""
+    from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+    from qllm_tpu_torch.utils.testing import random_quantized_params
+
+    cfg = ModelConfig(num_hidden_layers=CROSS["LAYERS"], **SEVEN_B)
+    B, T, STEPS, MAX_SEQ = (CROSS[k] for k in ("B", "T", "STEPS", "MAX_SEQ"))
+    gpu = random_quantized_params(cfg, 1, quantize_lm_head=True, device=DEV)
+
+    def to_cpu(node):
+        if isinstance(node, dict):
+            return {k: to_cpu(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_cpu(v) for v in node]
+        if isinstance(node, QuantizedTensor):
+            return node.map_arrays(lambda a: a.cpu())
+        return node.cpu()
+
+    cpu = to_cpu(gpu)
+    sides = {}
+    for name, params, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
+        sp = stack_layer_params(params)
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+        sides[name] = (sp, dev)
+    # the card's K4 relayout against the CPU's plain relayout, leaf by leaf
+    for k, v in sides["cuda"][0]["layers"].items():
+        w = sides["cpu"][0]["layers"][k]
+        if isinstance(v, QuantizedTensor):
+            for f in ("qweight", "scales", "zeros"):
+                if not torch.equal(getattr(v, f).cpu(), getattr(w, f)):
+                    raise AssertionError(f"stacked {k}.{f} differs between card and CPU")
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, generator=gen)
+    logits, caches = {}, {}
+    for name, (sp, dev) in sides.items():
+        c = make_cache(cfg, B, MAX_SEQ, device=dev)
+        lg, caches[name] = prefill(sp, cfg, prompts, c, device=dev)
+        logits[name] = [lg.float().cpu()]
+    tok = torch.argmax(logits["cuda"][0], dim=-1).to(torch.int32)[:, None]
+    agree = [bool(torch.equal(tok, torch.argmax(logits["cpu"][0], -1).to(torch.int32)[:, None]))]
+    for i in range(STEPS):
+        for name, (sp, dev) in sides.items():
+            lg, caches[name] = decode_step(sp, cfg, tok, caches[name], T + i, device=dev)
+            logits[name].append(lg.float().cpu())
+        nxt = torch.argmax(logits["cuda"][-1], dim=-1).to(torch.int32)[:, None]
+        agree.append(bool(torch.equal(nxt, torch.argmax(logits["cpu"][-1], -1).to(torch.int32)[:, None])))
+        tok = nxt
+    errs = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
+    oks = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits["cuda"], logits["cpu"])]
+    res = {
+        "config": f"Llama-2-7B widths, {CROSS['LAYERS']} layers, B={B}, T={T}, {STEPS} greedy steps, "
+        "card kernels vs CPU plain versions",
+        "prefill_max_abs_err": errs[0],
+        "decode_max_abs_err": max(errs[1:]),
+        "tol": f"atol/rtol {LOGIT_TOL}",
+        "within_tol": all(oks),
+        "greedy_agreement": sum(agree) / len(agree),
+    }
+    log(f"[cross] {json.dumps(res)}")
+    if not all(oks):
+        raise AssertionError(f"card vs CPU logits outside tolerance: {errs}")
+
+
+KERNEL_META = {
+    "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
+    "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
+    "kv_write_int8": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:134"),
+    "decode_attn_int8": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:97"),
+    "planarize_w4": ("qllm_tpu_torch/csrc/repack.cu", "qllm_tpu/ops/pallas_repack.py:47"),
+}
+# the shape each kernel's summary entry reports (the largest of the path)
+HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup"}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="kernels,main,cross", help="comma-separated subset")
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    if not (repo / "qllm_tpu_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the qllm_tpu_torch package is not beside {__file__}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(repo))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = gpu_name_and_limit()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    from qllm_tpu_torch.ops import _build, attention, qmm, repack
+
+    K = {
+        "w4_planar_gemv": qmm.w4_planar_gemv,
+        "w4_planar_gemm": qmm.w4_planar_gemm,
+        "kv_write_int8": attention.kv_write_int8,
+        "decode_attn_int8": attention.decode_attn_int8,
+        "planarize_w4": repack.planarize_w4,
+    }
+    t0 = time.time()
+    _build.load_library()
+    log(f"[build] kernels ready in {time.time() - t0:.1f} s ({_build.build_dir()})")
+    blog = _build.build_dir() / "build.log"
+    if blog.exists():
+        for line in blog.read_text().splitlines():
+            if "Used" in line or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                log(f"[build] {line.strip()}")
+
+    timer = Timer(torch)
+    rows = phase_kernels(torch, timer) if "kernels" in phases else []
+    # launch counts come only from the main path's zeroed run
+    launches = phase_main(torch, K) if "main" in phases else {name: None for name in K}
+    if "cross" in phases:
+        phase_cross(torch)
+
+    summary = []
+    for name, (src, replaces) in KERNEL_META.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        head = next((r for r in mine if HEADLINE.get(name, "") in r["case"] and "+norm" not in r["case"]), None)
+        head = head or (mine[0] if mine else {})
+        summary.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": src,
+                "replaces": replaces,
+                "launches": launches[name],
+                "max_abs_err": max((r["max_abs_err"] for r in mine), default=None),
+                "ms": head.get("ms"),
+                "plain_ms": head.get("plain_ms"),
+                "bound_ms": head.get("bound_ms"),
+                "bound_by": head.get("bound_by"),
+                "library_ms": head.get("library_ms"),
+                "shape": head.get("case"),
+            }
+        )
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        ),
+        flush=True,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,234 @@
+// K3a kv_write_int8 and K3b decode_attn_int8: the decode step's KV
+// write and single-query attention over the int8 KV cache
+// (k/v [L, B, Hkv, S, D] int8, scales [L, B, Hkv, S] f32).
+
+#include "common.cuh"
+
+// ---------------------------------------------------------------------------
+// K3a kv_write_int8.
+//
+// Replaces _kv_write_kernel / kv_cache_write_pallas
+// (qllm_tpu/ops/pallas_attention.py:134, :186): quantize this step's k
+// and v per (batch, kv-head) symmetrically, scale = max(amax/127, 1e-8),
+// q = clip(round_half_even(x / scale), -127, 127), and write row pos[b]
+// of layer `layer` and its scale in place. The TPU kernel's 8-row window
+// is a Mosaic constraint; a CUDA thread block writes the single row.
+//
+// Bound on the H100: bytes, and tiny (B*Hkv*D*2 values in, as many int8
+// out); the launch itself dominates. One block per (b, kv-head), one
+// thread per element, one block-wide max.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kWriteThreads = 128;
+
+__device__ __forceinline__ float load_in(const void* p, int f32, size_t i) {
+  return f32 ? static_cast<const float*>(p)[i] : bf2f(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+__global__ void __launch_bounds__(kWriteThreads)
+    kv_write_kernel(const void* __restrict__ k_new, const void* __restrict__ v_new, int in_f32,
+                    int8_t* __restrict__ kc, int8_t* __restrict__ vc, float* __restrict__ ks,
+                    float* __restrict__ vs, const int* __restrict__ pos, int layer, int B, int H,
+                    int S, int D) {
+  __shared__ float red[kWriteThreads / 32];
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x;
+  const int p = pos[b];
+  if (p < 0 || p >= S) return;  // uniform across the block
+  const size_t row = ((static_cast<size_t>(layer) * B + b) * H + h) * S + p;
+  for (int which = 0; which < 2; ++which) {
+    const void* src = which ? v_new : k_new;
+    int8_t* cache = which ? vc : kc;
+    float* scale_row = which ? vs : ks;
+    float amax = 0.f;
+    for (int d = tid; d < D; d += kWriteThreads)
+      amax = fmaxf(amax, fabsf(load_in(src, in_f32, static_cast<size_t>(bh) * D + d)));
+    amax = warp_max(amax);
+    if ((tid & 31) == 0) red[tid >> 5] = amax;
+    __syncthreads();
+    amax = red[0];
+    for (int w = 1; w < kWriteThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+    const float scale = fmaxf(amax / 127.0f, 1e-8f);
+    for (int d = tid; d < D; d += kWriteThreads) {
+      // divide (not multiply by the reciprocal) and round half to even,
+      // as jnp.round does, so the int8 values equal the JAX kernel's
+      float q = rintf(load_in(src, in_f32, static_cast<size_t>(bh) * D + d) / scale);
+      q = fminf(fmaxf(q, -127.f), 127.f);
+      cache[row * D + d] = static_cast<int8_t>(q);
+    }
+    if (tid == 0) scale_row[row] = scale;
+    __syncthreads();  // red is reused by the next tensor
+  }
+}
+
+}  // namespace
+
+QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_cache,
+                                void* v_cache, void* k_scale, void* v_scale, const void* pos,
+                                int in_f32, int layer, int B, int H, int S, int D, void* stream) {
+  if (B < 1 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  kv_write_kernel<<<B * H, kWriteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      k_new, v_new, in_f32, static_cast<int8_t*>(k_cache), static_cast<int8_t*>(v_cache),
+      static_cast<float*>(k_scale), static_cast<float*>(v_scale), static_cast<const int*>(pos),
+      layer, B, H, S, D);
+  return qllm_launch_status();
+}
+
+// ---------------------------------------------------------------------------
+// K3b decode_attn_int8.
+//
+// Replaces _attn_kernel_stacked / _decode_attention_stacked
+// (pallas_attention.py:97, :457) behind decode_attention_pallas (:574),
+// S <= 8192: one query token per sequence attends over its first
+// lengths[b] cache rows. q is scaled by D^-0.5 in f32 and rounded to
+// bf16; scores = (q . k_int8) * ks, positions >= lengths[b] are masked,
+// softmax in f32; the probabilities times vs are rounded to bf16 before
+// the product with v_int8 (the v scale folds into the probabilities);
+// output f32 [B, H, D].
+//
+// Bound on the H100: bytes (every int8 K and V row of the sequence is
+// read once, ~2 flops per byte per query head). Design: one block per
+// (b, kv-head) serving its n_rep query heads, so each K/V row is read
+// once for the whole GQA group; the TPU kernel holds the whole [S, D]
+// block in VMEM, which 227 KB of shared memory cannot at S = 8192, so
+// the block walks S in tiles of 128 keys with an online softmax (running
+// max and denominator, accumulators rescaled per tile). Scores: one key
+// per thread, 16-byte loads of its K row; P.V: one head dimension per
+// thread, a warp reading one 128-byte V row per key.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kAttnThreads = 128;  // = keys per tile
+constexpr int kMaxRep = 8;
+constexpr int kMaxD = 256;
+
+__global__ void __launch_bounds__(kAttnThreads)
+    decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
+                       const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+                       const float* __restrict__ ks, const float* __restrict__ vs,
+                       const int* __restrict__ lengths, float* __restrict__ out,  // [B, H, D]
+                       int layer, int B, int Hkv, int S, int D, int n_rep, float qscale) {
+  __shared__ float qs[kMaxRep][kMaxD];
+  __shared__ float pt[kMaxRep][kAttnThreads];  // scores, then bf16(p * vs)
+  __shared__ float red[kMaxRep][kAttnThreads / 32];
+  __shared__ float m_run[kMaxRep], l_run[kMaxRep], alpha[kMaxRep];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int H = Hkv * n_rep;
+  const int len = min(lengths[b], S);
+  const size_t base = ((static_cast<size_t>(layer) * B + b) * Hkv + hk) * S;  // cache row 0
+
+  for (int i = tid; i < n_rep * D; i += kAttnThreads) {
+    const int r = i / D, d = i % D;
+    qs[r][d] = round_bf16(bf2f(q[(static_cast<size_t>(b) * H + hk * n_rep + r) * D + d]) * qscale);
+  }
+  if (tid < n_rep) {
+    m_run[tid] = neg_inf();
+    l_run[tid] = 0.f;
+  }
+  float acc[kMaxRep][kMaxD / kAttnThreads];
+#pragma unroll
+  for (int r = 0; r < kMaxRep; ++r)
+#pragma unroll
+    for (int i = 0; i < kMaxD / kAttnThreads; ++i) acc[r][i] = 0.f;
+  __syncthreads();
+
+  for (int s0 = 0; s0 < len; s0 += kAttnThreads) {
+    const int s = s0 + tid;
+    const bool valid = s < len;
+    // scores for this thread's key, every head of the group
+    for (int r = 0; r < n_rep; ++r) {
+      float score = neg_inf();
+      if (valid) {
+        const int8_t* krow = kc + (base + s) * D;
+        float dot = 0.f;
+        for (int d0 = 0; d0 < D; d0 += 16) {
+          const int4 kv = *reinterpret_cast<const int4*>(krow + d0);
+          const int8_t* kb = reinterpret_cast<const int8_t*>(&kv);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) dot = fmaf(qs[r][d0 + i], static_cast<float>(kb[i]), dot);
+        }
+        score = dot * ks[base + s];
+      }
+      pt[r][tid] = score;
+      const float wmax = warp_max(score);
+      if (lane == 0) red[r][warp] = wmax;
+    }
+    __syncthreads();
+    if (tid < n_rep) {
+      float tmax = red[tid][0];
+      for (int w = 1; w < kAttnThreads / 32; ++w) tmax = fmaxf(tmax, red[tid][w]);
+      const float m_new = fmaxf(m_run[tid], tmax);
+      alpha[tid] = expf(m_run[tid] - m_new);  // 0 on the first tile
+      m_run[tid] = m_new;
+    }
+    __syncthreads();
+    for (int r = 0; r < n_rep; ++r) {
+      float p = 0.f, pv = 0.f;
+      if (valid) {
+        p = expf(pt[r][tid] - m_run[r]);
+        pv = round_bf16(p * vs[base + s]);
+      }
+      pt[r][tid] = pv;
+      const float wsum = warp_sum(p);
+      if (lane == 0) red[r][warp] = wsum;
+    }
+    __syncthreads();
+    if (tid < n_rep) {
+      float tsum = 0.f;
+      for (int w = 0; w < kAttnThreads / 32; ++w) tsum += red[tid][w];
+      l_run[tid] = l_run[tid] * alpha[tid] + tsum;
+    }
+    const int nk = min(kAttnThreads, len - s0);
+    // head loops run to the compile-time bound so acc stays in registers
+#pragma unroll
+    for (int i = 0; i < kMaxD / kAttnThreads; ++i) {
+      const int d = tid + i * kAttnThreads;
+      if (d < D) {
+#pragma unroll
+        for (int r = 0; r < kMaxRep; ++r)
+          if (r < n_rep) acc[r][i] *= alpha[r];
+        const int8_t* vcol = vc + (base + s0) * D + d;
+        for (int j = 0; j < nk; ++j) {
+          const float v = static_cast<float>(vcol[static_cast<size_t>(j) * D]);
+#pragma unroll
+          for (int r = 0; r < kMaxRep; ++r)
+            if (r < n_rep) acc[r][i] = fmaf(pt[r][j], v, acc[r][i]);
+        }
+      }
+    }
+    __syncthreads();  // pt / red / alpha are rewritten by the next tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < kMaxD / kAttnThreads; ++i) {
+    const int d = tid + i * kAttnThreads;
+    if (d < D) {
+#pragma unroll
+      for (int r = 0; r < kMaxRep; ++r)
+        if (r < n_rep) out[(static_cast<size_t>(b) * H + hk * n_rep + r) * D + d] = acc[r][i] / l_run[r];
+    }
+  }
+}
+
+}  // namespace
+
+QLLM_API int qllm_decode_attn_int8(const void* q, const void* k_cache, const void* v_cache,
+                                   const void* k_scale, const void* v_scale, const void* lengths,
+                                   void* out, int layer, int B, int Hkv, int S, int D, int n_rep,
+                                   float qscale, void* stream) {
+  if (n_rep < 1 || n_rep > kMaxRep || D > kMaxD || D % 16 != 0 || B < 1 || Hkv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  decode_attn_kernel<<<B * Hkv, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_cache),
+      static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
+      static_cast<float*>(out), layer, B, Hkv, S, D, n_rep, qscale);
+  return qllm_launch_status();
+}
