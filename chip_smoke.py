@@ -12,13 +12,18 @@ Phases, each of which fails the run on any error or disagreement:
      with the kernel's, the plain version's and (where one exists) a
      single PyTorch library call's time (CUDA events, median of 20 runs
      after warm-up, L2 flushed before each run);
-  3. main path: a Llama-2-7B-shape W4 g128 model (32 layers, random
-     weights drawn on the card, quantized lm_head) is stacked for
-     serving, prefills 8 prompts of 128 tokens into an int8 KV cache
-     (max_seq 256) and decodes 64 greedy steps, with every kernel's
-     launch count read before and after;
-  4. cross-check: the same widths at 2 layers on the card and on the
-     CPU (plain versions), B=2, T=32, 8 steps: logits within tolerance.
+  3. main: a Llama-2-7B-shape W4 g128 model (32 layers, random weights
+     drawn on the card, quantized lm_head) is stacked for serving,
+     prefills 8 prompts of 128 tokens into an int8 KV cache (max_seq
+     256) and decodes 64 greedy steps, with every kernel's launch count
+     set to 0 before and read after;
+  4. main1: the same model at batch 1: a 512-token prompt flash-prefilled
+     into a ring-fused cache (max_seq 640), 64 ring-fused greedy steps,
+     then a 2048-token prompt flash-prefilled into a 2048-row int8
+     cache, counts again set to 0 before and read after;
+  5. cross: the same widths at 2 layers on the card and on the CPU
+     (plain versions), B=2, T=32, 8 steps on the plain cache, then B=1,
+     T=256 (flash), 16 steps on a ring cache: logits within tolerance.
 
 The line before the last is a JSON object listing every kernel; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -58,14 +63,34 @@ PROJECTIONS = (
 )
 # the main path: batch, prompt length, decode steps, cache length, depth
 MAIN = dict(B=8, T=128, STEPS=64, MAX_SEQ=256, LAYERS=32)
-# the card-vs-CPU cross-check at full width
+# the batch-1 main path: prompt, ring decode steps, ring cache length,
+# and the long prompt (bench.py's prefill_512 / prefill_2048 shapes)
+MAIN1 = dict(T=512, STEPS=64, MAX_SEQ=640, T_LONG=2048)
+# the card-vs-CPU cross-check at full width, plain cache then ring cache
 CROSS = dict(B=2, T=32, STEPS=8, MAX_SEQ=64, LAYERS=2)
+CROSS1 = dict(T=256, STEPS=16, MAX_SEQ=280)
 # the K3a / K3b phase: layers, batch, kv heads, cache length, head width
 ATTN_SHAPE = dict(L=2, B=8, Hkv=32, S=256, D=128)
 K4_SHAPE = (32, 512, 22016)  # the gateup stack, [L, 4096/8, N]
+# K1 / K2 rows per case: (kernel, M, projection or None for all)
+QMM_CASES = (
+    ("w4_planar_gemv", 8, None),
+    ("w4_planar_gemv", 1, None),
+    ("w4_planar_gemm", 1024, None),
+    ("w4_planar_gemm", 512, "gateup"),
+    ("w4_planar_gemm", 2048, "gateup"),
+)
+# K5 at batch 1, 32 heads: (T, S, K/V form), pos 0
+FLASH_CASES = ((512, 640, "int8"), (2048, 2048, "int8"), (2048, 2048, "bf16"))
+# K6: a layer-1 step of a 2-layer ring cache at pos 571 (3 ring rows);
+# K7: every layer's ring of a 32-layer cache into rows [568, 576)
+RING_SHAPE = dict(L=2, B=1, Hkv=32, S=640, D=128, pos=571)
+FLUSH_SHAPE = dict(L=32, B=1, Hkv=32, S=640, D=128, pos=576)
 DEV = "cuda"
 QMM_TOL = 2e-2  # atol 2e-2 * max|y|, rtol 2e-2 (tests/test_pallas_qmm.py)
 ATTN_TOL = 2e-2  # tests/test_pallas_attention.py:59
+RING_TOL = 1e-2  # tests/test_torch_ring.py (JAX: 3e-2 against numpy)
+FLASH_TOL = 2e-2  # tests/test_torch_flash_prefill.py (JAX: 3e-2 against numpy)
 LOGIT_TOL = 5e-2  # tests/test_pallas_attention.py:83
 
 
@@ -119,6 +144,7 @@ def gpu_name_and_limit() -> str:
 def phase_kernels(torch, timer):
     """Every kernel at the main path's 7B shapes against its plain version."""
     from qllm_tpu_torch.ops import attention as att
+    from qllm_tpu_torch.ops import flash_prefill as fp
     from qllm_tpu_torch.ops import qmm, repack
 
     gen = torch.Generator(device=DEV)
@@ -137,12 +163,16 @@ def phase_kernels(torch, timer):
         w = v * sc[layer].float()[:, None, :] - zs[layer].float()[:, None, :]
         return w.reshape(Kf, -1).to(torch.bfloat16)
 
-    # K1 / K2: M = 8 decode rows and M = 1024 prefill rows (8 x 128)
-    for kname, M, fn, plain in (
-        ("w4_planar_gemv", 8, qmm.w4_planar_gemv, qmm.w4_planar_gemv_plain),
-        ("w4_planar_gemm", 1024, qmm.w4_planar_gemm, qmm.w4_planar_gemm_plain),
-    ):
+    # K1 / K2: M = 8 and 1 decode rows, M = 1024 (8 x 128), 512 and 2048 prefill rows
+    fns = {
+        "w4_planar_gemv": (qmm.w4_planar_gemv, qmm.w4_planar_gemv_plain),
+        "w4_planar_gemm": (qmm.w4_planar_gemm, qmm.w4_planar_gemm_plain),
+    }
+    for kname, M, only in QMM_CASES:
+        fn, plain = fns[kname]
         for pname, Kf, N in PROJECTIONS:
+            if only is not None and pname != only:
+                continue
             Np = -(-N // 512) * 512
             qw, sc, zs = stack(Kf, Np)
             x = torch.randn((M, Kf), device=dev, generator=gen).to(torch.bfloat16)
@@ -228,6 +258,117 @@ def phase_kernels(torch, timer):
         raise AssertionError(f"decode_attn_int8: max_abs_err {err}")
     del kc, vc, ks, vs, caches, refs, kd, vd
 
+    # K6 decode_attention_ring: one batch-1 step at pos 571 (flushed 568, 3 ring rows)
+    L, B, Hkv, S, D, p = (RING_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D", "pos"))
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005
+    vs = torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005
+    rk = torch.randn((L, B, Hkv, att.RING, D), device=dev, generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    k_new = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    v_new = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
+    lengths = torch.full((B,), p, dtype=torch.int32, device=dev)
+    mine, theirs = [rk.clone(), rv.clone()], [rk.clone(), rv.clone()]
+    cache_args = (kc, vc, ks, vs)
+    out = att.decode_attention_ring(q, k_new, v_new, *cache_args, *mine, lengths, 1)
+    torch.cuda.synchronize()
+    ref = att.decode_attention_ring_plain(q, k_new, v_new, *cache_args, *theirs, lengths, 1)
+    err = float((out - ref).abs().max())
+    rings_same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    ok = bool(torch.allclose(out, ref, atol=RING_TOL, rtol=RING_TOL)) and rings_same
+    flushed, nring = p // att.RING * att.RING, p % att.RING
+    keys = torch.cat([(kc[1, :, :, :flushed].float() * ks[1, :, :, :flushed, None]).to(torch.bfloat16),
+                      rk[1, :, :, :nring], k_new[:, :, None]], dim=2)
+    vals = torch.cat([(vc[1, :, :, :flushed].float() * vs[1, :, :, :flushed, None]).to(torch.bfloat16),
+                      rv[1, :, :, :nring], v_new[:, :, None]], dim=2)
+    lib_ms = timer(lambda: sdpa(q[:, :, None, :], keys, vals))
+    ms = timer(lambda: att.decode_attention_ring(q, k_new, v_new, *cache_args, *mine, lengths, 1))
+    plain_ms = timer(lambda: att.decode_attention_ring_plain(q, k_new, v_new, *cache_args, *theirs, lengths, 1))
+    nbytes = (B * Hkv * (flushed * (2 * D + 8) + nring * 4 * D) + B * Hkv * D * 2 * 3  # rows, q, k/v_new
+              + B * Hkv * D * 4 + 2 * B * Hkv * D * 2 + B * 4)  # out, the ring slot, lengths
+    b_ms, b_by = bound(nbytes, 4.0 * B * Hkv * D * (p + 1))
+    rows.append(dict(kernel="decode_attention_ring", case=f"B={B} H=Hkv={Hkv} D={D} S={S} pos={p} ({nring} ring rows)",
+                     max_abs_err=err, tol=f"atol/rtol {RING_TOL}, rings bit-equal", rings_equal=rings_same, ok=ok,
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if not ok:
+        raise AssertionError(f"decode_attention_ring: max_abs_err {err}, rings equal {rings_same}")
+    del kc, vc, ks, vs, keys, vals
+
+    # K7 kv_ring_flush: all 32 layers' rings into rows [568, 576)
+    L, B, Hkv, S, D, p = (FLUSH_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D", "pos"))
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005
+    vs = torch.rand((L, B, Hkv, S), device=dev, generator=gen) * 0.015 + 0.005
+    rk = torch.randn((L, B, Hkv, att.RING, D), device=dev, generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device=dev, generator=gen).to(torch.bfloat16)
+    pos = torch.full((B,), p, dtype=torch.int32, device=dev)
+    mine = [t.clone() for t in (kc, vc, ks, vs)]
+    theirs = [t.clone() for t in (kc, vc, ks, vs)]
+    att.kv_ring_flush(*mine, rk, rv, pos)
+    torch.cuda.synchronize()
+    att.kv_ring_flush_plain(*theirs, rk, rv, pos)
+    err_q = max(float((a.float() - b.float()).abs().max()) for a, b in zip(mine[:2], theirs[:2]))
+    err_s = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(mine[2:], theirs[2:]))
+    ok = err_q == 0.0 and err_s <= 1e-6
+    ms = timer(lambda: att.kv_ring_flush(*mine, rk, rv, pos))
+    plain_ms = timer(lambda: att.kv_ring_flush_plain(*theirs, rk, rv, pos))
+    n = L * B * Hkv * att.RING
+    b_ms, b_by = bound(2 * n * D * 2 + 2 * n * D + 2 * n * 4 + B * 4)
+    rows.append(dict(kernel="kv_ring_flush", case=f"L={L} B={B} Hkv={Hkv} D={D} S={S} rows [{p - att.RING}, {p})",
+                     max_abs_err=err_q, tol="int8 exact, scales rtol 1e-6", scale_rel_err=err_s, ok=bool(ok),
+                     ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if not ok:
+        raise AssertionError(f"kv_ring_flush: int8 err {err_q}, scale rel err {err_s}")
+    del kc, vc, ks, vs, mine, theirs
+
+    # K5 flash_prefill: batch 1, 32 heads, from position 0
+    for T, S, form in FLASH_CASES:
+        B, H, D = 1, SEVEN_B["num_attention_heads"], 128
+        q = torch.randn((B, T, H, D), device=dev, generator=gen).to(torch.bfloat16)
+        pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+        if form == "int8":
+            k = torch.randint(-127, 128, (B, H, S, D), dtype=torch.int8, device=dev, generator=gen)
+            v = torch.randint(-127, 128, (B, H, S, D), dtype=torch.int8, device=dev, generator=gen)
+            ksc = torch.rand((B, H, S), device=dev, generator=gen) * 0.015 + 0.005
+            vsc = torch.rand((B, H, S), device=dev, generator=gen) * 0.015 + 0.005
+            kd = (k.float() * ksc[..., None]).to(torch.bfloat16)
+            vd = (v.float() * vsc[..., None]).to(torch.bfloat16)
+        else:  # the cacheless layout [B, S, H, D], seen as [B, H, S, D]
+            k = torch.randn((B, S, H, D), device=dev, generator=gen).to(torch.bfloat16).transpose(1, 2)
+            v = torch.randn((B, S, H, D), device=dev, generator=gen).to(torch.bfloat16).transpose(1, 2)
+            ksc = vsc = None
+            kd, vd = k, v
+        args = (q, k, v, ksc, vsc, pos, torch.bfloat16)
+        out = fp.flash_prefill(*args)
+        torch.cuda.synchronize()
+        ref = fp.flash_prefill_plain(*args)
+        err = float((out.float() - ref.float()).abs().max())
+        ok = torch.allclose(out.float(), ref.float(), atol=FLASH_TOL, rtol=FLASH_TOL)
+        del ref
+        qt, kt, vt = q.transpose(1, 2), kd[:, :, :T].contiguous(), vd[:, :, :T].contiguous()
+        lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
+        del qt, kt, vt
+        ms = timer(lambda: fp.flash_prefill(*args))
+        plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
+        keys = min(S, T)  # pos 0: keys [0, T) are visible to some query
+        pairs = sum(min(S, t + 1) for t in range(T))  # (query, key) pairs the mask keeps
+        elt = 1 if form == "int8" else 2
+        nbytes = 2 * B * T * H * D * 2 + 2 * B * H * keys * D * elt + (2 * B * H * keys * 4 if form == "int8" else 0)
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
+        rows.append(dict(kernel="flash_prefill", case=f"T={T} S={S} B={B} H=Hkv={H} D={D} {form} K/V, pos 0",
+                         max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}", ok=bool(ok), ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"flash_prefill T={T} S={S} {form}: max_abs_err {err}")
+        del q, k, v, kd, vd, out
+    torch.cuda.empty_cache()
+
     # K4: the gateup stack at load time, [32, 4096/8, 22016]
     words = torch.randint(-(2**31), 2**31, K4_SHAPE, dtype=torch.int32, device=dev, generator=gen)
     k4 = K4_SHAPE[1] * 8
@@ -311,20 +452,16 @@ def phase_main(torch, K):
     log(f"[main] launches per decode step {json.dumps(per_step)}")
     expected = {
         "load": {"planarize_w4": 5},
-        "prefill": {"w4_planar_gemm": 4 * cfg.num_hidden_layers + 1},
+        "prefill": {"w4_planar_gemm": 4 * cfg.num_hidden_layers + 1, "flash_prefill": 0},
         "decode": {
             "w4_planar_gemv": (4 * cfg.num_hidden_layers + 1) * STEPS,
             "kv_write_int8": cfg.num_hidden_layers * STEPS,
             "decode_attn_int8": cfg.num_hidden_layers * STEPS,
+            "decode_attention_ring": 0,
+            "kv_ring_flush": 0,
         },
     }
-    for ph, want in expected.items():
-        for k, n in want.items():
-            if per_phase[ph][k] != n:
-                raise AssertionError(f"{ph}: {k} launched {per_phase[ph][k]} times, expected {n}")
-    for name, n in total.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    check_launches(per_phase, expected)
     lf = logits.float()
     if tuple(lf.shape) != (B, cfg.vocab_size) or not bool(torch.isfinite(lf).all()):
         raise AssertionError("prefill logits are not finite [B, V]")
@@ -364,7 +501,130 @@ def phase_main(torch, K):
     log(f"[main] {json.dumps(result)}")
     if not same:
         raise AssertionError("a second run on the same prompts decoded other ids")
-    del sp, cache, logits, logits2
+    del cache, logits, logits2
+    torch.cuda.empty_cache()
+    return total, (cfg, sp)
+
+
+def check_launches(per_phase, expected):
+    for ph, want in expected.items():
+        for k, n in want.items():
+            if per_phase[ph][k] != n:
+                raise AssertionError(f"{ph}: {k} launched {per_phase[ph][k]} times, expected {n}")
+
+
+def phase_main1(torch, K, model):
+    """The batch-1 main path on the same 7B model: a 512-token flash
+    prefill into a ring cache, 64 ring-fused steps, a 2048-token prefill."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import make_cache, prefill
+
+    if model is None:
+        from qllm_tpu_torch.models.llama import ModelConfig
+        from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+        from qllm_tpu_torch.utils.testing import random_quantized_params
+
+        cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
+        sp = stack_layer_params(random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV))
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    else:
+        cfg, sp = model
+    T, STEPS, MAX_SEQ, T_LONG = (MAIN1[k] for k in ("T", "STEPS", "MAX_SEQ", "T_LONG"))
+    L = cfg.num_hidden_layers
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), dtype=torch.int32, device=DEV, generator=gen)
+    prompt_long = torch.randint(0, cfg.vocab_size, (1, T_LONG), dtype=torch.int32, device=DEV, generator=gen)
+
+    def run():
+        """prefill T into a ring cache, STEPS ring steps, prefill T_LONG;
+        the counts and times after each part"""
+        marks, times = [], []
+        cache = make_cache(cfg, 1, MAX_SEQ, ring=True, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(sp, cfg, prompt, cache, device=DEV)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        marks.append(counts(K))
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        t0 = time.perf_counter()
+        toks, cache = decode_loop(sp, cfg, first, cache, T, STEPS, device=DEV)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        marks.append(counts(K))
+        long_cache = make_cache(cfg, 1, T_LONG, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_long, long_cache = prefill(sp, cfg, prompt_long, long_cache, device=DEV)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        marks.append(counts(K))
+        return logits, toks, cache, logits_long, marks, times
+
+    for fn in K.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero = counts(K)
+    logits, toks, cache, logits_long, marks, cold = run()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    total = marks[-1]
+
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in b}
+
+    per_phase = {
+        f"prefill_{T}": delta(zero, marks[0]),
+        "decode": delta(marks[0], marks[1]),
+        f"prefill_{T_LONG}": delta(marks[1], marks[2]),
+    }
+    log(f"[main1] launches per phase {json.dumps(per_phase)}")
+    prefill_want = {"w4_planar_gemm": 4 * L + 1, "flash_prefill": L, "w4_planar_gemv": 0}
+    check_launches(per_phase, {
+        f"prefill_{T}": prefill_want,
+        "decode": {
+            "w4_planar_gemv": (4 * L + 1) * STEPS,
+            "decode_attention_ring": L * STEPS,
+            "kv_ring_flush": STEPS // 8,
+            "kv_write_int8": 0,
+            "decode_attn_int8": 0,
+            "flash_prefill": 0,
+        },
+        f"prefill_{T_LONG}": prefill_want,
+    })
+    for lg, n in ((logits, (1, cfg.vocab_size)), (logits_long, (1, cfg.vocab_size))):
+        if tuple(lg.shape) != n or not bool(torch.isfinite(lg.float()).all()):
+            raise AssertionError("prefill logits are not finite [1, V]")
+    if tuple(toks.shape) != (1, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("decoded ids out of range")
+
+    # a second, warm run: the same ids
+    _, toks2, cache, _, _, warm = run()
+    same = bool(torch.equal(toks, toks2))
+    busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + STEPS, steps=8)
+    result = {
+        "config": f"Llama-2-7B shape, {L} layers, W4 g128, quantized lm_head, B=1: T={T} prefill into a ring "
+        f"cache of max_seq {MAX_SEQ}, {STEPS} ring-fused greedy steps, T={T_LONG} prefill into an int8 "
+        f"cache of max_seq {T_LONG}",
+        f"prefill_{T}_ms": cold[0] * 1e3,
+        f"prefill_{T}_warm_ms": warm[0] * 1e3,
+        f"prefill_{T}_tok_s_warm": T / warm[0],
+        f"prefill_{T_LONG}_ms": cold[2] * 1e3,
+        f"prefill_{T_LONG}_warm_ms": warm[2] * 1e3,
+        f"prefill_{T_LONG}_tok_s_warm": T_LONG / warm[2],
+        "decode_steps": STEPS,
+        "decode_tok_s": STEPS / cold[1],
+        "decode_ms_per_step": cold[1] / STEPS * 1e3,
+        "decode_tok_s_warm": STEPS / warm[1],
+        "decode_ms_per_step_warm": warm[1] / STEPS * 1e3,
+        "peak_mem_gib": peak_gib,
+        **busy,
+        "repeat_run_same_ids": same,
+    }
+    log(f"[main1] {json.dumps(result)}")
+    if not same:
+        raise AssertionError("a second run on the same prompt decoded other ids")
+    del sp, cache
     torch.cuda.empty_cache()
     return total
 
@@ -403,6 +663,7 @@ def phase_cross(torch):
     from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
     from qllm_tpu_torch.models.llama import ModelConfig
     from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+    from qllm_tpu_torch.ops.attention import RING, kv_ring_flush
     from qllm_tpu_torch.quant.qtensor import QuantizedTensor
     from qllm_tpu_torch.utils.testing import random_quantized_params
 
@@ -451,18 +712,49 @@ def phase_cross(torch):
         tok = nxt
     errs = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
     oks = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits["cuda"], logits["cpu"])]
+
+    # batch 1 on a ring cache: a T=256 flash prefill, then 16 ring-fused
+    # steps with a flush after every 8th (decode_loop's schedule)
+    T1, STEPS1, MAX1 = (CROSS1[k] for k in ("T", "STEPS", "MAX_SEQ"))
+    prompt1 = torch.randint(0, cfg.vocab_size, (1, T1), dtype=torch.int32, generator=gen)
+    logits1, caches1 = {}, {}
+    for name, (sp, dev) in sides.items():
+        c = make_cache(cfg, 1, MAX1, ring=True, device=dev)
+        lg, caches1[name] = prefill(sp, cfg, prompt1, c, device=dev)
+        logits1[name] = [lg.float().cpu()]
+
+    def greedy(lg):
+        return torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+
+    tok = greedy(logits1["cuda"][0])
+    agree1 = [bool(torch.equal(tok, greedy(logits1["cpu"][0])))]
+    for i in range(STEPS1):
+        for name, (sp, dev) in sides.items():
+            lg, c = decode_step(sp, cfg, tok, caches1[name], T1 + i, device=dev)
+            if (T1 + i + 1) % RING == 0:
+                pos = torch.full((1,), T1 + i + 1, dtype=torch.int32, device=c.device)
+                kv_ring_flush(c.k, c.v, c.k_scale, c.v_scale, c.ring_k, c.ring_v, pos)
+            logits1[name].append(lg.float().cpu())
+        tok = greedy(logits1["cuda"][-1])
+        agree1.append(bool(torch.equal(tok, greedy(logits1["cpu"][-1]))))
+    errs1 = [float((a - b).abs().max()) for a, b in zip(logits1["cuda"], logits1["cpu"])]
+    oks1 = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits1["cuda"], logits1["cpu"])]
     res = {
-        "config": f"Llama-2-7B widths, {CROSS['LAYERS']} layers, B={B}, T={T}, {STEPS} greedy steps, "
-        "card kernels vs CPU plain versions",
+        "config": f"Llama-2-7B widths, {CROSS['LAYERS']} layers, card kernels vs CPU plain versions: "
+        f"B={B}, T={T}, {STEPS} greedy steps on the plain int8 cache; B=1, T={T1} (flash), "
+        f"{STEPS1} greedy steps on a ring cache",
         "prefill_max_abs_err": errs[0],
         "decode_max_abs_err": max(errs[1:]),
-        "tol": f"atol/rtol {LOGIT_TOL}",
-        "within_tol": all(oks),
         "greedy_agreement": sum(agree) / len(agree),
+        "ring_prefill_max_abs_err": errs1[0],
+        "ring_decode_max_abs_err": max(errs1[1:]),
+        "ring_greedy_agreement": sum(agree1) / len(agree1),
+        "tol": f"atol/rtol {LOGIT_TOL}",
+        "within_tol": all(oks) and all(oks1),
     }
     log(f"[cross] {json.dumps(res)}")
-    if not all(oks):
-        raise AssertionError(f"card vs CPU logits outside tolerance: {errs}")
+    if not all(oks) or not all(oks1):
+        raise AssertionError(f"card vs CPU logits outside tolerance: {errs} {errs1}")
 
 
 KERNEL_META = {
@@ -471,14 +763,18 @@ KERNEL_META = {
     "kv_write_int8": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:134"),
     "decode_attn_int8": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:97"),
     "planarize_w4": ("qllm_tpu_torch/csrc/repack.cu", "qllm_tpu/ops/pallas_repack.py:47"),
+    # at S <= 2048 the TPU runs the single-key-block kernel :751, above it :791
+    "flash_prefill": ("qllm_tpu_torch/csrc/flash_prefill.cu", "qllm_tpu/ops/pallas_attention.py:751"),
+    "decode_attention_ring": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1212"),
+    "kv_ring_flush": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1423"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
-HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup"}
+HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,cross", help="comma-separated subset")
+    ap.add_argument("--phases", default="kernels,main,main1,cross", help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     import torch
@@ -497,7 +793,7 @@ def main() -> int:
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    from qllm_tpu_torch.ops import _build, attention, qmm, repack
+    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, repack
 
     K = {
         "w4_planar_gemv": qmm.w4_planar_gemv,
@@ -505,6 +801,9 @@ def main() -> int:
         "kv_write_int8": attention.kv_write_int8,
         "decode_attn_int8": attention.decode_attn_int8,
         "planarize_w4": repack.planarize_w4,
+        "flash_prefill": flash_prefill.flash_prefill,
+        "decode_attention_ring": attention.decode_attention_ring,
+        "kv_ring_flush": attention.kv_ring_flush,
     }
     t0 = time.time()
     _build.load_library()
@@ -517,8 +816,16 @@ def main() -> int:
 
     timer = Timer(torch)
     rows = phase_kernels(torch, timer) if "kernels" in phases else []
-    # launch counts come only from the main path's zeroed run
-    launches = phase_main(torch, K) if "main" in phases else {name: None for name in K}
+    # launch counts come only from the main paths' runs, each with the
+    # counts set to 0 just before it: the batch-8 path, then the batch-1 path
+    runs, model = [], None
+    if "main" in phases:
+        total, model = phase_main(torch, K)
+        runs.append(total)
+    if "main1" in phases:
+        runs.append(phase_main1(torch, K, model))
+    model = None
+    launches = {name: sum(r[name] for r in runs) if runs else None for name in K}
     if "cross" in phases:
         phase_cross(torch)
 

@@ -53,19 +53,6 @@ namespace {
 constexpr int kGemvMaxWarps = 16;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // the nibbles at bits s..s+3 and s+16..s+19 of w as an exact bf16 pair:
 // OR-ed into the mantissa of 128.0 they give 128 + v, then minus 128
 __device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w, int s) {

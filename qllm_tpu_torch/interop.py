@@ -10,6 +10,10 @@ params)``) and returns the port's params with the same structure:
   * ``uint32`` words arrive as the ``int32`` tensor with the same bits;
   * numpy bfloat16 (ml_dtypes) arrays become ``torch.bfloat16`` tensors.
 
+``cache_from_numpy(cache)`` carries a JAX ``QuantizedKVCache`` across
+the same way (its arrays as numpy, rings included), so a test can start
+both packages from one cache.
+
 It imports nothing of JAX: the leaves are recognised by their fields.
 """
 
@@ -20,10 +24,11 @@ from typing import Any, Union
 import numpy as np
 import torch
 
+from .ops.kv_cache import QuantizedKVCache
 from .quant.qtensor import QuantizedTensor
 from .utils.device import resolve_device
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "cache_from_numpy"]
 
 _QT_FIELDS = (
     "qweight",
@@ -84,3 +89,23 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cuda") -> A
         return tensor_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def cache_from_numpy(cache, device: Union[str, torch.device] = "cuda") -> QuantizedKVCache:
+    """A KV cache with ``k / v / k_scale / v_scale / quantized / ring_k /
+    ring_v`` fields (numpy arrays or None) -> the port's cache, bit for
+    bit, on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        return None if a is None else tensor_from_numpy(a, dev)
+
+    return QuantizedKVCache(
+        k=conv(cache.k),
+        v=conv(cache.v),
+        k_scale=conv(cache.k_scale),
+        v_scale=conv(cache.v_scale),
+        quantized=bool(cache.quantized),
+        ring_k=conv(cache.ring_k),
+        ring_v=conv(cache.ring_v),
+    )

@@ -30,8 +30,9 @@ def make_cache(
     ring: bool = False,
     device: Device = "cuda",
 ) -> QuantizedKVCache:
-    """An empty KV cache for ``cfg``. ``ring=True`` (the ring-fused decode
-    path) is not ported yet and raises."""
+    """An empty KV cache for ``cfg``. ``ring=True`` adds the bf16 rings of
+    the ring-fused decode path (``decode_loop`` flushes them every 8
+    steps); it needs ``quantized_kv`` and ``max_seq % 8 == 0``."""
     return QuantizedKVCache.create(
         cfg.num_hidden_layers,
         batch,

@@ -19,7 +19,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ..ops.attention import decode_attention, kv_write_int8
+from ..ops.attention import decode_attention, decode_attention_ring, kv_write_int8
+from ..ops.flash_prefill import prefill_attention_flash
 from ..ops.kv_cache import QuantizedKVCache
 from ..ops.ref_matmul import qmatmul
 from ..quant.qtensor import QuantizedTensor
@@ -252,15 +253,19 @@ def _attention(q, k, v, mask, n_rep: int) -> torch.Tensor:
 FLASH_PREFILL_MIN_T = 256
 
 
-def _check_prefill_attention(T: int, hd: int, device: torch.device) -> None:
-    """At T >= 256 (head width a multiple of 128) the JAX package runs
-    its flash prefill kernel; its CUDA port is still to come, and no
-    plain version stands in for it on the card."""
-    if device.type == "cuda" and T >= FLASH_PREFILL_MIN_T and hd % 128 == 0:
+def _flash_prefill_ok(cfg: ModelConfig, T: int, hd: int) -> bool:
+    """Route attention through prefill_attention_flash (K5) when the
+    shape qualifies, as the JAX package does (its ``_flash_prefill_ok``):
+    T >= 256, no ALiBi bias, a head width that is a multiple of 128. The
+    plain masked path serves everything else."""
+    return T >= FLASH_PREFILL_MIN_T and cfg.pos_embedding != "alibi" and hd % 128 == 0
+
+
+def _check_ring_cfg(cfg: ModelConfig) -> None:
+    if cfg.attn_logit_softcap != 0.0 or cfg.pos_embedding == "alibi" or cfg.sliding_window > 0:
         raise NotImplementedError(
-            f"prefill of T={T} >= {FLASH_PREFILL_MIN_T} tokens needs the flash prefill "
-            "kernel prefill_attention_flash (qllm_tpu/ops/pallas_attention.py:872), "
-            "not ported yet"
+            "ring-fused decode applies neither the logit softcap, the alibi bias, nor "
+            "sliding-window masking; create the cache with ring=False for such models"
         )
 
 
@@ -294,11 +299,15 @@ def _check_fits(cache: Optional[QuantizedKVCache], pos, T: int) -> None:
 def _attn_inputs(cfg: ModelConfig, B: int, T: int, cache, pos, device):
     """(mask, slots) for one forward, built once for all layers: a
     one-token step into the int8 cache gets slots = (write positions [B],
-    lengths [B]) for K3a / K3b and no mask; every other call gets the
-    causal mask and no slots."""
+    lengths [B]) and no mask, with lengths = pos + 1 for K3a / K3b and
+    lengths = pos (the past tokens) for the ring kernel; a call that
+    flash prefill takes gets neither; every other call gets the causal
+    mask and no slots."""
     if cache is not None and T == 1 and cache.quantized:
         pos_b = _pos_vector(pos, B, device)
-        return None, (pos_b, pos_b + 1)
+        return None, (pos_b, pos_b if cache.ring_k is not None else pos_b + 1)
+    if _flash_prefill_ok(cfg, T, cfg.hd):
+        return None, None
     if cache is None:
         return build_mask(cfg, B, T, T, None, device), None
     return build_mask(cfg, B, T, cache.max_seq, pos, device), None
@@ -327,7 +336,18 @@ def _block_attn_mlp(
     v = pv.apply("v_proj", x).reshape(B, T, Hkv, hd)
     q, k = apply_rope(q, k, cos, sin)
 
-    if slots is not None:
+    flash = _flash_prefill_ok(cfg, T, hd)
+    if slots is not None and cache.ring_k is not None:
+        # ring-fused decode step: K6 appends this token to the bf16 ring
+        # itself, no write launch; the driver (decode_loop) flushes full
+        # rings into the int8 cache every 8 steps, or tokens drop
+        _check_ring_cfg(cfg)
+        _, lengths = slots
+        attn = decode_attention_ring(
+            q[:, 0], k[:, 0], v[:, 0], cache.k, cache.v, cache.k_scale, cache.v_scale,
+            cache.ring_k, cache.ring_v, lengths, layer_idx,
+        )[:, None].to(h.dtype)
+    elif slots is not None:
         # decode step: K3a writes this token into the int8 cache in place,
         # K3b attends over the updated cache
         pos_b, lengths = slots
@@ -338,12 +358,27 @@ def _block_attn_mlp(
             q[:, 0], cache.k, cache.v, cache.k_scale, cache.v_scale, lengths, layer_idx
         )[:, None].to(h.dtype)
     elif cache is not None:
-        _check_prefill_attention(T, hd, h.device)
         cache.update(layer_idx, k, v, pos)
-        k_all, v_all = cache.layer_kv(layer_idx, dtype=h.dtype)
-        attn = _attention(q, k_all, v_all, mask, cfg.n_rep)
+        if flash and cache.quantized:
+            # K5 reads the int8 cache rows and scales directly
+            kr, vr, ks, vs = cache.layer_kv_raw(layer_idx)
+            attn = prefill_attention_flash(
+                q, kr, vr, pos, cfg.n_rep, softcap=cfg.attn_logit_softcap, kv_native=True,
+                kv_scales=(ks, vs), out_dtype=h.dtype,
+            )
+        else:
+            k_all, v_all = cache.layer_kv(layer_idx, dtype=h.dtype)
+            if flash:
+                attn = prefill_attention_flash(
+                    q, k_all, v_all, pos, cfg.n_rep, softcap=cfg.attn_logit_softcap, out_dtype=h.dtype
+                )
+            else:
+                attn = _attention(q, k_all, v_all, mask, cfg.n_rep)
+    elif flash:
+        attn = prefill_attention_flash(
+            q, k, v, 0, cfg.n_rep, softcap=cfg.attn_logit_softcap, out_dtype=h.dtype
+        )
     else:
-        _check_prefill_attention(T, hd, h.device)
         attn = _attention(q, k, v, mask, cfg.n_rep)
     return _finish_block(pv, cfg, h, attn.reshape(B, T, H * hd), cache)
 

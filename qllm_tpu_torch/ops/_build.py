@@ -39,6 +39,7 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "qllm_w4_planar_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "qllm_kv_write_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "qllm_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "qllm_planarize_w4": [_P, _P, _I, _I, _I, _P],
+    "qllm_decode_attn_ring": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "qllm_kv_ring_flush": [_P] * 7 + [_I] * 5 + [_P],
+    "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

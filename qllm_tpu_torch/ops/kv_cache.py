@@ -11,6 +11,12 @@ aliases them in place), this cache is updated IN PLACE: ``update``
 writes into the existing tensors and returns the same object, and the
 decode-step write kernel (ops.attention.kv_write_int8) writes into them
 too.
+
+``ring=True`` adds the ring-fused decode fields ``ring_k`` / ``ring_v``,
+bf16 ``[L, B, H_kv, 8, D]``: the <= 8 newest tokens, appended IN PLACE
+by the ring attention kernel (ops.attention.decode_attention_ring) and
+flushed into the int8 rows, again in place, once per 8 decode steps
+(ops.attention.kv_ring_flush).
 """
 
 from __future__ import annotations
@@ -40,15 +46,16 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 @dataclasses.dataclass(frozen=True)
 class QuantizedKVCache:
     """KV cache for all layers. When quantized=False, k/v hold ``dtype``
-    and the scale tensors are size-1 placeholders. The ring-fused decode
-    fields of the JAX cache stay None: that path is not ported yet."""
+    and the scale tensors are size-1 placeholders. ``ring_k`` / ``ring_v``
+    are the ring-fused decode fields, or None for the per-token write
+    path."""
 
     k: torch.Tensor  # [L, B, H_kv, S, D] int8 or bf16
     v: torch.Tensor
     k_scale: torch.Tensor  # [L, B, H_kv, S] f32 (placeholder if not quantized)
     v_scale: torch.Tensor
     quantized: bool
-    ring_k: Optional[torch.Tensor] = None
+    ring_k: Optional[torch.Tensor] = None  # [L, B, H_kv, 8, D] bf16 or None
     ring_v: Optional[torch.Tensor] = None
 
     @classmethod
@@ -64,12 +71,10 @@ class QuantizedKVCache:
         ring: bool = False,
         device: Union[str, torch.device] = "cuda",
     ) -> "QuantizedKVCache":
-        if ring:
-            raise NotImplementedError(
-                "the ring-fused cache needs decode_attention_ring and "
-                "kv_ring_flush_pallas (qllm_tpu/ops/pallas_attention.py:1309, "
-                ":1470), which are not ported yet; use ring=False"
-            )
+        if ring and not quantized:
+            raise ValueError("the ring-fused path needs a quantized cache")
+        if ring and max_seq % 8:
+            raise ValueError("ring-fused path needs max_seq % 8 == 0")
         dev = resolve_device(device)
         shape = (n_layers, batch, n_kv_heads, max_seq, head_dim)
         if quantized:
@@ -78,12 +83,15 @@ class QuantizedKVCache:
         else:
             kv_dtype = dtype
             sshape = (1,)
+        rshape = (n_layers, batch, n_kv_heads, 8, head_dim)
         return cls(
             k=torch.zeros(shape, dtype=kv_dtype, device=dev),
             v=torch.zeros(shape, dtype=kv_dtype, device=dev),
             k_scale=torch.ones(sshape, dtype=torch.float32, device=dev),
             v_scale=torch.ones(sshape, dtype=torch.float32, device=dev),
             quantized=quantized,
+            ring_k=torch.zeros(rshape, dtype=torch.bfloat16, device=dev) if ring else None,
+            ring_v=torch.zeros(rshape, dtype=torch.bfloat16, device=dev) if ring else None,
         )
 
     @property

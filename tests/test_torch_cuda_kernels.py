@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from qllm_tpu_torch.ops import attention as att
+from qllm_tpu_torch.ops import flash_prefill as fp
 from qllm_tpu_torch.ops import qmm, repack
 
 pytestmark = pytest.mark.cuda
@@ -74,3 +75,54 @@ def test_attention_kernels_match_plain(gen, n_rep, D):
 def test_planarize_kernel_is_bit_exact(gen):
     w = torch.randint(-(2**31), 2**31, (3, 64, 384), dtype=torch.int32, device="cuda", generator=gen)
     assert torch.equal(repack.planarize_w4(w, 512), repack.planarize_w4_plain(w, 512))
+
+
+@pytest.mark.parametrize("n_rep,pos", [(1, [5, 130, 299]), (4, [0, 64, 171])])
+def test_ring_kernels_match_plain(gen, n_rep, pos):
+    L, B, Hkv, S, D = 2, 3, 2, 304, 128
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    vs = torch.rand((L, B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    rk = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    a, b = [t.clone() for t in (rk, rv)], [t.clone() for t in (rk, rv)]
+    out = att.decode_attention_ring(q, kn, vn, kc, vc, ks, vs, *a, lengths, 1)
+    ref = att.decode_attention_ring_plain(q, kn, vn, kc, vc, ks, vs, *b, lengths, 1)
+    torch.testing.assert_close(out, ref, atol=1e-2, rtol=1e-2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    flush = torch.full((B,), 16, dtype=torch.int32, device="cuda") * torch.tensor([1, 2, 19], device="cuda").int()
+    c = [t.clone() for t in (kc, vc, ks, vs)]
+    d = [t.clone() for t in (kc, vc, ks, vs)]
+    att.kv_ring_flush(*c, rk, rv, flush)
+    att.kv_ring_flush_plain(*d, rk, rv, flush)
+    for x, y in zip(c, d):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize(
+    "B,T,S,Hkv,n_rep,pos,int8",
+    [(2, 100, 300, 2, 1, [0, 170], True), (1, 130, 130, 2, 4, [0], False), (2, 37, 256, 1, 3, [64, 219], True)],
+)
+def test_flash_prefill_kernel_matches_plain(gen, B, T, S, Hkv, n_rep, pos, int8):
+    H, d = Hkv * n_rep, 128
+    q = torch.randn((B, T, H, d), device="cuda", generator=gen).to(torch.bfloat16)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    if int8:
+        k = torch.randint(-127, 128, (B, Hkv, S, d), dtype=torch.int8, device="cuda", generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, d), dtype=torch.int8, device="cuda", generator=gen)
+        ks = torch.rand((B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+        vs = torch.rand((B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    else:  # [B, S, Hkv, d] seen as [B, Hkv, S, d]: strided rows
+        k = torch.randn((B, S, Hkv, d), device="cuda", generator=gen).to(torch.bfloat16).transpose(1, 2)
+        v = torch.randn((B, S, Hkv, d), device="cuda", generator=gen).to(torch.bfloat16).transpose(1, 2)
+        ks = vs = None
+    for out_dtype in (torch.bfloat16, torch.float32):
+        out = fp.flash_prefill(q, k, v, ks, vs, pos, out_dtype).float()
+        ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, out_dtype).float()
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)

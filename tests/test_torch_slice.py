@@ -47,21 +47,21 @@ SEED = 10
 B, T, STEPS, MAX_SEQ = 2, 24, 8, 64
 
 
-def _params():
+def _params(cfg_kw=CFG_KW, batch=B, prompt=T):
     """JAX random params as numpy, with the lm_head columns of 8 tokens
     scaled up 8x so that every greedy decision is separated by more than
     twice the tolerance (asserted below) and cannot tie."""
-    jcfg = jllama.ModelConfig(**CFG_KW)
+    jcfg = jllama.ModelConfig(**cfg_kw)
     npp = jax.tree_util.tree_map(
         np.asarray,
         j_random_params(jcfg, jax.random.key(SEED), bits=4, group_size=128, quantize_lm_head=True),
     )
     rng = np.random.default_rng(SEED)
-    cols = rng.choice(CFG_KW["vocab_size"], 8, replace=False)
+    cols = rng.choice(cfg_kw["vocab_size"], 8, replace=False)
     sc = np.array(npp["lm_head"].scales)
     sc[:, cols] = (sc[:, cols].astype(np.float32) * 8.0).astype(np.float16)
     npp["lm_head"] = dataclasses.replace(npp["lm_head"], scales=sc)
-    tokens = rng.integers(0, CFG_KW["vocab_size"], (B, T)).astype(np.int32)
+    tokens = rng.integers(0, cfg_kw["vocab_size"], (batch, prompt)).astype(np.int32)
     return jcfg, npp, tokens
 
 
@@ -201,8 +201,3 @@ def test_decode_past_cache_end_raises():
         t_prefill(ts, tcfg, torch.zeros((B, MAX_SEQ + 1), dtype=torch.int32), cache, device="cpu")
     # the last slot itself is writable
     t_decode_step(ts, tcfg, first, cache, MAX_SEQ - 1, device="cpu")
-
-
-def test_ring_cache_is_refused():
-    with pytest.raises(NotImplementedError, match="ring"):
-        t_make_cache(tllama.ModelConfig(**CFG_KW), 1, 64, ring=True, device="cpu")
