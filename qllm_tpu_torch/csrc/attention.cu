@@ -83,8 +83,10 @@ QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_ca
 //
 // Replaces _attn_kernel_stacked / _decode_attention_stacked
 // (pallas_attention.py:97, :457) behind decode_attention_pallas (:574),
-// S <= 8192: one query token per sequence attends over its first
-// lengths[b] cache rows. q is scaled by D^-0.5 in f32 and rounded to
+// S <= 8192, and _attn_kernel_stacked_chunked /
+// _decode_attention_stacked_chunked (:284, :371), the key-chunked online
+// softmax the TPU takes at S > 8192: one query token per sequence
+// attends over its first lengths[b] cache rows. q is scaled by D^-0.5 in f32 and rounded to
 // bf16; scores = (q . k_int8) * ks, positions >= lengths[b] are masked,
 // softmax in f32; the probabilities times vs are rounded to bf16 before
 // the product with v_int8 (the v scale folds into the probabilities);
@@ -93,10 +95,14 @@ QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_ca
 // Bound on the H100: bytes (every int8 K and V row of the sequence is
 // read once, ~2 flops per byte per query head). Design: one block per
 // (b, kv-head) serving its n_rep query heads, so each K/V row is read
-// once for the whole GQA group; the TPU kernel holds the whole [S, D]
-// block in VMEM, which 227 KB of shared memory cannot at S = 8192, so
-// the block walks S in tiles of 128 keys with an online softmax (running
-// max and denominator, accumulators rescaled per tile). Scores: one key
+// once for the whole GQA group; the TPU's one-shot kernel holds the whole
+// [S, D] block in VMEM, which 227 KB of shared memory cannot at S = 8192,
+// so the block walks S in tiles of 128 keys with an online softmax
+// (running max and denominator, accumulators rescaled per tile): the
+// chunked kernel's function at any S. Offsets are 64-bit (a 16384-row
+// cache passes 2^31 bytes). At long S one block walks every tile of its
+// (b, kv-head) in turn: B * Hkv blocks, S / 128 tiles each, so the time
+// follows S, not the card's width (splitting S over blocks is the fix). Scores: one key
 // per thread, 16-byte loads of its K row; P.V: one head dimension per
 // thread, a warp reading one 128-byte V row per key.
 //

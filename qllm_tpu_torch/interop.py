@@ -8,7 +8,11 @@ params)``) and returns the port's params with the same structure:
     / in_features / out_features / sym / planar / zeros_prefolded``
     becomes a ``QuantizedTensor`` (per-layer 2-D or stacked [L]-leading);
   * ``uint32`` words arrive as the ``int32`` tensor with the same bits;
-  * numpy bfloat16 (ml_dtypes) arrays become ``torch.bfloat16`` tensors.
+  * numpy bfloat16 (ml_dtypes) arrays become ``torch.bfloat16`` tensors;
+  * MoE leaves carry across the same way: per-expert lists, raw or
+    prepared ``experts_stacked`` stacks, the f32 router, the q/k head-norm
+    weights; ``_moe_stride`` (a Python int in the JAX params, a 0-d array
+    after a tree map) stays a Python int.
 
 ``cache_from_numpy(cache)`` carries a JAX ``QuantizedKVCache`` across
 the same way (its arrays as numpy, rings included), so a test can start
@@ -67,7 +71,7 @@ def params_from_numpy(tree: Any, device: Union[str, torch.device] = "cuda") -> A
 
     def conv(node):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: int(np.asarray(v)) if k == "_moe_stride" else conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         if _is_qt(node):

@@ -7,7 +7,9 @@ leaf is a dense ``[in, out]`` tensor or a ``QuantizedTensor``. Numerics
 follow the JAX package: bf16 activations, f32 norms, rope and softmax,
 bf16 x bf16 products accumulated in f32.
 
-This slice serves the llama family (GQA + neox RoPE + SwiGLU + RMSNorm).
+This slice serves the llama family (GQA + neox RoPE + SwiGLU + RMSNorm)
+and its MoE members, Mixtral (top-k softmax router) and Qwen3-MoE
+(softmax-all router with top-k renormalisation, per-head RMS q/k norm).
 ``ModelConfig`` carries every field of the JAX config so configs pass
 across unchanged; switches of other families raise NotImplementedError.
 """
@@ -139,9 +141,20 @@ _LLAMA_FAMILY = {
 }
 
 
+# the MoE members of the family: experts and the per-head q/k norm
+_MOE_ARCHS = ("mixtral", "qwen3_moe")
+_MOE_SWITCHES = ("num_local_experts", "qk_norm")
+
+
 def check_llama_family(cfg: ModelConfig) -> None:
-    """Raise on configuration switches outside the llama family."""
+    """Raise on configuration switches outside the llama family (and its
+    MoE members, Mixtral and Qwen3-MoE)."""
     off = {k: getattr(cfg, k) for k, v in _LLAMA_FAMILY.items() if getattr(cfg, k) != v}
+    if cfg.arch in _MOE_ARCHS:
+        for k in _MOE_SWITCHES:
+            off.pop(k, None)
+        if cfg.qk_norm not in ("", "rms", "cohere"):
+            off["qk_norm"] = cfg.qk_norm
     if cfg.hidden_act not in ("silu", "gelu", "gelu_python", "relu"):
         off["hidden_act"] = cfg.hidden_act
     if off:
@@ -170,11 +183,32 @@ def _norm_input(pv, cfg: ModelConfig, h: torch.Tensor, name: str):
     return rms_norm(h, pv.get(name), cfg.rms_norm_eps)
 
 
+def _mat(x):
+    """Materialise a pending fused norm (stacked.NormedX) if present."""
+    return x.materialize() if hasattr(x, "materialize") else x
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+
+
+def qk_head_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, kind: str = "cohere") -> torch.Tensor:
+    """Per-head q/k normalisation over the head dim, x [B, T, H, hd]:
+    ``rms`` is RMSNorm with one [hd] weight shared by the heads (Qwen3,
+    before rope); ``cohere`` a mean-subtracting layernorm without bias
+    and a per-head [H, hd] weight. f32 math, rounded to x.dtype once."""
+    xf = x.to(torch.float32)
+    w = weight.to(torch.float32)
+    if kind == "rms":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w[None, None]).to(x.dtype)
 
 
 def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -281,6 +315,20 @@ class LayerView:
     def apply(self, name, x):
         return apply_linear(self.lp[name], x, self.lp.get(f"{name}_bias"))
 
+    def apply_expert(self, name, e: int, x):
+        """x @ experts_stacked[name][e] for a host-int expert index (the
+        dense all-experts loop)."""
+        from .moe import expert_linear
+
+        return expert_linear(self.lp["experts_stacked"][name], e, x)
+
+    def apply_experts_grouped(self, name, ids, x_rows, x_shared: bool = False):
+        """y[i] = x_rows[i] @ W[ids[i]] for every selection in one launch;
+        ``ids`` stays on the device."""
+        from .moe import grouped_expert_linear
+
+        return grouped_expert_linear(self.lp["experts_stacked"][name], ids, x_rows, x_shared)
+
 
 def _pos_vector(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
     if isinstance(pos, int):
@@ -334,6 +382,9 @@ def _block_attn_mlp(
     q = pv.apply("q_proj", x).reshape(B, T, H, hd)
     k = pv.apply("k_proj", x).reshape(B, T, Hkv, hd)
     v = pv.apply("v_proj", x).reshape(B, T, Hkv, hd)
+    if cfg.qk_norm:
+        q = qk_head_norm(q, pv.get("q_norm"), cfg.rms_norm_eps, cfg.qk_norm)
+        k = qk_head_norm(k, pv.get("k_norm"), cfg.rms_norm_eps, cfg.qk_norm)
     q, k = apply_rope(q, k, cos, sin)
 
     flash = _flash_prefill_ok(cfg, T, hd)
@@ -392,9 +443,148 @@ def _finish_block(pv, cfg: ModelConfig, h, attn_flat, cache):
 
 
 def _mlp_from_view(pv, cfg: ModelConfig, x) -> torch.Tensor:
+    if pv.get("experts") is not None or pv.get("experts_stacked") is not None:
+        if pv.get("shared_experts") is not None:
+            raise NotImplementedError(
+                "always-on shared experts (deepseek / qwen2-moe) are not ported yet"
+            )
+        # the router reads the normalised activation itself: no fused norm
+        return _moe_forward(pv, cfg, _mat(x))
     gate = pv.apply("gate_proj", x)
     up = pv.apply("up_proj", x)
     return pv.apply("down_proj", act_fn(cfg.hidden_act, gate) * up)
+
+
+def _routing_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lax.top_k semantics: the k largest along the last axis, descending,
+    ties to the lowest index (a stable descending sort keeps equal values
+    in index order; torch.topk promises no tie order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router_topk(pv, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert routing -> ([B, T, k] f32 weights, [B, T, k] expert ids).
+
+    mixtral: top-k of the logits, softmax over the selected k. deepseek
+    (and qwen3-moe): softmax over all experts, top-k, then renormalised
+    when ``norm_topk_prob`` (qwen renormalises at any k, deepseek-v2 only
+    at k > 1), else scaled by ``routed_scaling_factor``."""
+    if isinstance(pv, dict):
+        pv = LayerView(pv)
+    router = pv.get("router")
+    logits = x.to(torch.float32) @ router.to(torch.float32)  # [B, T, E]
+    E = router.shape[-1]
+    k = min(cfg.num_experts_per_tok, E)
+    if cfg.moe_router == "deepseek":
+        if cfg.topk_method == "group_limited_greedy":
+            raise NotImplementedError("group-limited greedy routing is not ported yet")
+        scores = torch.softmax(logits, dim=-1)
+        top_w, top_ids = _routing_topk(scores, k)
+        if cfg.norm_topk_prob and (k > 1 or cfg.arch != "deepseek_v2"):
+            top_w = top_w / (torch.sum(top_w, dim=-1, keepdim=True) + 1e-20)
+        else:
+            top_w = top_w * cfg.routed_scaling_factor
+    else:
+        top_w, top_ids = _routing_topk(logits, k)
+        top_w = torch.softmax(top_w, dim=-1)
+    return top_w, top_ids
+
+
+def _router_weights(pv, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Dense [B, T, E] f32 combination weights (0 for unselected experts).
+    The top-k ids are distinct, so a scatter gives the bits of the JAX
+    package's one-hot sum, and unlike one_hot it never reads the ids on
+    the host."""
+    if isinstance(pv, dict):
+        pv = LayerView(pv)
+    top_w, top_ids = _router_topk(pv, cfg, x)
+    E = pv.get("router").shape[-1]
+    out = torch.zeros((*top_w.shape[:-1], E), dtype=torch.float32, device=top_w.device)
+    return out.scatter_(-1, top_ids.to(torch.int64), top_w.to(torch.float32))
+
+
+def _moe_forward(pv, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE block. Over [E]-stacked experts with B*T*k < E (decode,
+    small batches) only the selected experts run (``_moe_sparse``);
+    otherwise every expert runs on every row and the outputs are combined
+    with the router's weights, accumulated in f32 in expert order."""
+    if isinstance(pv, dict):
+        pv = LayerView(pv)
+    est = pv.get("experts_stacked")
+    B, T, _ = x.shape
+    E = pv.get("router").shape[-1]
+    k = min(cfg.num_experts_per_tok, E)
+    if est is not None and B * T * k < E:
+        return _moe_sparse(pv, cfg, x, k)
+    weights = _router_weights(pv, cfg, x)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if est is not None:
+        fused_gu = "gateup_proj" in est
+        for e in range(E):
+            if fused_gu:
+                gu = pv.apply_expert("gateup_proj", e, x)
+                ii = gu.shape[-1] // 2
+                gate, up = gu[..., :ii], gu[..., ii:]
+            else:
+                gate = pv.apply_expert("gate_proj", e, x)
+                up = pv.apply_expert("up_proj", e, x)
+            ye = pv.apply_expert("down_proj", e, act_fn(cfg.hidden_act, gate) * up)
+            out = out + ye.to(torch.float32) * weights[..., e : e + 1]
+        return out.to(x.dtype)
+    for e, ep in enumerate(pv.get("experts")):
+        gate = apply_linear(ep["gate_proj"], x)
+        up = apply_linear(ep["up_proj"], x)
+        ye = apply_linear(ep["down_proj"], act_fn(cfg.hidden_act, gate) * up)
+        out = out + ye.to(torch.float32) * weights[..., e : e + 1]
+    return out.to(x.dtype)
+
+
+def _grouped_expert_mlp(pv, cfg: ModelConfig, ids, x_rows, x_shared: bool) -> torch.Tensor:
+    """gate|up (or gate and up), the activation, then down, each one
+    grouped launch over every selection -> [n, D] in selection order."""
+    if "gateup_proj" in pv.get("experts_stacked"):
+        gu = pv.apply_experts_grouped("gateup_proj", ids, x_rows, x_shared=x_shared)
+        ii = gu.shape[-1] // 2
+        gate, up = gu[..., :ii], gu[..., ii:]
+    else:
+        gate = pv.apply_experts_grouped("gate_proj", ids, x_rows, x_shared=x_shared)
+        up = pv.apply_experts_grouped("up_proj", ids, x_rows, x_shared=x_shared)
+    return pv.apply_experts_grouped("down_proj", ids, act_fn(cfg.hidden_act, gate) * up)
+
+
+def _moe_sparse(pv, cfg: ModelConfig, x: torch.Tensor, k: int) -> torch.Tensor:
+    """Only the top-k experts' weights are read: all B*T*k (token,
+    expert) selections go through two grouped launches per block
+    (gate|up, then down). Nothing here waits on the host: the ids stay
+    on the device from the router to the kernel.
+
+    With more than one token the selections are sorted by expert id
+    (stable: ties keep selection order) so that equal ids sit together,
+    and the outputs are put back through an inverse permutation built by
+    one scatter. A single token's k selections share its row (x_shared)."""
+    B, T, D = x.shape
+    S = B * T
+    top_w, top_ids = _router_topk(pv, cfg, x)
+    xf = x.reshape(S, D)
+    wf = top_w.reshape(S, k)
+    ids_u = top_ids.reshape(S * k).to(torch.int32)
+    if S > 1:
+        order = torch.argsort(ids_u, stable=True)
+        ids = ids_u.index_select(0, order)
+        x_rows = xf.index_select(0, torch.div(order, k, rounding_mode="floor"))
+    else:
+        order = None
+        ids = ids_u
+        x_rows = xf
+    ye_s = _grouped_expert_mlp(pv, cfg, ids, x_rows, order is None)
+    if order is not None:
+        inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=order.device))
+        ye = ye_s.index_select(0, inv)
+    else:
+        ye = ye_s
+    out = torch.sum(ye.reshape(S, k, D).to(torch.float32) * wf[..., None].to(torch.float32), dim=1)
+    return out.reshape(B, T, D).to(x.dtype)
 
 
 def embed_tokens_forward(params: Dict[str, Any], cfg: ModelConfig, token_ids: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Stacked-layer execution (the dense part of the counterpart of
+"""Stacked-layer execution (the counterpart of
 ``qllm_tpu/models/stacked.py``).
 
 ``stack_layer_params`` replaces the per-layer list with one dict of
@@ -13,6 +13,12 @@ The stacked buffers are bit-identical to the JAX package's.
 ``lax.scan`` over layer indices); every quantized matmul reads its layer
 straight out of the stack (ops.qmm.qmatmul_stacked), and the pre-matmul
 RMSNorms ride into the decode matmul kernel (NormedX).
+
+MoE models take ``stack_layer_params_hybrid``: the attention projections,
+norms and routers stack to [L] leaves as above, and the experts, stacked
+per layer to [E] (models.moe), concatenate into one [L*E] stack per name
+whose expert ids the view biases by ``l * _moe_stride``. The same loop
+serves them (``forward_hybrid``).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ from .llama import (
     _attn_inputs,
     _block_attn_mlp,
     _check_fits,
+    _mat,
+    apply_linear,
     _positions,
     _rope_cos_sin,
     check_llama_family,
@@ -45,8 +53,10 @@ from .llama import (
 
 __all__ = [
     "stack_layer_params",
+    "stack_layer_params_hybrid",
     "unstack_layer_params",
     "forward_stacked",
+    "forward_hybrid",
     "is_stackable",
     "prepare_stacked_tensor",
     "prepare_lm_head",
@@ -177,9 +187,10 @@ def stack_layer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def prepare_stacked_tensor(node: QuantizedTensor) -> QuantizedTensor:
+def prepare_stacked_tensor(node: QuantizedTensor, lane_quantum: int = LANE_QUANTUM) -> QuantizedTensor:
     """Serving prep for one [L]-stacked QuantizedTensor: out-features
-    padded to a multiple of 512, 4-bit words relaid out planar (K4 on the
+    padded to a multiple of ``lane_quantum`` (512; narrow expert stacks
+    take 128, models.moe), 4-bit words relaid out planar (K4 on the
     card), zero points pre-folded to ``zs = zeros * scales`` and scales /
     zs stored bf16 (the JAX package's ``scale_store_dtype=bfloat16``)."""
     g = node.effective_group_size
@@ -200,7 +211,7 @@ def prepare_stacked_tensor(node: QuantizedTensor) -> QuantizedTensor:
     zeros = node.zeros.to(torch.float32)
     qweight = node.qweight
     # the logical width stays in out_features and consumers slice
-    pad = (-qweight.shape[-1]) % LANE_QUANTUM
+    pad = (-qweight.shape[-1]) % lane_quantum
     if pad:
         qweight = torch.nn.functional.pad(qweight, (0, pad))
         scales = torch.nn.functional.pad(scales, (0, pad), value=1.0)
@@ -315,9 +326,11 @@ class StackedLayerView:
 
     def get(self, name):
         v = self.lp.get(name)
-        if v is None or isinstance(v, QuantizedTensor):
+        if v is None or isinstance(v, (QuantizedTensor, dict)):
+            # a dict is the full [L*E] expert stack (apply_expert biases
+            # the ids by l * _moe_stride): a presence marker here
             return v
-        return v[self.l]
+        return v[self.l]  # an [L]-stacked leaf or a per-layer list
 
     def fused_norm_arg(self, h, name: str, cfg):
         """NormedX marker for ``rms_norm(h, <name>)``; None -> the caller
@@ -342,8 +355,32 @@ class StackedLayerView:
             return y[..., s[part] : s[part + 1]]
         return self._apply_name(name, x)
 
+    def _expert_stack(self, name):
+        """(expert weight stack, id bias) of this layer: the full [L*E]
+        stack biases ids by l * _moe_stride, a per-layer [E] stack by 0."""
+        est = self.lp.get("experts_stacked")
+        if isinstance(est, dict):
+            return est[name], self.l * self.lp["_moe_stride"]
+        return est[self.l][name], 0
+
+    def apply_expert(self, name, e: int, x):
+        from .moe import expert_linear
+
+        w, bias = self._expert_stack(name)
+        return expert_linear(w, bias + e, x)
+
+    def apply_experts_grouped(self, name, ids, x_rows, x_shared: bool = False):
+        from .moe import grouped_expert_linear
+
+        w, bias = self._expert_stack(name)
+        return grouped_expert_linear(w, ids + bias if bias else ids, x_rows, x_shared)
+
     def _apply_name(self, name, x):
         w = self.lp[name]
+        if isinstance(w, list):
+            # a heterogeneous entry of hybrid params stays per layer
+            b = self.lp.get(f"{name}_bias")
+            return apply_linear(w[self.l], _mat(x), None if b is None else b[self.l])
         b = self.lp.get(f"{name}_bias")
         bias = None if b is None else b[self.l]
         if isinstance(w, QuantizedTensor):
@@ -386,3 +423,139 @@ def forward_stacked(
             StackedLayerView(slp, layer, cfg), cfg, h, cos, sin, mask, cache, layer, pos, slots
         )
     return final_logits(params, cfg, h), cache
+
+
+# ---------------------------------------------------------------------------
+# Hybrid stacking for MoE models: every homogeneous per-layer entry
+# (attention projections, norms, routers) stacks to [L] and rides the
+# stacked kernels with fused qkv; the experts keep per-layer [E] stacks
+# (the sparse path selects experts per token) and, where every layer's
+# stack is alike, concatenate into one [L*E] stack per name.
+# ---------------------------------------------------------------------------
+
+
+def _qt_stackable_across(vals) -> bool:
+    q0 = vals[0]
+    return all(
+        isinstance(q, QuantizedTensor)
+        and (q.bits, q.group_size, q.sym, q.in_features, q.out_features)
+        == (q0.bits, q0.group_size, q0.sym, q0.in_features, q0.out_features)
+        and q.perm is None
+        and not q.planar
+        and not q.zeros_prefolded
+        for q in vals
+    )
+
+
+def _stack_meta(qt: QuantizedTensor):
+    return (
+        qt.bits, qt.group_size, qt.sym, qt.in_features, qt.out_features, qt.planar,
+        qt.zeros_prefolded, tuple(qt.qweight.shape), qt.scales.dtype,
+    )
+
+
+def _concat_expert_stacks(ests, name: str, consume: bool) -> QuantizedTensor:
+    """The per-layer [E] stacks of ``name`` concatenated into one [L*E]
+    stack. ``consume``: each layer's stack is dropped from its dict as soon
+    as it is copied, so the transient is one layer's stack, not a second
+    full stack."""
+    fields = ("qweight", "scales", "zeros")
+    p0 = ests[0][name]
+    rows = sum(e[name].qweight.shape[0] for e in ests)
+    bufs = {
+        f: torch.empty((rows, *getattr(p0, f).shape[1:]), dtype=getattr(p0, f).dtype, device=p0.qweight.device)
+        for f in fields
+    }
+    out = dataclasses.replace(p0, **bufs)
+    del p0
+    off = 0
+    for e in ests:
+        part = e.pop(name) if consume else e[name]
+        n = part.qweight.shape[0]
+        for f in fields:
+            bufs[f][off : off + n].copy_(getattr(part, f))
+        off += n
+        del part
+    return out
+
+
+def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> Dict[str, Any]:
+    """Serving prep for MoE models (per-layer list in, hybrid layers dict
+    out). Homogeneous entries stack to [L] leaves with the serving prep of
+    ``stack_layer_params``; experts stack per layer (models.moe.stack_experts)
+    and, when every layer's stacks match and nothing else stayed per layer,
+    concatenate into one [L*E] stack per name with ``_moe_stride = E``;
+    heterogeneous entries stay per-layer lists. ``forward`` serves the
+    result through ``forward_hybrid``.
+
+    ``consume``: the caller passes ownership. Each of the caller's layer
+    dicts is emptied once its experts are stacked and its projections
+    fused, and each entry of the working copies is dropped as its stacked
+    copy lands, so the sources free progressively instead of doubling
+    resident memory (the [L*E] concat included)."""
+    from .moe import _stack_layer_experts
+
+    src = params.get("layers")
+    if not isinstance(src, list):
+        raise ValueError("hybrid stacking expects per-layer (list) params")
+    layers = []
+    for lp in src:
+        layers.append(_fuse_layer_projections(_stack_layer_experts(lp)))  # always a new dict
+        if consume:
+            lp.clear()
+
+    keys = []
+    for lp in layers:
+        keys.extend(k for k in lp if k not in keys)
+
+    def consume_key(k):
+        if consume:
+            for lp in layers:
+                lp.pop(k, None)
+
+    slp: Dict[str, Any] = {}
+    for k in keys:
+        vals = [lp.get(k) for lp in layers]
+        if k == "experts_stacked" or any(v is None for v in vals):
+            slp[k] = vals  # per-layer (possibly sparse-only) entry
+        elif isinstance(vals[0], QuantizedTensor):
+            if _qt_stackable_across(vals):
+                slp[k] = prepare_stacked_tensor(_stack_qt(vals))
+                consume_key(k)
+            else:
+                slp[k] = vals
+        elif all(isinstance(v, torch.Tensor) and v.shape == vals[0].shape for v in vals):
+            slp[k] = torch.stack(vals)
+            consume_key(k)
+        else:
+            slp[k] = vals
+
+    ests = slp.get("experts_stacked")
+    if (
+        isinstance(ests, list)
+        and all(isinstance(e, dict) for e in ests)
+        and not any(isinstance(v, list) for k2, v in slp.items() if k2 != "experts_stacked")
+    ):
+        names = sorted(ests[0].keys())
+        if all(
+            sorted(e.keys()) == names
+            and all(
+                isinstance(e[nm], QuantizedTensor)
+                and e[nm].perm is None
+                and _stack_meta(e[nm]) == _stack_meta(ests[0][nm])
+                for nm in names
+            )
+            for e in ests
+        ):
+            stride = int(ests[0][names[0]].qweight.shape[0])
+            slp["experts_stacked"] = {nm: _concat_expert_stacks(ests, nm, consume) for nm in names}
+            slp["_moe_stride"] = stride
+
+    out = dict(params)
+    out["layers"] = slp
+    return out
+
+
+# The JAX package runs hybrid params in a Python loop and dense stacks
+# under lax.scan; here both are the same Python loop over StackedLayerView.
+forward_hybrid = forward_stacked

@@ -44,6 +44,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "qllm_w4_planar_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "qllm_w4_planar_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "qllm_w4_grouped_gemv": [_P] * 6 + [_I] * 8 + [_P],
     "qllm_kv_write_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "qllm_decode_attn_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "qllm_planarize_w4": [_P, _P, _I, _I, _I, _P],

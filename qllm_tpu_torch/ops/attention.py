@@ -7,7 +7,9 @@ cache (the counterpart of the 5-D one-shot decode path of
     (the JAX kernel returns buffer-aliased arrays instead).
   * K3b ``decode_attn_int8``: GQA attention of one query token over the
     first ``lengths[b]`` cache rows; the k scale folds into the scores
-    and the v scale into the probabilities.
+    and the v scale into the probabilities. It walks the rows in 128-key
+    tiles with an online softmax, so it serves every S: both the JAX
+    package's one-shot kernel (S <= 8192) and its key-chunked one.
   * K6 ``decode_attention_ring``: the ring-fused decode step: one query over the int8 rows
     [0, flushed), the bf16 ring rows [flushed, pos) and the current
     token, whose k/v it appends IN PLACE to ring slot pos - flushed
@@ -40,10 +42,8 @@ __all__ = [
     "decode_attn_int8",
     "decode_attn_int8_plain",
     "decode_attention",
-    "ONESHOT_MAX_S",
 ]
 
-ONESHOT_MAX_S = 8192  # the JAX package streams longer caches in chunks
 RING = 8  # ring depth == the rows one flush writes
 _MAX_REP = 8
 _MAX_D = 256
@@ -216,15 +216,13 @@ def decode_attention(
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over a layer-stacked int8 cache (the 5-D path of
-    ``decode_attention_pallas``): q [B, H, D] -> f32 [B, H, D]."""
+    ``decode_attention_pallas``): q [B, H, D] -> f32 [B, H, D]. K3b
+    serves every S: at S > 8192 the JAX package switches to its
+    key-chunked kernel (``_decode_attention_stacked_chunked``), whose
+    online softmax over key chunks K3b already is."""
     if k_cache.dim() != 5:
         raise NotImplementedError(
             "the per-layer 4-D cache path (_attn_kernel, pallas_attention.py:671) is not ported yet"
-        )
-    if k_cache.shape[3] > ONESHOT_MAX_S:
-        raise NotImplementedError(
-            f"S > {ONESHOT_MAX_S} needs the chunked decode kernel "
-            "_decode_attention_stacked_chunked (pallas_attention.py:371), not ported yet"
         )
     if softcap or alibi_slopes is not None or window is not None:
         raise NotImplementedError(

@@ -14,6 +14,12 @@ for the stacks ``models.stacked`` prepares: 4-bit planar words
     registers, bf16 tensor-core product with f32 accumulation; the
     RMSNorm runs before it.
 
+``qmatmul_grouped_experts(x_rows, stack, ids)`` computes
+``y[i] = x_rows[i] @ dequant(stack[ids[i]])`` for every MoE (token,
+expert) selection in one launch of K8 ``w4_grouped_gemv``: K1's inner
+loop, one block per (column tile, selection), with the expert ids read
+on the device.
+
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor. The TPU autotuner does not
 carry over: launch shapes are picked here in code.
@@ -27,10 +33,14 @@ from typing import Optional
 import torch
 
 from . import _build
-from ..quant.qtensor import QuantizedTensor, _as_u32
+from ..quant.qtensor import QuantizedTensor
 
 __all__ = [
     "qmatmul_stacked",
+    "qmatmul_grouped_experts",
+    "grouped_experts_ok",
+    "w4_grouped_gemv",
+    "w4_grouped_gemv_plain",
     "w4_planar_gemv",
     "w4_planar_gemv_plain",
     "w4_planar_gemm",
@@ -77,11 +87,13 @@ def _kernel_geometry_ok(K: int, g: int) -> bool:
 
 
 def _planar_values(qw: torch.Tensor, K: int) -> torch.Tensor:
-    """Planar words [K/8, Np] -> f32 [K, Np] nibble values in k order."""
-    u = _as_u32(qw)
-    sh = torch.arange(0, 32, 8, dtype=torch.int64, device=qw.device)[None, :, None]
-    lo = ((u[:, None, :] >> sh) & 0xF).reshape(K // 2, -1)
-    hi = ((u[:, None, :] >> (sh + 4)) & 0xF).reshape(K // 2, -1)
+    """Planar words [K/8, Np] -> f32 [K, Np] nibble values in k order.
+    The shifts stay in int32: an arithmetic shift by <= 28 bits keeps
+    the nibble's own bits, and the mask drops the sign copies."""
+    sh = torch.arange(0, 32, 8, dtype=torch.int32, device=qw.device)[None, :, None]
+    w = qw.to(torch.int32)[:, None, :]
+    lo = ((w >> sh) & 0xF).reshape(K // 2, -1)
+    hi = ((w >> (sh + 4)) & 0xF).reshape(K // 2, -1)
     return torch.cat([lo, hi], dim=0).to(torch.float32)
 
 
@@ -124,13 +136,15 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gemv_launch(dev: torch.device, M: int, Np: int, K: int):
+def _gemv_launch(dev: torch.device, M: int, Np: int, K: int, row_blocks=None):
     """K1's launch shape: 16-column MMA tiles per block (4 where that
     still gives a block per SM, else 2) and warps per block (each takes a
-    share of K's 32-value tiles), about 16 warps per SM in all."""
+    share of K's 32-value tiles), about 16 warps per SM in all.
+    ``row_blocks``: blocks along the rows (K8: one per selection; K1:
+    one per 8 rows)."""
     sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     nt = 4 if Np % 64 == 0 and Np // 64 >= sms else 2
-    blocks = (Np // (16 * nt)) * (-(-M // 8))
+    blocks = (Np // (16 * nt)) * (-(-M // 8) if row_blocks is None else row_blocks)
     warps = max(1, min(16, K // 32, -(-16 * sms // blocks)))
     return nt, warps
 
@@ -279,6 +293,93 @@ w4_planar_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K8 w4_grouped_gemv
+# ---------------------------------------------------------------------------
+
+
+def w4_grouped_gemv_plain(
+    x_rows: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zs: torch.Tensor,
+    ids: torch.Tensor,
+    x_shared: bool = False,
+) -> torch.Tensor:
+    """The plain version of K8: for each selection i, K1's arithmetic on
+    the one row x_rows[0 if x_shared else i] against expert ids[i] of the
+    stack -> bf16 [n, Np]. The expert's words are gathered with
+    index_select, so the ids are never read on the host."""
+    ids = ids.to(torch.int64)
+    out = []
+    for i in range(ids.shape[0]):
+        e = ids[i : i + 1]
+        x = x_rows[:1] if x_shared else x_rows[i : i + 1]
+        out.append(
+            w4_planar_gemv_plain(
+                x, qweight.index_select(0, e), scales.index_select(0, e), zs.index_select(0, e), 0
+            )
+        )
+    return torch.cat(out)
+
+
+def w4_grouped_gemv(
+    x_rows: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zs: torch.Tensor,
+    ids: torch.Tensor,
+    x_shared: bool = False,
+) -> torch.Tensor:
+    """K8: x_rows [n, K] bf16 (or [>= 1, K] when ``x_shared``), an expert
+    stack qweight [E, K/8, Np] / scales, zs [E, G, Np], ids [n] int32 on
+    the device -> y [n, Np] bf16. An id outside [0, E) gives a row of NaN
+    (no host check: it would wait on the device)."""
+    if not _build.use_kernel(x_rows, "w4_grouped_gemv"):
+        return w4_grouped_gemv_plain(x_rows, qweight, scales, zs, ids, x_shared)
+    if x_rows.dtype != torch.bfloat16 or x_rows.dim() != 2:
+        raise ValueError("w4_grouped_gemv: x_rows must be bf16 [n, K]")
+    K = x_rows.shape[1]
+    E, Np, G = _check_stack("w4_grouped_gemv", x_rows, qweight, scales, zs, 0, K)
+    if ids.dim() != 1 or ids.device != x_rows.device or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError("w4_grouped_gemv: ids must be an int [n] tensor on the rows' device")
+    n = ids.shape[0]
+    if not x_shared and x_rows.shape[0] != n:
+        raise ValueError(f"w4_grouped_gemv: {x_rows.shape[0]} rows for {n} selections")
+    if n < 1 or n > 65535:
+        raise ValueError("w4_grouped_gemv: 1 <= n <= 65535 selections")
+    if Np % 32:
+        raise ValueError("w4_grouped_gemv: the padded width must be a multiple of 32")
+    x_rows = _aligned(x_rows.contiguous())  # 8-byte x loads
+    ids = ids.to(torch.int32).contiguous()
+    nt, warps = _gemv_launch(x_rows.device, 1, Np, K, row_blocks=n)
+    out = torch.empty((n, Np), dtype=torch.bfloat16, device=x_rows.device)
+    lib = _build.load_library()
+    code = lib.qllm_w4_grouped_gemv(
+        x_rows.data_ptr(),
+        qweight.data_ptr(),
+        scales.data_ptr(),
+        zs.data_ptr(),
+        ids.data_ptr(),
+        out.data_ptr(),
+        n,
+        E,
+        int(bool(x_shared)),
+        K,
+        Np,
+        K // G,
+        nt,
+        warps,
+        _build.stream(x_rows),
+    )
+    _build.check("w4_grouped_gemv", code)
+    w4_grouped_gemv.launches += 1
+    return out
+
+
+w4_grouped_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the stacked matmul entry point
 # ---------------------------------------------------------------------------
 
@@ -342,3 +443,42 @@ def qmatmul_stacked(
     if y.shape[1] != N:
         y = y[:, :N]
     return y.reshape(*lead, N).to(x.dtype)
+
+
+def grouped_experts_ok(qt_stacked: QuantizedTensor) -> bool:
+    """Whether K8 serves this [E]-stack: the serving layout (4-bit planar,
+    prefolded bf16 zs, no act-order) in the full-K planar geometry the
+    JAX package's grouped kernel takes (``planar_full_ok``)."""
+    K = qt_stacked.in_features
+    g = qt_stacked.effective_group_size
+    return (
+        qt_stacked.bits == 4
+        and qt_stacked.planar
+        and qt_stacked.zeros_prefolded
+        and qt_stacked.perm is None
+        and qt_stacked.scales.dtype == torch.bfloat16
+        and planar_full_ok(K, g)
+        and _kernel_geometry_ok(K, g)
+    )
+
+
+def qmatmul_grouped_experts(
+    x_rows: torch.Tensor,  # [n, K], or [>= 1, K] with x_shared
+    qt_stacked: QuantizedTensor,  # [E]-stacked serving prep
+    expert_ids: torch.Tensor,  # [n] int, on the device
+    x_shared: bool = False,  # every selection reads x_rows[0] (one token's k experts)
+) -> torch.Tensor:
+    """y[i] = x_rows[i] @ dequant(stack[expert_ids[i]]) for every
+    selection in one K8 launch -> bf16 [n, N] (f32 sums)."""
+    if not grouped_experts_ok(qt_stacked):
+        raise NotImplementedError("qmatmul_grouped_experts: the stack is not in K8's geometry (grouped_experts_ok)")
+    y = w4_grouped_gemv(
+        x_rows.to(torch.bfloat16),
+        qt_stacked.qweight,
+        qt_stacked.scales,
+        qt_stacked.zeros,
+        expert_ids,
+        x_shared,
+    )
+    N = qt_stacked.out_features
+    return y[:, :N] if y.shape[1] != N else y

@@ -126,3 +126,58 @@ def test_flash_prefill_kernel_matches_plain(gen, B, T, S, Hkv, n_rep, pos, int8)
         out = fp.flash_prefill(q, k, v, ks, vs, pos, out_dtype).float()
         ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, out_dtype).float()
         torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "K,Np,ids,shared",
+    [(2048, 1536, [5, 1, 7, 5], True), (768, 2048, [0, 0, 2, 3, 3, 3, 6, 7], False)],
+    ids=["shared", "sorted-repeats"],
+)
+def test_grouped_gemv_kernel_matches_plain(gen, K, Np, ids, shared):
+    qw, sc, zs = _stack(gen, K, Np, L=8)
+    n = len(ids)
+    x = torch.randn((1 if shared else n, K), device="cuda", generator=gen).to(torch.bfloat16)
+    if not shared:
+        x[4] = x[3]  # an equal (row, id) pair must give equal bits
+    ids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    y = qmm.w4_grouped_gemv(x, qw, sc, zs, ids, shared).float()
+    ref = qmm.w4_grouped_gemv_plain(x, qw, sc, zs, ids, shared).float()
+    assert (y - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+    # an equal (row, id) pair within one launch: the shared row read twice
+    # by expert 5, or rows 3 and 4 (made equal above) by expert 3
+    i, j = (0, 3) if shared else (3, 4)
+    assert torch.equal(y[i], y[j])
+
+
+def test_grouped_gemv_kernel_offsets_past_2_31_bytes(gen):
+    """Expert 71 of a [72, 256, 32768] stack starts 2.4 GB into the words."""
+    K, Np, E = 2048, 32768, 72
+    qw = torch.randint(-(2**31), 2**31, (E, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((E, K // 128, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+    zs = (sc.float() * 8).to(torch.bfloat16)
+    ids = torch.tensor([71, 0, 70], dtype=torch.int32, device="cuda")
+    assert 71 * (K // 8) * Np * 4 > 2**31
+    x = torch.randn((3, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4_grouped_gemv(x, qw, sc, zs, ids).float()
+    ref = qmm.w4_grouped_gemv_plain(x, qw, sc, zs, ids).float()
+    assert (y - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+
+
+def test_decode_attention_kernel_at_16384_rows(gen):
+    """K3b past the JAX package's one-shot limit (its chunked path). The
+    outputs are small here (about 0.015 RMS), so the limit scales with
+    them, and a control shows it catches K3b with one 128-row tile
+    missing."""
+    L, B, Hkv, S, D, n_rep = 1, 2, 2, 16384, 128, 4
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    vs = torch.rand((L, B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([S, 9001], dtype=torch.int32, device="cuda")
+    out = att.decode_attention(q, kc, vc, ks, vs, lengths, 0)
+    ref = att.decode_attn_int8_plain(q, kc, vc, ks, vs, lengths, 0)
+    limit = 2e-2 * ref.abs().max() + 1e-4
+    assert (out - ref).abs().max() <= limit
+    short = att.decode_attention(q, kc, vc, ks, vs, lengths - 128, 0)
+    assert (short - ref).abs().max() > limit
