@@ -21,23 +21,34 @@ Phases, each of which fails the run on any error or disagreement:
      into a ring-fused cache (max_seq 640), 64 ring-fused greedy steps,
      then a 2048-token prompt flash-prefilled into a 2048-row int8
      cache, counts again set to 0 before and read after;
-  5. moe: Mixtral-8x7B (32 layers, 8 experts, top-2, W4 g128, random
+  5. serve: the continuous-batching engine (max_batch 8, max_seq 2048,
+     prefill_chunk 256) on the 7B shape with per-layer (not stacked) W4
+     g128 params, so every matmul runs K9 (M <= 32) or K10: 24 requests
+     (prompts of 16-1536 tokens, 4 extending a registered 200-token
+     prefix, 4 sampled), then the greedy ones again with n-gram
+     speculation; each dispatch's launches asserted, bucket-length
+     requests equal to greedy_generate, both legs' greedy streams held to
+     teacher-forced prefills, sampled tokens inside their top-k /
+     nucleus;
+  6. moe: Mixtral-8x7B (32 layers, 8 experts, top-2, W4 g128, random
      weights drawn on the card), hybrid-stacked: (a) batch 1, a 512-token
      flash prefill into a ring cache (max_seq 640) and 64 ring-fused steps,
      the experts through the grouped kernel K8 with a shared row; (b)
      batch 8, 128-token prompts and 64 steps on the plain cache, where
-     B*k >= E sends every expert through K1 (the dense loop);
-  6. long: the same Mixtral at batch 8 on a 16384-row cache whose rows
+     B*k >= E sends every expert through K1 (the dense loop); (c) the
+     engine at max_batch 2 over 8 requests (K8 and K1);
+  7. long: the same Mixtral at batch 8 on a 16384-row cache whose rows
      [0, 12288) are filled on the card, 16 steps from position 12288 (K3b
      past S = 8192, the JAX package's key-chunked path);
-  7. moe_qwen3: Qwen3-30B-A3B (48 layers, 128 experts, top-8, q/k RMS
+  8. moe_qwen3: Qwen3-30B-A3B (48 layers, 128 experts, top-8, q/k RMS
      norm), batch 1 as (a) and batch 8 with 64 sorted selections per
      step through K8;
-  8. cross: the 7B widths at 2 layers on the card and on the CPU (plain
+  9. cross: the 7B widths at 2 layers on the card and on the CPU (plain
      versions), B=2, T=32, 8 steps on the plain cache, then B=1, T=256
-     (flash), 16 steps on a ring cache; then 2 layers at Mixtral and at
-     Qwen3 width, a short prompt and sparse steps: logits within
-     tolerance, the same greedy ids.
+     (flash), 16 steps on a ring cache; the engine over 2 per-layer
+     layers of 4 and 8 bits; then 2 layers at Mixtral and at Qwen3 width,
+     a short prompt and sparse steps: logits within tolerance, the same
+     greedy ids.
 
 Each model path runs with every kernel's launch count set to 0 just
 before it and read just after; the peak device memory of each is
@@ -52,6 +63,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -98,6 +110,18 @@ QMM_CASES = (
     ("w4_planar_gemm", 1024, None),
     ("w4_planar_gemm", 512, "gateup"),
     ("w4_planar_gemm", 2048, "gateup"),
+)
+# K9 / K10 rows on per-layer GPTQ-order weights (the serve path's
+# shapes): (kernel, M, projection, K, N, bits, act-order)
+GPTQ_CASES = tuple(
+    [("gptq_gemv", M, n, K, N, 4, False) for M in (1, 8)
+     for n, K, N in (("q/k/v/o", 4096, 4096), ("gate/up", 4096, 11008), ("down", 11008, 4096),
+                     ("lm_head", 4096, 32000))]
+    + [("gptq_gemv", 8, "gate/up", 4096, 11008, b, False) for b in (2, 8)]
+    + [("gptq_gemv", 8, "q/k/v/o", 4096, 4096, 4, True)]
+    + [("gptq_gemm", M, n, K, N, 4, False) for M in (256, 1024)
+       for n, K, N in (("gate/up", 4096, 11008), ("down", 11008, 4096))]
+    + [("gptq_gemm", 256, "gate/up", 4096, 11008, 8, False)]
 )
 # K5 at batch 1, 32 heads: (T, S, K/V form), pos 0
 FLASH_CASES = ((512, 640, "int8"), (2048, 2048, "int8"), (2048, 2048, "bf16"))
@@ -531,6 +555,55 @@ def phase_kernels(torch, timer):
         raise AssertionError(f"planarize_w4: {mism} words differ")
     del words, out
     torch.cuda.empty_cache()
+    rows.extend(gptq_rows(torch, timer, gen))
+    return rows
+
+
+def gptq_rows(torch, timer, gen):
+    """K9 / K10 on random GPTQ-order weights (fp16 scales, mid-range
+    zeros, as the loaders give them) against their plain versions; the
+    library time is torch.matmul on the pre-dequantized bf16 weight."""
+    from qllm_tpu_torch.ops import qmm2d
+    from qllm_tpu_torch.ops.ref_matmul import dequant_ref
+    from qllm_tpu_torch.utils.testing import random_quantized_tensor
+
+    rows = []
+    fns = {"gptq_gemv": (qmm2d.gptq_gemv, qmm2d.gptq_gemv_plain), "gptq_gemm": (qmm2d.gptq_gemm, qmm2d.gptq_gemm_plain)}
+    for kname, M, pname, Kf, N, bits, act_order in GPTQ_CASES:
+        fn, plain = fns[kname]
+        qt = random_quantized_tensor(gen, Kf, N, bits, 128)
+        x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+        w_args = (qt.qweight, qt.scales, qt.zeros, bits, 128)
+        if act_order:  # the perm gathers x's columns first, inside qmatmul_2d
+            perm = torch.randperm(Kf, generator=gen, device=DEV).to(torch.int32)
+            qt = dataclasses.replace(qt, perm=perm)
+            run = lambda: qmm2d.qmatmul_2d(x, qt)  # noqa: E731
+            xp = x.index_select(1, perm.long())
+        else:
+            run = lambda: fn(x, *w_args)  # noqa: E731
+            xp = x
+        y = run()
+        torch.cuda.synchronize()
+        y_ref = plain(xp, *w_args)
+        scale = float(y_ref.float().abs().max())
+        err = float((y.float() - y_ref.float()).abs().max())
+        ok = torch.allclose(y.float(), y_ref.float(), atol=QMM_TOL * scale, rtol=QMM_TOL)
+        w = dequant_ref(qt, torch.bfloat16)
+        lib_ms = timer(lambda: torch.matmul(xp, w))
+        del w
+        ms = timer(run)
+        plain_ms = timer(lambda: plain(xp, *w_args), reps=5, warmup=1)
+        nbytes = qt.qweight.numel() * 4 + 2 * qt.scales.numel() * qt.scales.element_size() + M * Kf * 2 + M * N * 2
+        nbytes += Kf * 4 if act_order else 0
+        b_ms, b_by = bound(nbytes, 2.0 * M * Kf * N)
+        rows.append(dict(kernel=kname, case=f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
+                         max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"{kname} {rows[-1]['case']}: max_abs_err {err} outside tolerance")
+        del qt, x, y, y_ref
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -783,15 +856,20 @@ def phase_main1(torch, K, model):
 def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4):
     """Device busy share of a few warm decode steps (torch.profiler, CUDA
     kernel time over host wall time) and the kernels that take it."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+
+    return profile_run(torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV), steps)
+
+
+def profile_run(torch, run, steps: int):
+    """profile_decode's reading of ``run``, which takes ``steps`` steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from qllm_tpu_torch.models.decode_loop import decode_loop
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -982,7 +1060,35 @@ def phase_moe(torch, K, model):
     check_no_sync(torch, "moe b1", cfg, sp, 1)
     runs["moe_b8"] = drive(torch, K, "moe b8", cfg, sp, MOE["B"], MOE["T"], MOE["STEPS"], MOE["MAX_SEQ"], False,
                            moe_expected(cfg, MOE["STEPS"], MOE["B"], False))
+    runs["moe_engine"] = moe_engine_leg(torch, K, cfg, sp)
     return runs
+
+
+def moe_engine_leg(torch, K, cfg, sp):
+    """The engine over the stacked Mixtral: 8 requests of 16-token prompts
+    and 16 new tokens at max_batch 2, so decode takes the sparse branch
+    (B * k < E: K8) beside K1 for the attention projections."""
+    import numpy as np
+
+    from qllm_tpu_torch.serve import ContinuousBatchingEngine, ServeConfig
+
+    B, n_req, T, new = 2, 8, 16, 16
+    rng = np.random.default_rng(18)
+    for fn in K.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(sp, cfg, ServeConfig(max_batch=B, max_seq=64), device=DEV)
+    reqs = [engine.submit(rng.integers(0, cfg.vocab_size, T).astype(np.int32), new) for _ in range(n_req)]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = counts(K)
+    if any(len(r.output) != new or not r.finished for r in reqs):
+        raise AssertionError("moe engine: a request did not finish with its length")
+    if total["w4_grouped_gemv"] == 0 or total["w4_planar_gemv"] == 0 or total["gptq_gemv"] or total["gptq_gemm"]:
+        raise AssertionError(f"moe engine: launches {total}")
+    log(f"[moe engine] {json.dumps({'requests': n_req, 'max_batch': B, 'prompt': T, 'new_tokens': new, 'wall_s': wall, 'generated_tok_s': n_req * new / wall, 'launches': total})}")
+    return total
 
 
 def phase_long(torch, K, model):
@@ -1122,6 +1228,61 @@ def _to_cpu(node):
     return node.cpu()
 
 
+def cross_engine(torch):
+    """The engine on the card and on the CPU over 2 per-layer layers at
+    7B width, layer 0 at 4 bits and layer 1 at 8 (mixed widths, which only
+    the unstacked path holds): the same greedy tokens, and the first
+    token's logits within LOGIT_TOL. On the CPU a 2-D weight takes
+    qmatmul_2d here, K9's and K10's plain versions, as on the card (by
+    default the CPU runs qmatmul_ref, JAX's CPU route, which rounds the
+    weights to bf16 where K9 keeps f32: 2 layers put their logits 0.375
+    apart on the card). The weights are the serve model's
+    (zero-mean, scale 0.004; the 8-bit layer's scale 16x smaller, for the
+    same spread) and the lm_head columns of 8 tokens are scaled up 8x (as
+    the CPU tests do) so that no greedy decision is close."""
+    import numpy as np
+
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.ops import _build
+    from qllm_tpu_torch.serve import engine as mod
+    from qllm_tpu_torch.utils.testing import random_quantized_params
+
+    cfg = ModelConfig(num_hidden_layers=CROSS["LAYERS"], **SEVEN_B)
+    scale = SERVE_MODEL["WEIGHT_SCALE"]
+    gpu = random_quantized_params(cfg, 3, bits=4, quantize_lm_head=True, device=DEV, scale=scale, centered=True)
+    gpu["layers"][1] = random_quantized_params(cfg, 4, bits=8, device=DEV, scale=scale / 16, centered=True)["layers"][1]
+    rng = np.random.default_rng(19)
+    cols = torch.from_numpy(rng.choice(cfg.vocab_size, 8, replace=False)).to(DEV)
+    gpu["lm_head"].scales[:, cols] *= 8.0
+    sides = {"cuda": gpu, "cpu": _to_cpu(gpu)}
+    prompts = [rng.integers(0, cfg.vocab_size, CROSS["T"]).astype(np.int32) for _ in range(CROSS["B"])]
+    outs, first = {}, {}
+    use_kernel = _build.use_kernel
+    for side, params in sides.items():
+        dev = DEV if side == "cuda" else "cpu"
+        if side == "cpu":
+            _build.use_kernel = lambda t, name: name == "qmatmul" or use_kernel(t, name)
+        try:
+            engine = mod.ContinuousBatchingEngine(params, cfg, mod.ServeConfig(max_batch=2, max_seq=CROSS["MAX_SEQ"]),
+                                                  device=dev)
+            reqs = [engine.submit(p, CROSS["STEPS"]) for p in prompts]
+            engine.run()
+            outs[side] = [r.output for r in reqs]
+            mini = engine._make_mini_cache(CROSS["T"])
+            last, _ = mod._prefill_one(params, cfg, torch.from_numpy(prompts[0])[None].to(dev), mini, CROSS["T"])
+            first[side] = last.float().cpu()
+        finally:
+            _build.use_kernel = use_kernel
+    err = float((first["cuda"] - first["cpu"]).abs().max())
+    ok = bool(torch.allclose(first["cuda"], first["cpu"], atol=LOGIT_TOL, rtol=LOGIT_TOL))
+    same = outs["cuda"] == outs["cpu"]
+    res = {"layers": "4-bit, 8-bit", "requests": CROSS["B"], "T": CROSS["T"], "new_tokens": CROSS["STEPS"],
+           "first_token_max_abs_err": err, "within_tol": ok, "same_greedy_tokens": same}
+    if not ok or not same:
+        raise AssertionError(f"cross engine: card vs CPU {res}")
+    return res
+
+
 def phase_cross(torch):
     """2 layers at full width: the card's kernels against the CPU's plain versions."""
     from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
@@ -1193,7 +1354,9 @@ def phase_cross(torch):
         agree1.append(bool(torch.equal(tok, greedy(logits1["cpu"][-1]))))
     errs1 = [float((a - b).abs().max()) for a, b in zip(logits1["cuda"], logits1["cpu"])]
     oks1 = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits1["cuda"], logits1["cpu"])]
+    res_engine = cross_engine(torch)
     res = {
+        "engine": res_engine,
         "config": f"Llama-2-7B widths, {CROSS['LAYERS']} layers, card kernels vs CPU plain versions: "
         f"B={B}, T={T}, {STEPS} greedy steps on the plain int8 cache; B=1, T={T1} (flash), "
         f"{STEPS1} greedy steps on a ring cache",
@@ -1211,6 +1374,312 @@ def phase_cross(torch):
         raise AssertionError(f"card vs CPU logits outside tolerance: {errs} {errs1}")
 
 
+# the serve path: the engine's configuration (ServeConfig defaults but
+# these), the requests' seed and prefix length, the speculative leg's gamma
+SERVE = dict(MAX_BATCH=8, MAX_SEQ=2048, PREFILL_CHUNK=256, LAYERS=32, SEED=20, PREFIX=200, GAMMA=4)
+# the serve model's weight scale and its lm_head separation (SEPARATE
+# tokens' columns scaled up by SEPARATE_BY, as tests/test_torch_serve.py
+# does); see phase_serve
+SERVE_MODEL = dict(WEIGHT_SCALE=0.004, CENTERED=True, SEPARATE=8, SEPARATE_BY=8.0)
+# check_streams: the least share of greedy tokens that are a teacher-forced
+# prefill's argmax, and the largest gap to its top as a share of |top| + 1
+STREAM_EXACT = 0.85
+STREAM_GAP = 0.4
+SERVE_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# prompt lengths of the 18 requests that are neither bucket-length nor
+# prefix requests (4 of them sampled): one-shot admission below 256
+# tokens (K9 at bucket 32, K10 above), chunked admission beyond
+SERVE_LENGTHS = (16, 20, 31, 40, 77, 100, 150, 200, 256, 300, 420, 512, 640, 800, 1000, 1200, 1400, 1536)
+SERVE_SUFFIXES = (24, 180, 300, 700)  # prefix requests: one suffix window, then chunked suffixes
+
+
+def serve_requests(vocab):
+    """The serve path's 24 requests from a fixed numpy seed, in submission
+    order: (prompt, max_new_tokens, kind) with kind "bucket" (greedy, a
+    prompt of exactly a bucket's length: no padding changes the prefill's
+    M, so its tokens must equal greedy_generate's), "prefix" (greedy,
+    extends the registered prefix), "sampled" or "greedy"; and the prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE["SEED"])
+    prefix = rng.integers(0, vocab, SERVE["PREFIX"]).astype(np.int32)
+
+    def toks(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    def new():
+        return int(rng.integers(16, 97))
+
+    reqs = [(toks(64), new(), "bucket"), (toks(128), new(), "bucket")]
+    reqs += [(np.concatenate([prefix, toks(n)]), new(), "prefix") for n in SERVE_SUFFIXES]
+    kinds = ["sampled"] * 4 + ["greedy"] * (len(SERVE_LENGTHS) - 4)
+    for n, kind in zip(rng.permutation(np.array(SERVE_LENGTHS)), kinds):
+        reqs.append((toks(int(n)), new(), kind))
+    return [reqs[i] for i in rng.permutation(len(reqs))], prefix
+
+
+class EngineProbe:
+    """Counts, per engine dispatch, the kernel launches and the time (with
+    a synchronize on each side) by wrapping the engine module's step
+    functions, and holds every sampled token to its top-k / nucleus
+    support by wrapping its sample_logits. ``restore`` undoes it."""
+
+    STEPS = {"_batched_decode_step": "decode", "_batched_spec_step": "verify",
+             "_prefill_one": "prefill", "_prefill_chunk": "prefill"}
+
+    def __init__(self, torch, K, mod):
+        self.torch, self.K, self.mod = torch, K, mod
+        self.calls, self.sampled_rows, self.bad_rows = [], 0, 0
+        self.orig = {n: getattr(mod, n) for n in (*self.STEPS, "sample_logits")}
+        for name, kind in self.STEPS.items():
+            setattr(mod, name, self._step(self.orig[name], kind))
+        mod.sample_logits = self._sample
+
+    def _step(self, fn, kind):
+        torch = self.torch
+
+        def wrapped(*a, **kw):
+            tokens = a[2]
+            M = tokens.shape[0] * (a[8] + 1) if kind == "verify" else tokens.numel()
+            torch.cuda.synchronize()
+            before, t0 = counts(self.K), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append(dict(kind=kind, M=M, ms=(time.perf_counter() - t0) * 1e3,
+                                   launches=delta(before, counts(self.K))))
+            return out
+
+        return wrapped
+
+    def _sample(self, logits, generator, t, k, p):
+        torch = self.torch
+        tok = self.orig["sample_logits"](logits, generator, t, k, p)
+        lt = logits.float() / torch.clamp(t.float(), min=1e-6)[:, None]
+        mine = torch.gather(lt, 1, tok.long()[:, None])
+        above = lt > mine
+        kk = torch.where(k > 0, k, torch.full_like(k, lt.shape[1]))
+        mass_above = (torch.softmax(lt, dim=-1) * above).sum(dim=1)
+        in_support = (above.sum(dim=1) < kk) & ((p >= 1.0) | (mass_above < p))
+        ok = torch.where(t > 0, in_support, tok.long() == torch.argmax(logits.float(), dim=1))
+        self.sampled_rows += int((t > 0).sum())
+        self.bad_rows += int((~ok).sum())
+        return tok
+
+    def restore(self):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+    def check_launches(self, layers):
+        """Every dispatch launched what its M says: a plain decode step 7L+1
+        K9, L K3a and L K3b; a verify step 7L+1 K10; a prefill 7L+1 K9
+        (M <= 32) or K10, and L K5 from 256 rows on; nothing else."""
+        n = 7 * layers + 1
+        for c in self.calls:
+            if c["kind"] == "decode":
+                want = {"gptq_gemv": n, "kv_write_int8": layers, "decode_attn_int8": layers}
+            elif c["kind"] == "verify":
+                want = {"gptq_gemm": n}
+            else:
+                want = {"gptq_gemv" if c["M"] <= 32 else "gptq_gemm": n, "flash_prefill": layers if c["M"] >= 256 else 0}
+            bad = {k: v for k, v in c["launches"].items() if v != want.get(k, 0)}
+            if bad:
+                raise AssertionError(f"serve: a {c['kind']} dispatch at M={c['M']} launched {bad}, expected {want}")
+
+    def summary(self, kind):
+        ms = [c["ms"] for c in self.calls if c["kind"] == kind]
+        return {"dispatches": len(ms), "median_ms": statistics.median(ms) if ms else None}
+
+
+def serve_leg(torch, K, probe, mod, params, cfg, requests, prefix, speculative):
+    """One engine run over ``requests`` with the counts set to 0 just
+    before it: (requests, totals, metrics)."""
+    import numpy as np
+
+    scfg = mod.ServeConfig(max_batch=SERVE["MAX_BATCH"], max_seq=SERVE["MAX_SEQ"], prefill_chunk=SERVE["PREFILL_CHUNK"],
+                           speculative=speculative, spec_gamma=SERVE["GAMMA"])
+    for fn in K.values():
+        fn.launches = 0
+    probe.calls = []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = mod.ContinuousBatchingEngine(params, cfg, scfg, device=DEV)
+    pid = engine.register_prefix(prefix)
+    sampled = mod.SamplingParams(**SERVE_SAMPLED)
+    reqs = [engine.submit(p, n, sampling=sampled if kind == "sampled" else None,
+                          prefix_id=pid if kind == "prefix" else None) for p, n, kind in requests]
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = counts(K)
+    probe.check_launches(cfg.num_hidden_layers)
+    if len(done) != len(reqs) or any(len(r.output) != n for r, (_, n, _) in zip(reqs, requests)):
+        raise AssertionError("serve: a request did not finish with its length")
+    if any(t < 0 or t >= cfg.vocab_size for r in reqs for t in r.output):
+        raise AssertionError("serve: a token id out of range")
+    ttft = np.array([r.first_token_at - r.submitted_at for r in reqs]) * 1e3
+    gen_tokens = sum(len(r.output) for r in reqs)
+    res = {
+        "requests": len(reqs),
+        "generated_tokens": gen_tokens,
+        "prompt_tokens": int(sum(len(p) for p, _, _ in requests)),
+        "wall_s": wall,
+        "generated_tok_s": gen_tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p90": float(np.percentile(ttft, 90)),
+        "decode_step": probe.summary("decode"),
+        "verify_step": probe.summary("verify"),
+        "prefill": probe.summary("prefill"),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    if speculative:
+        fw = sum(r.spec_forwards for r in reqs)
+        res["spec_tokens_per_forward"] = sum(r.spec_emitted for r in reqs) / fw if fw else None
+    return reqs, total, res
+
+
+def stream_check(torch, params, cfg, prompt, out):
+    """Teacher-forced reading of one greedy stream: one prefill over the
+    prompt and the stream (K10 and flash prefill) gives the logits at
+    every generated position; returns (positions where the stream's token
+    is that prefill's argmax, positions, the largest gap to the top as a
+    share of |top| + 1)."""
+    from qllm_tpu_torch.models.generate import make_cache
+    from qllm_tpu_torch.models.llama import forward
+
+    ids = torch.tensor(list(prompt) + out[:-1], dtype=torch.int32, device=DEV)[None]
+    with torch.no_grad():
+        logits, _ = forward(params, cfg, ids, make_cache(cfg, 1, ids.shape[1], device=DEV), pos=0)
+    lf = logits[0, len(prompt) - 1 :].float()
+    top = lf.max(dim=-1).values
+    mine = torch.gather(lf, 1, torch.tensor(out, device=DEV)[:, None].long())[:, 0]
+    gap = top - mine
+    return int((gap == 0).sum()), len(out), float((gap / (top.abs() + 1)).max())
+
+
+def check_streams(torch, params, cfg, legs):
+    """Both legs' greedy streams against teacher-forced prefills: at least
+    STREAM_EXACT of the tokens are the prefill's argmax and none lies more
+    than STREAM_GAP * (|top| + 1) below the top. Bit-exact agreement is
+    not a property of this pair: a plain step runs K9 (f32 activations and
+    weights) where verify and prefill run K10 (bf16, the TPU's M > 32
+    rounding), and 32 random layers carry that difference to logits ~1 apart
+    (measured on one H100: every stream of the speculative leg forked from
+    the plain one, at gaps of 0-2.75 logits with tops of 5-24)."""
+    stats = {}
+    for name, pairs in legs.items():
+        exact = total = 0
+        worst = 0.0
+        for prompt, out in pairs:
+            e, n, w = stream_check(torch, params, cfg, prompt, out)
+            exact, total, worst = exact + e, total + n, max(worst, w)
+        stats[name] = {"argmax_share": exact / total, "tokens": total, "worst_gap_share": worst}
+        if exact < STREAM_EXACT * total or worst > STREAM_GAP:
+            raise AssertionError(f"serve: the {name} leg's streams disagree with teacher-forced prefills: {stats[name]}")
+    return stats
+
+
+def profile_engine(torch, mod, params, cfg, speculative, steps=4):
+    """profile_run over ``steps`` warm engine iterations with 8 greedy
+    requests of 128 tokens in the slots: plain decode steps, or verify
+    steps when ``speculative``."""
+    import numpy as np
+
+    engine = mod.ContinuousBatchingEngine(params, cfg, mod.ServeConfig(
+        max_batch=SERVE["MAX_BATCH"], max_seq=SERVE["MAX_SEQ"], speculative=speculative, spec_gamma=SERVE["GAMMA"]),
+        device=DEV)
+    rng = np.random.default_rng(SERVE["SEED"] + 1)
+    for _ in range(SERVE["MAX_BATCH"]):
+        engine.submit(rng.integers(0, cfg.vocab_size, 128).astype(np.int32), 96)
+    for _ in range(3):  # admission and two warm iterations
+        engine.step()
+    log(f"[serve] profile of {'verify' if speculative else 'plain decode'} steps at batch {SERVE['MAX_BATCH']}:")
+
+    def run():
+        for _ in range(steps):
+            engine.step()
+
+    return profile_run(torch, run, steps)
+
+
+def serve_model(torch, cfg):
+    """The serve path's per-layer W4 g128 params, drawn on the card with
+    zero-mean weights (centered zeros) at scale 0.004, and the lm_head
+    columns of 8 tokens scaled up 8x so that greedy picks among them with
+    wide margins. With the helper's defaults (zeros at 2^(bits-1), scale
+    0.01) every weight column has a mean of -0.5 * its scale, a common
+    component grows down the residual stream, and every greedy stream is
+    made of the two tokens whose lm_head columns sum highest and lowest,
+    picked by the sign of a near-cancellation; each projection also
+    triples the spread of its input, so attention is near-argmax (measured
+    on one H100: a verify row came out 71.5 logits from a prefill of the same
+    tokens, from layer 1's attention on)."""
+    from qllm_tpu_torch.utils.testing import random_quantized_params
+
+    m = SERVE_MODEL
+    params = random_quantized_params(cfg, 5, bits=4, group_size=128, quantize_lm_head=True, device=DEV,
+                                     scale=m["WEIGHT_SCALE"], centered=m["CENTERED"])
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SERVE["SEED"])
+    cols = torch.randperm(cfg.vocab_size, device=DEV, generator=gen)[: m["SEPARATE"]]
+    sc = params["lm_head"].scales
+    sc[:, cols] = (sc[:, cols].float() * m["SEPARATE_BY"]).to(sc.dtype)
+    return params
+
+
+def phase_serve(torch, K, card):
+    """The continuous-batching engine on a full-depth Llama-2-7B-shape
+    per-layer W4 g128 model (not stacked: every matmul through K9 / K10):
+    24 requests (bucket-length, prefix, sampled, greedy), then the greedy
+    ones again with n-gram speculation; both legs' greedy streams are held
+    to teacher-forced prefills (check_streams)."""
+    from qllm_tpu_torch.models.generate import greedy_generate
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.serve import engine as mod
+
+    cfg = ModelConfig(num_hidden_layers=SERVE["LAYERS"], **SEVEN_B)
+    t0 = time.time()
+    params = serve_model(torch, cfg)
+    torch.cuda.synchronize()
+    log(f"[serve] random per-layer W4 g128 params drawn on the card in {time.time() - t0:.2f} s")
+    requests, prefix = serve_requests(cfg.vocab_size)
+    probe = EngineProbe(torch, K, mod)
+    runs = {}
+    try:
+        reqs, runs["serve"], res = serve_leg(torch, K, probe, mod, params, cfg, requests, prefix, False)
+        log(f"[serve] plain leg, {card}: {json.dumps(res)}")
+        if probe.bad_rows or probe.sampled_rows == 0:
+            raise AssertionError(f"serve: {probe.bad_rows} of {probe.sampled_rows} sampled rows outside their support")
+        # batch invariance: a bucket-length greedy request decoded at batch 8
+        # gives greedy_generate's tokens at batch 1, bit for bit
+        for (p, n, kind), r in zip(requests, reqs):
+            if kind == "bucket":
+                ref = greedy_generate(params, cfg, torch.from_numpy(p)[None], n, device=DEV)[0, len(p):].tolist()
+                if r.output != ref:
+                    first = next(i for i, (a, b) in enumerate(zip(r.output, ref)) if a != b)
+                    raise AssertionError(f"serve: the {len(p)}-token request left greedy_generate at token {first}")
+        greedy = [(q, r) for q, r in zip(requests, reqs) if q[2] != "sampled"]
+        spec_reqs, runs["serve_spec"], res_spec = serve_leg(torch, K, probe, mod, params, cfg, [q for q, _ in greedy],
+                                                            prefix, True)
+        log(f"[serve] speculative leg (gamma {SERVE['GAMMA']}), {card}: {json.dumps(res_spec)}")
+    finally:
+        probe.restore()
+    stats = check_streams(torch, params, cfg, {"plain": [(q[0], r.output) for q, r in greedy],
+                                               "speculative": [(q[0], s.output) for (q, _), s in zip(greedy, spec_reqs)]})
+    forks = [next((i for i, (a, b) in enumerate(zip(r.output, s.output)) if a != b), None)
+             for (_, r), s in zip(greedy, spec_reqs)]
+    log(f"[serve] greedy streams against teacher-forced prefills: {json.dumps(stats)}; speculative vs plain: "
+        f"{forks.count(None)} of {len(forks)} identical, first differing token of the others {[f for f in forks if f is not None]}")
+    log(f"[serve] sampled rows held to their support: {probe.sampled_rows}; bucket-length requests equal to "
+        f"greedy_generate")
+    for speculative in (False, True):
+        log(f"[serve] {'verify' if speculative else 'decode'} step profile: "
+            f"{json.dumps(profile_engine(torch, mod, params, cfg, speculative))}")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNEL_META = {
     "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
@@ -1222,10 +1691,14 @@ KERNEL_META = {
     "decode_attention_ring": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1212"),
     "kv_ring_flush": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1423"),
     "w4_grouped_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:1843"),
+    # at M <= 32 the TPU runs _qmm_kernel_v3 (:177) for 2/4 bits, _qmm_kernel (:119) for 8
+    "gptq_gemv": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:177"),
+    "gptq_gemm": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:119"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
-            "w4_grouped_gemv": "mixtral gateup"}
+            "w4_grouped_gemv": "mixtral gateup", "gptq_gemv": "gate/up K=4096 N=11008 M=8 4-bit",
+            "gptq_gemm": "gate/up K=4096 N=11008 M=256 4-bit"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
 # launches on the long path
@@ -1249,7 +1722,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
         "library_ms": head.get("library_ms"),
         "shape": head.get("case"),
     }
-    if len(mine) > 1 and name == "w4_grouped_gemv":
+    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
     return entry
@@ -1257,7 +1730,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,serve,moe,long,moe_qwen3,cross",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1277,7 +1750,7 @@ def main() -> int:
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, repack
+    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, repack
 
     K = {
         "w4_planar_gemv": qmm.w4_planar_gemv,
@@ -1289,6 +1762,8 @@ def main() -> int:
         "decode_attention_ring": attention.decode_attention_ring,
         "kv_ring_flush": attention.kv_ring_flush,
         "w4_grouped_gemv": qmm.w4_grouped_gemv,
+        "gptq_gemv": qmm2d.gptq_gemv,
+        "gptq_gemm": qmm2d.gptq_gemm,
     }
     t_start = time.time()
     t0 = time.time()
@@ -1315,6 +1790,10 @@ def main() -> int:
     model = None
     torch.cuda.empty_cache()
     log(f"[time] main, main1 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "serve" in phases:
+        runs.update(phase_serve(torch, K, card))
+    log(f"[time] serve {time.time() - t0:.1f} s")
     t0 = time.time()
     if "moe" in phases or "long" in phases:
         cfg, sp, runs["moe_load"] = load_moe(torch, K, "Mixtral-8x7B", MIXTRAL)

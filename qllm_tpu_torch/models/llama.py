@@ -188,11 +188,23 @@ def _mat(x):
     return x.materialize() if hasattr(x, "materialize") else x
 
 
+def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """mean(x^2) over the last axis, keepdim, summed in an order that does
+    not depend on the number of rows: PyTorch's CUDA reduction picks its
+    thread layout from the row count, so one long reduction would give a
+    row other bits at batch 8 than alone. In 128-wide pieces, then over
+    the pieces, every row is summed the same way at any batch."""
+    D = xf.shape[-1]
+    sq = xf * xf
+    if D % 128 == 0 and D > 128:
+        sq = sq.reshape(*sq.shape[:-1], D // 128, 128).sum(dim=-1)
+    return sq.sum(dim=-1, keepdim=True) / D
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(dt) * weight
+    return (xf * torch.rsqrt(_mean_sq(xf) + eps)).to(dt) * weight
 
 
 def qk_head_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, kind: str = "cohere") -> torch.Tensor:
@@ -336,21 +348,40 @@ def _pos_vector(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1).expand(B).contiguous()
 
 
+def _host_pos_range(pos) -> Optional[Tuple[int, int]]:
+    """(min, max) of ``pos`` when the host holds it (an int, or a tensor on
+    the CPU), else None: reading a device tensor would wait on the card."""
+    if isinstance(pos, int):
+        return pos, pos
+    if isinstance(pos, torch.Tensor) and pos.device.type == "cpu":
+        return int(pos.min()), int(pos.max())
+    return None
+
+
 def _check_fits(cache: Optional[QuantizedKVCache], pos, T: int) -> None:
-    """Raise when T tokens written at a host-int ``pos`` run past the
-    cache (on the card K3a would drop the write). A [B] tensor ``pos`` is
+    """Raise when T tokens written at a host-held ``pos`` run past the
+    cache (on the card K3a would drop the write). A ``pos`` on the card is
     not checked: that would wait on the device."""
-    if cache is not None and isinstance(pos, int) and not 0 <= pos <= cache.max_seq - T:
-        raise ValueError(f"tokens [{pos}, {pos + T}) do not fit a cache of max_seq {cache.max_seq}")
+    rng = _host_pos_range(pos) if cache is not None else None
+    if rng is not None and not (0 <= rng[0] and rng[1] <= cache.max_seq - T):
+        raise ValueError(f"tokens [{rng[0]}, {rng[1] + T}) do not fit a cache of max_seq {cache.max_seq}")
 
 
-def _attn_inputs(cfg: ModelConfig, B: int, T: int, cache, pos, device):
+def visible_len(cache: QuantizedKVCache, pos, T: int) -> int:
+    """The cache rows a T-token forward at ``pos`` can see: pos + T (the
+    largest, for per-slot offsets) when the host holds ``pos``, else all
+    of them. The plain attention reads only these rows."""
+    rng = _host_pos_range(pos)
+    return cache.max_seq if rng is None else min(cache.max_seq, rng[1] + T)
+
+
+def _attn_inputs(cfg: ModelConfig, B: int, T: int, cache, pos, device, kv_len: Optional[int] = None):
     """(mask, slots) for one forward, built once for all layers: a
     one-token step into the int8 cache gets slots = (write positions [B],
     lengths [B]) and no mask, with lengths = pos + 1 for K3a / K3b and
     lengths = pos (the past tokens) for the ring kernel; a call that
     flash prefill takes gets neither; every other call gets the causal
-    mask and no slots."""
+    mask (over the first ``kv_len`` cache rows, default all) and no slots."""
     if cache is not None and T == 1 and cache.quantized:
         pos_b = _pos_vector(pos, B, device)
         return None, (pos_b, pos_b if cache.ring_k is not None else pos_b + 1)
@@ -358,7 +389,7 @@ def _attn_inputs(cfg: ModelConfig, B: int, T: int, cache, pos, device):
         return None, None
     if cache is None:
         return build_mask(cfg, B, T, T, None, device), None
-    return build_mask(cfg, B, T, cache.max_seq, pos, device), None
+    return build_mask(cfg, B, T, cache.max_seq if kv_len is None else kv_len, pos, device), None
 
 
 def _block_attn_mlp(
@@ -374,7 +405,8 @@ def _block_attn_mlp(
     slots=None,
 ) -> Tuple[torch.Tensor, Optional[QuantizedKVCache]]:
     """One llama block. ``pv`` is a LayerView-like accessor (get/apply);
-    ``mask`` and ``slots`` come from ``_attn_inputs``."""
+    ``mask`` and ``slots`` come from ``_attn_inputs`` (the mask's width is
+    the number of cache rows the plain attention reads)."""
     B, T, D = h.shape
     H, Hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
 
@@ -418,7 +450,7 @@ def _block_attn_mlp(
                 kv_scales=(ks, vs), out_dtype=h.dtype,
             )
         else:
-            k_all, v_all = cache.layer_kv(layer_idx, dtype=h.dtype)
+            k_all, v_all = cache.layer_kv(layer_idx, dtype=h.dtype, length=None if flash else mask.shape[-1])
             if flash:
                 attn = prefill_attention_flash(
                     q, k_all, v_all, pos, cfg.n_rep, softcap=cfg.attn_logit_softcap, out_dtype=h.dtype
@@ -623,7 +655,9 @@ def forward(
 
     Without a cache: causal attention over the T tokens. With a cache:
     tokens are written at offset ``pos`` (in place) and attention runs
-    over cache positions [0, pos+T). Stacked params (models.stacked)
+    over cache positions [0, pos+T). ``pos`` is an int, or a [B] tensor of
+    per-slot offsets; one that lies on the CPU is bounds-checked on the
+    host and copied to the device once. Stacked params (models.stacked)
     take the stacked loop."""
     check_llama_family(cfg)
     if not isinstance(params["layers"], list):
@@ -637,11 +671,15 @@ def forward(
         return forward_stacked(params, cfg, token_ids, cache, pos)
     B, T = token_ids.shape
     device = token_ids.device
+    kv_len = None
     if cache is not None:
         pos = 0 if pos is None else pos
         _check_fits(cache, pos, T)
+        kv_len = visible_len(cache, pos, T)
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(device)  # one copy for every consumer below
     positions = _positions(B, T, pos if cache is not None else None, device)
-    mask, slots = _attn_inputs(cfg, B, T, cache, pos, device)
+    mask, slots = _attn_inputs(cfg, B, T, cache, pos, device, kv_len)
     h = embed_tokens_forward(params, cfg, token_ids)
     cos, sin = _rope_cos_sin(positions, cfg.rot_dim, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):

@@ -49,6 +49,7 @@ from .llama import (
     check_llama_family,
     embed_tokens_forward,
     final_logits,
+    visible_len,
 )
 
 __all__ = [
@@ -413,8 +414,11 @@ def forward_stacked(
     pos = 0 if pos is None else pos
     _check_fits(cache, pos, T)
     device = token_ids.device
+    kv_len = visible_len(cache, pos, T)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device)
     positions = _positions(B, T, pos, device)
-    mask, slots = _attn_inputs(cfg, B, T, cache, pos, device)
+    mask, slots = _attn_inputs(cfg, B, T, cache, pos, device, kv_len)
     h = embed_tokens_forward(params, cfg, token_ids)
     cos, sin = _rope_cos_sin(positions, cfg.rot_dim, cfg.rope_theta)
     slp = params["layers"]

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "qllm_decode_attn_ring": [_P] * 11 + [_I] * 6 + [_F, _P],
     "qllm_kv_ring_flush": [_P] * 7 + [_I] * 5 + [_P],
     "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _P],
+    "qllm_gptq_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "qllm_gptq_gemm": [_P, _P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -17,6 +17,11 @@ bf16 ``[L, B, H_kv, 8, D]``: the <= 8 newest tokens, appended IN PLACE
 by the ring attention kernel (ops.attention.decode_attention_ring) and
 flushed into the int8 rows, again in place, once per 8 decode steps
 (ops.attention.kv_ring_flush).
+
+``insert_slot`` and ``insert_seq`` (the serving engine's admission and
+prefix stamping) also write IN PLACE, one slice copy per field: a 7B
+engine cache is ~4.3 GB, and a functional copy per admission would move
+all of it.
 """
 
 from __future__ import annotations
@@ -139,13 +144,50 @@ class QuantizedKVCache:
             self.v_scale[layer][b_idx, :, s_idx] = vs.transpose(1, 2)
         return self
 
-    def layer_kv(self, layer: int, dtype: torch.dtype = torch.bfloat16):
-        """Dequantized (k, v) [B, S, H_kv, D] for the plain attention path."""
-        k = self.k[layer]
-        v = self.v[layer]
+    def insert_slot(self, slot: int, other: "QuantizedKVCache") -> "QuantizedKVCache":
+        """Copy a batch-1 cache (a finished prefill) into batch slot
+        ``slot``, rows [0, other.max_seq), in place; returns self. Rows past
+        other.max_seq keep what they held (never visible: the slot's
+        lengths stop short of them)."""
+        S = other.max_seq
+        if other.k.shape[1] != 1 or S > self.max_seq or other.quantized != self.quantized:
+            raise ValueError(f"insert_slot: needs a batch-1 cache of <= {self.max_seq} rows of the same kind")
+        if not 0 <= slot < self.k.shape[1]:
+            raise IndexError(f"insert_slot: slot {slot} out of range [0, {self.k.shape[1]})")
+        self.k[:, slot : slot + 1, :, :S].copy_(other.k)
+        self.v[:, slot : slot + 1, :, :S].copy_(other.v)
         if self.quantized:
-            k = k.to(torch.float32) * self.k_scale[layer][..., None]
-            v = v.to(torch.float32) * self.v_scale[layer][..., None]
+            self.k_scale[:, slot : slot + 1, :, :S].copy_(other.k_scale)
+            self.v_scale[:, slot : slot + 1, :, :S].copy_(other.v_scale)
+        return self
+
+    def insert_seq(self, other: "QuantizedKVCache", offset: int = 0) -> "QuantizedKVCache":
+        """Copy ``other``'s rows into rows [offset, offset + other.max_seq),
+        in place (batch sizes match; quantized rows travel with their
+        scales); returns self. Used by prefix caching: a stored prefix cache
+        is stamped into a fresh admission cache. A window that runs past the
+        end starts at max_seq - other.max_seq instead, as JAX's
+        dynamic_update_slice clamps it."""
+        S = other.max_seq
+        if other.k.shape[1] != self.k.shape[1] or S > self.max_seq or other.quantized != self.quantized:
+            raise ValueError("insert_seq: needs a cache of the same batch and kind, no longer than this one")
+        o = max(0, min(int(offset), self.max_seq - S))
+        self.k[:, :, :, o : o + S].copy_(other.k)
+        self.v[:, :, :, o : o + S].copy_(other.v)
+        if self.quantized:
+            self.k_scale[:, :, :, o : o + S].copy_(other.k_scale)
+            self.v_scale[:, :, :, o : o + S].copy_(other.v_scale)
+        return self
+
+    def layer_kv(self, layer: int, dtype: torch.dtype = torch.bfloat16, length: Optional[int] = None):
+        """Dequantized (k, v) [B, S, H_kv, D] for the plain attention path;
+        ``length``: only rows [0, length) (the keys a forward can see)."""
+        S = self.max_seq if length is None else length
+        k = self.k[layer, :, :, :S]
+        v = self.v[layer, :, :, :S]
+        if self.quantized:
+            k = k.to(torch.float32) * self.k_scale[layer, :, :, :S][..., None]
+            v = v.to(torch.float32) * self.v_scale[layer, :, :, :S][..., None]
         return k.to(dtype).transpose(1, 2), v.to(dtype).transpose(1, 2)
 
     def layer_kv_raw(self, layer: int):

@@ -1,0 +1,261 @@
+"""Per-layer quantized matmul on GPTQ-order packed words (the counterpart
+of ``_qmm_2d`` / ``qmatmul_pallas`` in ``qllm_tpu/ops/pallas_qmm.py``).
+
+``qmatmul_2d(x, qt)`` computes ``y = x @ dequant(qt)`` for a 2-D
+(per-layer) ``QuantizedTensor`` of 2, 4 or 8 bits, as the JAX package
+does branch by branch:
+
+  * M <= 32 (decode): x in f32, ``y = bf16(sum_k x_k q_k s_g(k) -
+    xsum_g @ (z * s))`` with f32 sums. CUDA kernel K9 ``gptq_gemv``
+    (csrc/gptq_mm.cu), the counterpart of ``_qmm_kernel_v3`` (:177) and
+    of ``_qmm_kernel``'s f32-dot branch (:119).
+  * M > 32 (prefill, speculative verify): x in bf16, ``w = bf16(q * s)``
+    (the zero point is NOT in the rounded weight), a bf16 product with f32
+    sums, then the zero-point term ``xsum_g @ (z * s)`` taken off in f32.
+    CUDA kernel K10 ``gptq_gemm``, the counterpart of ``_qmm_kernel``
+    (:119) at M > 32.
+
+Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
+its plain PyTorch version on a CPU tensor; the plain versions compute
+``_qmm_2d``'s function in the JAX package's order of rounding. The
+act-order permutation is applied to x before either (``ref_matmul.py``
+:86). ``_qmm_kernel_w4a8`` (:239) is not ported: ``serve.ServeConfig``
+refuses ``w4a8=True``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from ..quant.qtensor import QuantizedTensor, unpack_rows
+
+__all__ = [
+    "qmatmul_2d",
+    "gptq_gemv",
+    "gptq_gemv_plain",
+    "gptq_gemm",
+    "gptq_gemm_plain",
+    "GEMV_MAX_M",
+]
+
+GEMV_MAX_M = 32
+_BITS = (2, 4, 8)
+# scales / zeros dtypes the kernels read, by the code the C entry points take
+_PARAM_TYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# K9: blocks aimed at (about four 128-thread blocks per SM on 132 SMs)
+_GEMV_TARGET_BLOCKS = 528
+_GEMV_MIN_ROWS = 16  # word rows per K split, at least
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in _BITS:
+        raise NotImplementedError(f"the per-layer kernels serve 2/4/8 bits, got {bits}")
+
+
+def _group(K: int, group_size: int) -> int:
+    return K if group_size == -1 else group_size
+
+
+def _choose_bk(K: int, g: int, pf: int, target: int) -> int:
+    """The JAX package's k-block (pallas_qmm.py:101); it decides whether
+    the decode branch runs the per-group kernel (scale after each group's
+    dot) or the field-loop kernel (scale in the weight)."""
+    quantum = 128 * pf if K // g == 1 else math.lcm(128 * pf, 8 * g)
+    best = None
+    for bk in range(quantum, K + 1, quantum):
+        if K % bk == 0 and bk <= target:
+            best = bk
+    return best if best is not None else K
+
+
+def _per_group_branch(K: int, g: int, bits: int) -> bool:
+    """``v3_ok`` of ``_qmm_2d`` at M <= 32 (pallas_qmm.py:355-360)."""
+    if bits not in (2, 4):
+        return False
+    npar = 8 // bits
+    return _choose_bk(K, g, 32 // bits, 2048) % g == 0 and (g // npar) % 8 == 0
+
+
+def _operands(x, qweight, scales, zeros, bits, group_size):
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = _group(K, group_size)
+    G = K // g
+    q = unpack_rows(qweight, bits, K).to(torch.float32).reshape(G, g, N)
+    return M, K, N, g, G, q, scales.to(torch.float32), zeros.to(torch.float32)
+
+
+def _zero_point_term(xf: torch.Tensor, s, z, G: int, g: int) -> torch.Tensor:
+    """xsum_g @ (z * s) in f32 (pallas_qmm.py:470-472)."""
+    return xf.reshape(xf.shape[0], G, g).sum(dim=2) @ (z * s)
+
+
+# ---------------------------------------------------------------------------
+# K9 gptq_gemv
+# ---------------------------------------------------------------------------
+
+
+def gptq_gemv_plain(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """The plain version of K9: ``_qmm_2d`` at M <= 32. x [M, K] (bf16 or
+    f32, taken as f32), qweight [K/pf, N], scales / zeros [G, N] -> bf16
+    [M, N]. 2- and 4-bit weights whose groups suit the TPU's per-group
+    kernel scale each group's f32 dot (``_qmm_kernel_v3``); the others
+    dot x with the f32 weight q * s (``_qmm_kernel``, f32_dot)."""
+    _check_bits(bits)
+    M, K, N, g, G, q, s, z = _operands(x, qweight, scales, zeros, bits, group_size)
+    xf = x.to(torch.float32)
+    if _per_group_branch(K, g, bits):
+        d = torch.einsum("mgk,gkn->mgn", xf.reshape(M, G, g), q)
+        y1 = (d * s[None]).sum(dim=1)
+    else:
+        y1 = xf @ (q * s[:, None, :]).reshape(K, N)
+    return (y1 - _zero_point_term(xf, s, z, G, g)).to(torch.bfloat16)
+
+
+def _gemv_splits(rows: int, N: int) -> Tuple[int, int]:
+    """(splits of K, word rows per split) from the weight's shape alone, so
+    that a row's sums never depend on M."""
+    blocks_n = -(-N // 128)
+    splits = max(1, min(-(-_GEMV_TARGET_BLOCKS // blocks_n), rows // _GEMV_MIN_ROWS))
+    per = -(-rows // splits)
+    return -(-rows // per), per
+
+
+def _param_type(name: str, scales: torch.Tensor, zeros: torch.Tensor) -> int:
+    if scales.dtype != zeros.dtype or scales.dtype not in _PARAM_TYPES:
+        raise ValueError(f"{name}: scales and zeros must share one of f32/fp16/bf16, got {scales.dtype}, {zeros.dtype}")
+    return _PARAM_TYPES[scales.dtype]
+
+
+def _check_weight(name, x, qweight, scales, zeros, bits, K, g):
+    pf = 32 // bits
+    if qweight.dtype != torch.int32 or qweight.dim() != 2 or qweight.shape[0] * pf != K:
+        raise ValueError(f"{name}: qweight must be int32 [K/{pf}, N], got {tuple(qweight.shape)}")
+    N = qweight.shape[1]
+    if g % pf or K % g:
+        raise ValueError(f"{name}: group size {g} must divide K={K} and be a multiple of {pf}")
+    for t in (scales, zeros):
+        if tuple(t.shape) != (K // g, N):
+            raise ValueError(f"{name}: scales/zeros must be [{K // g}, {N}], got {tuple(t.shape)}")
+    for t in (qweight, scales, zeros):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous on {x.device}")
+    return N, _param_type(name, scales, zeros)
+
+
+def gptq_gemv(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """K9: x [M <= 32, K] bf16 or f32 -> y [M, N] bf16 (see the plain version).
+    Replaces ``_qmm_kernel_v3`` (pallas_qmm.py:177) and ``_qmm_kernel``'s
+    f32-dot branch (:119). Bound: bytes (words + scales + zeros + x + y)
+    over 3.35 TB/s."""
+    _check_bits(bits)
+    if not _build.use_kernel(x, "gptq_gemv"):
+        return gptq_gemv_plain(x, qweight, scales, zeros, bits, group_size)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= x.shape[0] <= GEMV_MAX_M:
+        raise ValueError(f"gptq_gemv: x must be bf16/f32 [M <= {GEMV_MAX_M}, K]")
+    M, K = x.shape
+    g = _group(K, group_size)
+    N, s_type = _check_weight("gptq_gemv", x, qweight, scales, zeros, bits, K, g)
+    x = x.contiguous()
+    splits, per = _gemv_splits(K * bits // 32, N)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load_library()
+    code = lib.qllm_gptq_gemv(
+        x.data_ptr(), int(x.dtype == torch.float32), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        s_type, _build.ptr(part), out.data_ptr(), bits, M, K, N, g, splits, per, _build.stream(x),
+    )
+    _build.check("gptq_gemv", code)
+    gptq_gemv.launches += 1
+    return out
+
+
+gptq_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 gptq_gemm
+# ---------------------------------------------------------------------------
+
+
+def gptq_gemm_plain(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """The plain version of K10: ``_qmm_2d`` at M > 32. w = bf16(q * s);
+    y1 = bf16(x) @ w with f32 sums (exact products); y = bf16(y1 -
+    xsum_g @ (z * s)) with xsum over the unrounded x in f32."""
+    _check_bits(bits)
+    M, K, N, g, G, q, s, z = _operands(x, qweight, scales, zeros, bits, group_size)
+    w = (q * s[:, None, :]).reshape(K, N).to(torch.bfloat16).to(torch.float32)
+    y1 = x.to(torch.bfloat16).to(torch.float32) @ w
+    return (y1 - _zero_point_term(x.to(torch.float32), s, z, G, g)).to(torch.bfloat16)
+
+
+def gptq_gemm(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """K10: x [M, K] bf16 or f32 -> y [M, N] bf16 (see the plain version).
+    Replaces ``_qmm_kernel`` (pallas_qmm.py:119) at M > 32. Bound:
+    operations (2 * M * N * K) over 989 TFLOP/s bf16. The kernel takes
+    K % 64 == 0, groups of a multiple of 32 and N % 4 == 0."""
+    _check_bits(bits)
+    if not _build.use_kernel(x, "gptq_gemm"):
+        return gptq_gemm_plain(x, qweight, scales, zeros, bits, group_size)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or x.shape[0] < 1:
+        raise ValueError("gptq_gemm: x must be bf16/f32 [M, K]")
+    M, K = x.shape
+    g = _group(K, group_size)
+    N, s_type = _check_weight("gptq_gemm", x, qweight, scales, zeros, bits, K, g)
+    if K % 64 or g % 32 or N % 4:
+        raise ValueError(f"gptq_gemm: the kernel takes K % 64 == 0, g % 32 == 0 and N % 4 == 0 (K={K}, g={g}, N={N})")
+    if qweight.data_ptr() % 16:
+        raise ValueError("gptq_gemm: qweight must start on a 16-byte boundary")
+    x = x.contiguous()
+    # the MMA operand, loaded in 16-byte copies
+    x_mma = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    if x_mma.data_ptr() % 16:
+        x_mma = x_mma.clone()
+    xsum = torch.empty((M, K // g), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load_library()
+    code = lib.qllm_gptq_gemm(
+        x_mma.data_ptr(), x.data_ptr(), int(x.dtype == torch.float32), qweight.data_ptr(), scales.data_ptr(),
+        zeros.data_ptr(), s_type, xsum.data_ptr(), out.data_ptr(), bits, M, K, N, g, _build.stream(x),
+    )
+    _build.check("gptq_gemm", code)
+    gptq_gemm.launches += 1
+    return out
+
+
+gptq_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the per-layer matmul entry point
+# ---------------------------------------------------------------------------
+
+
+def qmatmul_2d(x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ dequant(qt) (+ bias) for a 2-D GPTQ-order weight (the
+    counterpart of ``qmatmul_pallas`` with the perm applied first):
+    K9 at M <= 32, else K10. x: [..., K] -> [..., N] in x.dtype."""
+    _check_bits(qt.bits)
+    if qt.planar or qt.zeros_prefolded or qt.qweight.dim() != 2:
+        raise ValueError("qmatmul_2d takes a per-layer GPTQ-order weight (not a serving stack)")
+    K, N = qt.in_features, qt.out_features
+    if qt.perm is not None:
+        x = torch.index_select(x, -1, qt.perm.to(torch.int64))
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K)
+    fn = gptq_gemv if x2.shape[0] <= GEMV_MAX_M else gptq_gemm
+    y = fn(x2, qt.qweight, qt.scales, qt.zeros, qt.bits, qt.group_size)
+    y = y.reshape(*lead, N).to(x.dtype)
+    return y if bias is None else y + bias

@@ -3,8 +3,9 @@ of ``qllm_tpu/ops/ref_matmul.py``), and the ``qmatmul`` dispatch.
 
 ``qmatmul`` routes a 3-D (L=1 stacked, ``models.stacked.prepare_lm_head``)
 weight to ``ops.qmm.qmatmul_stacked`` and its CUDA kernels. A 2-D
-per-layer weight takes ``qmatmul_ref`` on the CPU; on the card it would
-need the unstacked kernels, which are not ported yet, so it raises.
+per-layer weight takes ``qmatmul_ref`` on the CPU, as the JAX package's
+``qmatmul`` does there, and ``ops.qmm2d.qmatmul_2d`` (CUDA kernels K9 /
+K10, the counterpart of ``qmatmul_pallas``) on the card.
 """
 
 from __future__ import annotations
@@ -59,12 +60,9 @@ def qmatmul(
 
         y = qmatmul_stacked(x, qt, 0)
     elif _build.use_kernel(x, "qmatmul"):
-        raise NotImplementedError(
-            "a 2-D (per-layer) quantized weight on CUDA needs the unstacked "
-            "kernels _qmm_kernel / qmatmul_pallas (qllm_tpu/ops/pallas_qmm.py:119, "
-            ":1759), which are not ported yet; stack the params with "
-            "models.stacked.stack_layer_params and prepare_lm_head"
-        )
+        from .qmm2d import qmatmul_2d
+
+        return qmatmul_2d(x, qt, bias)
     else:
         return qmatmul_ref(x, qt, bias)
     if bias is not None:

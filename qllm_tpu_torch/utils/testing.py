@@ -28,10 +28,13 @@ def random_quantized_tensor(
     bits: int = 4,
     group_size: int = 128,
     scale: float = 0.01,
+    centered: bool = False,
 ) -> QuantizedTensor:
     """Random words, scales uniform in [0.5, 1.5) * scale (fp16), zeros
-    at mid-range, on ``gen``'s device."""
-    return _random_qt(gen, (), in_features, out_features, bits, group_size, scale)
+    at mid-range, on ``gen``'s device. Uniform words average 2^(bits-1) -
+    0.5, so zeros of 2^(bits-1) give every column a mean of -0.5 * its
+    scale; ``centered`` puts the zeros at 2^(bits-1) - 0.5 (mean 0)."""
+    return _random_qt(gen, (), in_features, out_features, bits, group_size, scale, centered)
 
 
 def random_stacked_expert_tensor(
@@ -42,13 +45,14 @@ def random_stacked_expert_tensor(
     bits: int = 4,
     group_size: int = 128,
     scale: float = 0.01,
+    centered: bool = False,
 ) -> QuantizedTensor:
     """A raw [E]-leading expert stack in one draw per field (what stacking
     E ``random_quantized_tensor`` results gives, without E draws)."""
-    return _random_qt(gen, (n_experts,), in_features, out_features, bits, group_size, scale)
+    return _random_qt(gen, (n_experts,), in_features, out_features, bits, group_size, scale, centered)
 
 
-def _random_qt(gen, lead, K: int, N: int, bits: int, group_size: int, scale: float) -> QuantizedTensor:
+def _random_qt(gen, lead, K: int, N: int, bits: int, group_size: int, scale: float, centered: bool) -> QuantizedTensor:
     dev = gen.device
     rows = K // (32 // bits) if bits in (2, 4, 8) else bits * K // 32
     qweight = torch.randint(
@@ -56,7 +60,7 @@ def _random_qt(gen, lead, K: int, N: int, bits: int, group_size: int, scale: flo
     )
     G = 1 if group_size == -1 else K // group_size
     scales = ((torch.rand((*lead, G, N), device=dev, generator=gen) + 0.5) * scale).to(torch.float16)
-    zeros = torch.full((*lead, G, N), (1 << bits) / 2.0, dtype=torch.float16, device=dev)
+    zeros = torch.full((*lead, G, N), (1 << bits) / 2.0 - 0.5 * centered, dtype=torch.float16, device=dev)
     return QuantizedTensor(
         qweight=qweight,
         scales=scales,
@@ -79,9 +83,12 @@ def random_quantized_params(
     quantize_lm_head: bool = False,
     device: Union[str, torch.device] = "cuda",
     experts_prestacked: bool = False,
+    scale: float = 0.01,
+    centered: bool = False,
 ) -> Dict[str, Any]:
     """Random W-quantized params with dense embed/norm and, when
-    ``quantize_lm_head``, a packed lm_head. MoE configs (``num_local_experts``)
+    ``quantize_lm_head``, a packed lm_head; ``scale`` and ``centered`` go
+    to every packed weight (see ``random_quantized_tensor``). MoE configs (``num_local_experts``)
     get an f32 router [D, E] and E expert MLPs of width
     ``intermediate_size`` per layer: a per-expert list, or with
     ``experts_prestacked`` raw [E]-leading ``experts_stacked`` tensors with
@@ -112,7 +119,7 @@ def random_quantized_params(
         }
         for name in names:
             Kf, Nf = shapes[name]
-            lp[name] = random_quantized_tensor(gen, Kf, Nf, bits, group_size)
+            lp[name] = random_quantized_tensor(gen, Kf, Nf, bits, group_size, scale, centered)
         if cfg.qk_norm:
             # rms: one [hd] weight shared by the heads; cohere: per head
             qs, ks = ((hd,), (hd,)) if cfg.qk_norm == "rms" else ((H, hd), (Hkv, hd))
@@ -122,18 +129,18 @@ def random_quantized_params(
             lp["router"] = torch.randn((D, E), device=dev, generator=gen) * 0.02
             if experts_prestacked:
                 lp["experts_stacked"] = {
-                    "gateup_proj": random_stacked_expert_tensor(gen, E, D, 2 * I, bits, group_size),
-                    "down_proj": random_stacked_expert_tensor(gen, E, I, D, bits, group_size),
+                    "gateup_proj": random_stacked_expert_tensor(gen, E, D, 2 * I, bits, group_size, scale, centered),
+                    "down_proj": random_stacked_expert_tensor(gen, E, I, D, bits, group_size, scale, centered),
                 }
             else:
                 lp["experts"] = [
-                    {n: random_quantized_tensor(gen, *shapes[n], bits, group_size) for n in mlp_names}
+                    {n: random_quantized_tensor(gen, *shapes[n], bits, group_size, scale, centered) for n in mlp_names}
                     for _ in range(E)
                 ]
         layers.append(lp)
     embed = (torch.randn((V, D), device=dev, generator=gen) * 0.02).to(dtype)
     if quantize_lm_head:
-        lm_head = random_quantized_tensor(gen, D, V, bits, group_size)
+        lm_head = random_quantized_tensor(gen, D, V, bits, group_size, scale, centered)
     else:
         lm_head = (torch.randn((D, V), device=dev, generator=gen) * 0.02).to(dtype)
     return {

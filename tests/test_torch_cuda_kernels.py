@@ -11,7 +11,7 @@ import torch
 
 from qllm_tpu_torch.ops import attention as att
 from qllm_tpu_torch.ops import flash_prefill as fp
-from qllm_tpu_torch.ops import qmm, repack
+from qllm_tpu_torch.ops import qmm, qmm2d, repack
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +181,56 @@ def test_decode_attention_kernel_at_16384_rows(gen):
     assert (out - ref).abs().max() <= limit
     short = att.decode_attention(q, kc, vc, ks, vs, lengths - 128, 0)
     assert (short - ref).abs().max() > limit
+
+
+def _gptq(gen, K, N, bits, g, sdtype=torch.float16):
+    G = K // g
+    qw = torch.randint(-(2**31), 2**31, (K * bits // 32, N), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((G, N), device="cuda", generator=gen) + 0.5) * 0.01).to(sdtype)
+    zr = torch.randint(0, 2**bits, (G, N), device="cuda", generator=gen).to(sdtype)
+    return qw, sc, zr
+
+
+@pytest.mark.parametrize(
+    "M,K,N,bits,g,sdtype,xdtype",
+    [
+        (1, 512, 1000, 4, 128, torch.float16, torch.bfloat16),  # ragged N
+        (8, 1024, 640, 2, 32, torch.bfloat16, torch.bfloat16),
+        (5, 768, 384, 8, 64, torch.float32, torch.float32),
+        (32, 256, 512, 4, 256, torch.float16, torch.bfloat16),  # one group over K
+    ],
+)
+def test_gptq_gemv_kernel_matches_plain(gen, M, K, N, bits, g, sdtype, xdtype):
+    qw, sc, zr = _gptq(gen, K, N, bits, g, sdtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(xdtype)
+    y = qmm2d.gptq_gemv(x, qw, sc, zr, bits, g).float()
+    ref = qmm2d.gptq_gemv_plain(x, qw, sc, zr, bits, g).float()
+    torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)
+
+
+def test_gptq_gemv_rows_do_not_depend_on_m(gen):
+    """Batch invariance: a row's K9 output is the same bits alone (M = 1)
+    as inside M = 8, for every bit width."""
+    for bits in (2, 4, 8):
+        qw, sc, zr = _gptq(gen, 4096, 4096, bits, 128)
+        x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+        y8 = qmm2d.gptq_gemv(x, qw, sc, zr, bits, 128)
+        for m in (0, 5):
+            assert torch.equal(qmm2d.gptq_gemv(x[m : m + 1], qw, sc, zr, bits, 128)[0], y8[m]), (bits, m)
+
+
+@pytest.mark.parametrize(
+    "M,K,N,bits,g,sdtype,xdtype",
+    [
+        (33, 512, 512, 4, 128, torch.float16, torch.bfloat16),
+        (200, 1024, 640, 2, 32, torch.bfloat16, torch.bfloat16),
+        (130, 768, 388, 8, 64, torch.float32, torch.float32),  # N not a multiple of 128
+        (64, 256, 256, 4, 256, torch.float16, torch.bfloat16),
+    ],
+)
+def test_gptq_gemm_kernel_matches_plain(gen, M, K, N, bits, g, sdtype, xdtype):
+    qw, sc, zr = _gptq(gen, K, N, bits, g, sdtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(xdtype)
+    y = qmm2d.gptq_gemm(x, qw, sc, zr, bits, g).float()
+    ref = qmm2d.gptq_gemm_plain(x, qw, sc, zr, bits, g).float()
+    torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)

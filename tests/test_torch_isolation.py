@@ -23,7 +23,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "qllm_tpu" or m.startswith("qllm_tpu."))
 print(len(names), bad)
-assert len(names) >= 16 and "qllm_tpu_torch.models.moe" in names, names
+assert len(names) >= 16 and "qllm_tpu_torch.models.moe" in names and "qllm_tpu_torch.serve.engine" in names, names
 assert not bad, bad
 """
 
@@ -68,7 +68,9 @@ def _entry_points():
     from qllm_tpu_torch.interop import params_from_numpy
     from qllm_tpu_torch.models.decode_loop import decode_loop
     from qllm_tpu_torch.models.generate import decode_step, greedy_generate, make_cache, prefill
+    from qllm_tpu_torch.models.speculative import speculative_generate
     from qllm_tpu_torch.models.stacked import stack_layer_params_hybrid
+    from qllm_tpu_torch.serve import ContinuousBatchingEngine, ServeConfig
     from qllm_tpu_torch.utils.testing import random_quantized_params
 
     cfg = _tiny()
@@ -89,6 +91,8 @@ def _entry_points():
         "decode_step": lambda **kw: decode_step(params, cfg, tok, cache, 0, **kw),
         "greedy_generate": lambda **kw: greedy_generate(params, cfg, tok, 2, **kw),
         "decode_loop": lambda **kw: decode_loop(params, cfg, tok, cache, 0, 2, **kw),
+        "speculative_generate": lambda **kw: speculative_generate(params, cfg, tok, 2, **kw),
+        "engine": lambda **kw: ContinuousBatchingEngine(params, cfg, ServeConfig(max_batch=1, max_seq=16), **kw),
     }
 
 
@@ -96,7 +100,7 @@ def _entry_points():
     "name",
     ["make_cache", "random_quantized_params", "params_from_numpy", "prefill",
      "decode_step", "greedy_generate", "decode_loop", "random_quantized_params_moe",
-     "make_cache_moe", "decode_loop_moe"],
+     "make_cache_moe", "decode_loop_moe", "speculative_generate", "engine"],
 )
 def test_entry_points_default_to_the_card(no_cuda, name):
     call = _entry_points()[name]
