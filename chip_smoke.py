@@ -45,10 +45,20 @@ Phases, each of which fails the run on any error or disagreement:
      step through K8;
   9. cross: the 7B widths at 2 layers on the card and on the CPU (plain
      versions), B=2, T=32, 8 steps on the plain cache, then B=1, T=256
-     (flash), 16 steps on a ring cache; the engine over 2 per-layer
-     layers of 4 and 8 bits; then 2 layers at Mixtral and at Qwen3 width,
-     a short prompt and sparse steps: logits within tolerance, the same
-     greedy ids.
+     (flash), 16 steps on a ring cache, then the plain-cache steps again
+     with W4A8 (K11); the engine over 2 per-layer layers of 4 and 8 bits,
+     with bf16 and with int8 activations (K12 on the 4-bit layer, K9 on
+     the 8-bit one); then 2 layers at Mixtral and at Qwen3 width, a short
+     prompt and sparse steps: logits within tolerance, the same greedy ids;
+ 10. w4a8 (run after main1, on its model): (a) bench.py's batch-32 decode
+     leg: 32 prompts of 128 tokens prefilled once, then 64 greedy steps
+     with bf16 activations (K1) and 64 from the same cache state with
+     int8 activations (K11), the int8 stream held to teacher-forced
+     prefills; (b) the engine with ServeConfig(w4a8=True) over the serve
+     model's 20 greedy requests (K12 in every decode step), bucket-length
+     requests equal to greedy_generate(w4a8=True) at batch 1; (c) the
+     streaming ceiling (K13, ops.stream_bench.measure_stream_gbps) and
+     each decode leg's device-time bandwidth as a share of it.
 
 Each model path runs with every kernel's launch count set to 0 just
 before it and read just after; the peak device memory of each is
@@ -75,6 +85,7 @@ from pathlib import Path
 # flop/s (the operands of every kernel here are bf16, int8 or 4-bit)
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12  # int8 tensor-core op/s (K11 and K12 multiply int8)
 
 SEVEN_B = dict(
     vocab_size=32000,
@@ -190,16 +201,43 @@ LONG_ATTN_TOL = (2e-2, 1e-4)
 RING_TOL = 1e-2  # tests/test_torch_ring.py (JAX: 3e-2 against numpy)
 FLASH_TOL = 2e-2  # tests/test_torch_flash_prefill.py (JAX: 3e-2 against numpy)
 LOGIT_TOL = 5e-2  # tests/test_pallas_attention.py:83
+# card against CPU with int8 activations on both sides: ||a - b|| / ||b|| of
+# the logits, the JAX package's own model-level W4A8 bound
+# (tests/test_serve.py:287-296). x8 = round(x / sx) turns the last-bit
+# differences that bf16-activation legs carry (within LOGIT_TOL) into whole
+# int8 steps, and sx into a per-row factor: the stacked W4A8 leg is also
+# held to LOGIT_TOL and equal greedy ids, the engine's W4A8 leg (per-layer
+# serve-model weights, the first token's logits 0.125 apart already with
+# bf16 activations) to this bound alone, LOGIT_TOL and its ids read.
+A8_MODEL_REL = 0.15
+# W4A8 kernels against their plain versions: x8 and sx bit-equal, outputs
+# within one bf16 ulp of the plain version plus A8_TOL * max|plain| (both
+# quantize x alike and sum exact integer dots; only the f32 order differs)
+A8_TOL = 1e-3
+# K11 rows: (M, projection); K12 rows: (M, projection, K, N, bits, act-order)
+A8_CASES = tuple((M, p) for M in (8, 32) for p in ("gateup", "down"))
+A8_GPTQ_CASES = (
+    (1, "gate/up", 4096, 11008, 4, False),
+    (8, "gate/up", 4096, 11008, 4, False),
+    (8, "gate/up", 4096, 11008, 2, False),
+    (8, "q/k/v/o", 4096, 4096, 4, True),
+)
+# the W4A8 decode leg (bench.py:653-691): batch, prompt, steps per leg,
+# cache length; the streaming ceiling's geometry (the JAX package's
+# default: the 7B gate|up stack) and passes per reading
+W4A8 = dict(B=32, T=128, STEPS=64, MAX_SEQ=256)
+W4A8_ALONE = (0, 17)  # rows of the batch-32 int8 leg decoded again alone
+STREAM = dict(K=4096, N=22016, L=4, ITERS=512)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(bytes_moved: float, flops: float = 0.0):
+def bound(bytes_moved: float, flops: float = 0.0, peak_ops: float = PEAK_BF16):
     """The least time (ms) for the work and what sets it."""
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16 * 1e3
+    t_ops = flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -556,6 +594,8 @@ def phase_kernels(torch, timer):
     del words, out
     torch.cuda.empty_cache()
     rows.extend(gptq_rows(torch, timer, gen))
+    rows.extend(a8_rows(torch, timer, gen, stack, dequant))
+    rows.append(stream_row(torch, timer, gen))
     return rows
 
 
@@ -605,6 +645,127 @@ def gptq_rows(torch, timer, gen):
         del qt, x, y, y_ref
     torch.cuda.empty_cache()
     return rows
+
+
+def a8_close(y, y_ref):
+    """(max abs error, within one bf16 ulp of the plain version plus
+    A8_TOL * max|plain|)."""
+    import torch
+
+    y, y_ref = y.float(), y_ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(y_ref.abs().clamp_min(2.0**-126))) - 7)
+    err = (y - y_ref).abs()
+    return float(err.max()), bool((err <= ulp + A8_TOL * y_ref.abs().max()).all())
+
+
+def a8_rows(torch, timer, gen, stack, dequant):
+    """K11 on planar stacks at the 7B gate|up and down shapes, K12 on
+    GPTQ-order weights at the serve path's shapes, each against its plain
+    version; the quantizer's x8 and sx against the plain quantizer's, bit
+    for bit; K12's rows at M = 1 against the same rows inside M = 8. The
+    library time is torch.matmul on the pre-dequantized bf16 weight."""
+    from qllm_tpu_torch.ops import qmm, qmm2d
+    from qllm_tpu_torch.ops.ref_matmul import dequant_ref
+    from qllm_tpu_torch.utils.testing import random_quantized_tensor
+
+    rows = []
+    shapes = {name: (Kf, N) for name, Kf, N in PROJECTIONS}
+
+    def record(kname, case, y, y_ref, quant_equal, run, plain, lib, nbytes, ops, extra=None):
+        err, ok = a8_close(y, y_ref)
+        ok = ok and quant_equal
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+        # the prologue alone, without a norm (launched from K11's and K12's own entry points)
+        extra = {**(extra or {}), "quantizer_ms": timer(lambda: qmm.quantize_rows_int8(x, 128))}
+        rows.append(dict(kernel=kname, case=case, max_abs_err=err, tol=f"1 bf16 ulp + {A8_TOL}*max|plain|",
+                         x8_sx_bit_equal=quant_equal, ok=ok, ms=timer(run),
+                         plain_ms=timer(plain, reps=5, warmup=1), library_ms=timer(lib), bound_ms=b_ms,
+                         bound_by=b_by, **extra))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"{kname} {case}: max_abs_err {err}, x8/sx bit-equal {quant_equal}")
+
+    def quant_equal(x, g):
+        return all(bool(torch.equal(a, b)) for a, b in zip(qmm.quantize_rows_int8(x, g), qmm.quantize_rows_int8_plain(x, g)))
+
+    for M, pname in A8_CASES:
+        Kf, N = shapes[pname]
+        Np = -(-N // 512) * 512
+        qw, sc, zs = stack(Kf, Np)
+        x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+        w = dequant(qw, sc, zs, 1, Kf)
+        # gate|up's input is RMS-normalised in K11's prologue on the main path
+        for norm in (False, True) if pname == "gateup" else (False,):
+            nw = (torch.rand((2, Kf), device=DEV, generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+            args = (x, qw, sc, zs, 1, nw, 1e-5)
+            xin = qmm._rms_norm_rows(x, nw[1], 1e-5) if norm else x
+            y = qmm.w4a8_planar_gemv(*args)
+            torch.cuda.synchronize()
+            nbytes = qw[1].numel() * 4 + 2 * sc[1].numel() * 2 + M * Kf * 2 + M * Np * 2 + (Kf * 2 if norm else 0)
+            record("w4a8_planar_gemv", f"{pname} K={Kf} N={Np} M={M}" + (" +norm" if norm else ""), y,
+                   qmm.w4a8_planar_gemv_plain(*args), quant_equal(xin, 128), lambda: qmm.w4a8_planar_gemv(*args),
+                   lambda: qmm.w4a8_planar_gemv_plain(*args), lambda: torch.matmul(xin, w), nbytes,
+                   2.0 * M * Kf * Np)
+        del qw, sc, zs, w
+
+    for M, pname, Kf, N, bits, act_order in A8_GPTQ_CASES:
+        qt = random_quantized_tensor(gen, Kf, N, bits, 128)
+        x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+        w_args = (qt.qweight, qt.scales, qt.zeros, bits, 128)
+        extra = {}
+        if act_order:  # the perm gathers x's columns first, inside qmatmul_2d
+            perm = torch.randperm(Kf, generator=gen, device=DEV).to(torch.int32)
+            qt = dataclasses.replace(qt, perm=perm)
+            run = lambda: qmm2d.qmatmul_2d(x, qt, w4a8=True)  # noqa: E731
+            xp = x.index_select(1, perm.long())
+        else:
+            run = lambda: qmm2d.gptq_w4a8_gemv(x, *w_args)  # noqa: E731
+            xp = x
+        y = run()
+        torch.cuda.synchronize()
+        if M == 8 and not act_order:  # batch invariance: rows 0 and 5 alone
+            extra["rows_alone_bit_equal"] = all(
+                bool(torch.equal(qmm2d.gptq_w4a8_gemv(x[m : m + 1], *w_args)[0], y[m])) for m in (0, 5))
+            if not extra["rows_alone_bit_equal"]:
+                raise AssertionError(f"gptq_w4a8_gemv: a row alone differs from the same row at M=8 ({bits}-bit)")
+        w = dequant_ref(qt, torch.bfloat16)
+        nbytes = qt.qweight.numel() * 4 + 2 * qt.scales.numel() * qt.scales.element_size() + M * Kf * 2 + M * N * 2
+        nbytes += Kf * 4 if act_order else 0
+        record("gptq_w4a8_gemv", f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
+               y, qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), quant_equal(xp, 128), run,
+               lambda: qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), lambda: torch.matmul(x, w), nbytes,
+               2.0 * M * Kf * N, extra)
+        del qt, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def stream_row(torch, timer, gen):
+    """K13 at the streaming ceiling's geometry: one pass over a layer of
+    the [4, 512, 22016] stack (45.1 MB) against its plain version, bit for
+    bit. Its time is stream_pass_seconds' (64 passes in one call, layers
+    cycling): a single launch's event pair would also time the host's
+    launch; the library time is torch.sum over the layer's words."""
+    from qllm_tpu_torch.ops import stream_bench
+
+    K, N, L = STREAM["K"], STREAM["N"], STREAM["L"]
+    words = torch.randint(0, 255, (L, K // 8, N), dtype=torch.int32, device=DEV, generator=gen)
+    out = stream_bench.stream_pass(words, 1)
+    torch.cuda.synchronize()
+    ref = stream_bench.stream_pass_plain(words, 1)
+    mism = int((out != ref).sum())
+    b_ms, b_by = bound(K * N // 2 + N * 4)
+    row = dict(kernel="stream_pass", case=f"one pass over layer 1 of [{L}, {K // 8}, {N}] int32 words 0..254",
+               max_abs_err=float(mism), tol="bit-exact column sums", ok=mism == 0,
+               ms=stream_bench.stream_pass_seconds(words, iters=64) * 1e3,
+               plain_ms=timer(lambda: stream_bench.stream_pass_plain(words, 1), reps=5, warmup=1),
+               library_ms=timer(lambda: torch.sum(words[1], dim=0)), bound_ms=b_ms, bound_by=b_by)
+    log(f"[kernel] {json.dumps(row)}")
+    if mism:
+        raise AssertionError(f"stream_pass: {mism} column sums differ")
+    del words
+    torch.cuda.empty_cache()
+    return row
 
 
 def k3b_long_check(att, args, lengths_at: int):
@@ -748,8 +909,6 @@ def phase_main1(torch, K, model):
     from qllm_tpu_torch.models.generate import make_cache, prefill
 
     if model is None:
-        from qllm_tpu_torch.models.llama import ModelConfig
-        from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
         from qllm_tpu_torch.utils.testing import random_quantized_params
 
         cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
@@ -853,12 +1012,13 @@ def phase_main1(torch, K, model):
     return total
 
 
-def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4):
+def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: bool = False):
     """Device busy share of a few warm decode steps (torch.profiler, CUDA
     kernel time over host wall time) and the kernels that take it."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
 
-    return profile_run(torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV), steps)
+    return profile_run(torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV, w4a8=w4a8),
+                       steps)
 
 
 def profile_run(torch, run, steps: int):
@@ -1228,11 +1388,13 @@ def _to_cpu(node):
     return node.cpu()
 
 
-def cross_engine(torch):
+def cross_engine(torch, w4a8=False):
     """The engine on the card and on the CPU over 2 per-layer layers at
     7B width, layer 0 at 4 bits and layer 1 at 8 (mixed widths, which only
     the unstacked path holds): the same greedy tokens, and the first
-    token's logits within LOGIT_TOL. On the CPU a 2-D weight takes
+    token's logits within LOGIT_TOL. With ``w4a8`` the 4-bit layer's
+    decode-size matmuls take int8 activations (K12 on the card, its plain
+    version on the CPU) and the 8-bit layer stays on K9. On the CPU a 2-D weight takes
     qmatmul_2d here, K9's and K10's plain versions, as on the card (by
     default the CPU runs qmatmul_ref, JAX's CPU route, which rounds the
     weights to bf16 where K9 keeps f32: 2 layers put their logits 0.375
@@ -1243,7 +1405,7 @@ def cross_engine(torch):
     import numpy as np
 
     from qllm_tpu_torch.models.llama import ModelConfig
-    from qllm_tpu_torch.ops import _build
+    from qllm_tpu_torch.ops import _build, qmm2d
     from qllm_tpu_torch.serve import engine as mod
     from qllm_tpu_torch.utils.testing import random_quantized_params
 
@@ -1258,27 +1420,37 @@ def cross_engine(torch):
     prompts = [rng.integers(0, cfg.vocab_size, CROSS["T"]).astype(np.int32) for _ in range(CROSS["B"])]
     outs, first = {}, {}
     use_kernel = _build.use_kernel
+    card_launches = {}
     for side, params in sides.items():
         dev = DEV if side == "cuda" else "cpu"
         if side == "cpu":
             _build.use_kernel = lambda t, name: name == "qmatmul" or use_kernel(t, name)
+        before = {k: getattr(qmm2d, k).launches for k in ("gptq_gemv", "gptq_w4a8_gemv")}
         try:
-            engine = mod.ContinuousBatchingEngine(params, cfg, mod.ServeConfig(max_batch=2, max_seq=CROSS["MAX_SEQ"]),
-                                                  device=dev)
+            engine = mod.ContinuousBatchingEngine(
+                params, cfg, mod.ServeConfig(max_batch=2, max_seq=CROSS["MAX_SEQ"], w4a8=w4a8), device=dev)
             reqs = [engine.submit(p, CROSS["STEPS"]) for p in prompts]
             engine.run()
             outs[side] = [r.output for r in reqs]
             mini = engine._make_mini_cache(CROSS["T"])
-            last, _ = mod._prefill_one(params, cfg, torch.from_numpy(prompts[0])[None].to(dev), mini, CROSS["T"])
+            last, _ = mod._prefill_one(params, cfg, torch.from_numpy(prompts[0])[None].to(dev), mini, CROSS["T"],
+                                       w4a8=w4a8)
             first[side] = last.float().cpu()
         finally:
             _build.use_kernel = use_kernel
+        if side == "cuda":
+            card_launches = {k: getattr(qmm2d, k).launches - n for k, n in before.items()}
+    # every dispatch runs the 8-bit layer's K9; under w4a8 the 4-bit layer's K12 and nothing else small
+    if card_launches["gptq_gemv"] == 0 or (card_launches["gptq_w4a8_gemv"] > 0) != w4a8:
+        raise AssertionError(f"cross engine (w4a8={w4a8}): card launches {card_launches}")
     err = float((first["cuda"] - first["cpu"]).abs().max())
     ok = bool(torch.allclose(first["cuda"], first["cpu"], atol=LOGIT_TOL, rtol=LOGIT_TOL))
+    rel = float((first["cuda"] - first["cpu"]).norm() / first["cpu"].norm())
     same = outs["cuda"] == outs["cpu"]
-    res = {"layers": "4-bit, 8-bit", "requests": CROSS["B"], "T": CROSS["T"], "new_tokens": CROSS["STEPS"],
-           "first_token_max_abs_err": err, "within_tol": ok, "same_greedy_tokens": same}
-    if not ok or not same:
+    res = {"layers": "4-bit, 8-bit", "w4a8": w4a8, "requests": CROSS["B"], "T": CROSS["T"],
+           "new_tokens": CROSS["STEPS"], "card_launches": card_launches, "first_token_max_abs_err": err,
+           "first_token_rel_err": rel, "within_tol": ok, "same_greedy_tokens": same}
+    if (rel >= A8_MODEL_REL) if w4a8 else (not ok or not same):
         raise AssertionError(f"cross engine: card vs CPU {res}")
     return res
 
@@ -1354,9 +1526,39 @@ def phase_cross(torch):
         agree1.append(bool(torch.equal(tok, greedy(logits1["cpu"][-1]))))
     errs1 = [float((a - b).abs().max()) for a, b in zip(logits1["cuda"], logits1["cpu"])]
     oks1 = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits1["cuda"], logits1["cpu"])]
+
+    # W4A8: the plain-cache prefill again (a16, M = B * T > 32), then the
+    # same steps with int8 activations: K11 on the card, its plain version
+    # on the CPU; the greedy ids must agree at every step
+    from qllm_tpu_torch.ops import qmm
+
+    logits8, caches8 = {}, {}
+    for name, (sp, dev) in sides.items():
+        c = make_cache(cfg, B, MAX_SEQ, device=dev)
+        lg, caches8[name] = prefill(sp, cfg, prompts, c, device=dev)
+        logits8[name] = [lg.float().cpu()]
+    a8_launches = 0
+    tok = greedy(logits8["cuda"][0])
+    agree8 = [bool(torch.equal(tok, greedy(logits8["cpu"][0])))]
+    for i in range(STEPS):
+        for name, (sp, dev) in sides.items():
+            before = qmm.w4a8_planar_gemv.launches
+            lg, caches8[name] = decode_step(sp, cfg, tok, caches8[name], T + i, device=dev, w4a8=True)
+            logits8[name].append(lg.float().cpu())
+            if name == "cuda":
+                a8_launches += qmm.w4a8_planar_gemv.launches - before
+        tok = greedy(logits8["cuda"][-1])
+        agree8.append(bool(torch.equal(tok, greedy(logits8["cpu"][-1]))))
+    if a8_launches != (4 * cfg.num_hidden_layers + 1) * STEPS:
+        raise AssertionError(f"cross w4a8: K11 launched {a8_launches} times on the card")
+    errs8 = [float((a - b).abs().max()) for a, b in zip(logits8["cuda"], logits8["cpu"])]
+    oks8 = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits8["cuda"], logits8["cpu"])]
+    rels8 = [float((a - b).norm() / b.norm()) for a, b in zip(logits8["cuda"], logits8["cpu"])]
     res_engine = cross_engine(torch)
+    res_engine8 = cross_engine(torch, w4a8=True)
     res = {
         "engine": res_engine,
+        "engine_w4a8": res_engine8,
         "config": f"Llama-2-7B widths, {CROSS['LAYERS']} layers, card kernels vs CPU plain versions: "
         f"B={B}, T={T}, {STEPS} greedy steps on the plain int8 cache; B=1, T={T1} (flash), "
         f"{STEPS1} greedy steps on a ring cache",
@@ -1366,12 +1568,18 @@ def phase_cross(torch):
         "ring_prefill_max_abs_err": errs1[0],
         "ring_decode_max_abs_err": max(errs1[1:]),
         "ring_greedy_agreement": sum(agree1) / len(agree1),
-        "tol": f"atol/rtol {LOGIT_TOL}",
+        "w4a8_decode_max_abs_err": max(errs8[1:]),
+        "w4a8_decode_max_rel_err": max(rels8[1:]),
+        "w4a8_within_tol": all(oks8),
+        "w4a8_greedy_agreement": sum(agree8) / len(agree8),
+        "tol": f"atol/rtol {LOGIT_TOL}; w4a8 rel {A8_MODEL_REL}",
         "within_tol": all(oks) and all(oks1),
     }
     log(f"[cross] {json.dumps(res)}")
     if not all(oks) or not all(oks1):
         raise AssertionError(f"card vs CPU logits outside tolerance: {errs} {errs1}")
+    if not all(oks8) or max(rels8) >= A8_MODEL_REL or not all(agree8):
+        raise AssertionError(f"cross w4a8: card vs CPU logits {errs8} (rel {rels8}), ids agree {agree8}")
 
 
 # the serve path: the engine's configuration (ServeConfig defaults but
@@ -1469,18 +1677,20 @@ class EngineProbe:
         for n, fn in self.orig.items():
             setattr(self.mod, n, fn)
 
-    def check_launches(self, layers):
+    def check_launches(self, layers, w4a8=False):
         """Every dispatch launched what its M says: a plain decode step 7L+1
-        K9, L K3a and L K3b; a verify step 7L+1 K10; a prefill 7L+1 K9
-        (M <= 32) or K10, and L K5 from 256 rows on; nothing else."""
+        K9 (K12 under w4a8), L K3a and L K3b; a verify step 7L+1 K10; a
+        prefill 7L+1 K9 / K12 (M <= 32) or K10, and L K5 from 256 rows on;
+        nothing else."""
         n = 7 * layers + 1
+        small = "gptq_w4a8_gemv" if w4a8 else "gptq_gemv"
         for c in self.calls:
             if c["kind"] == "decode":
-                want = {"gptq_gemv": n, "kv_write_int8": layers, "decode_attn_int8": layers}
+                want = {small: n, "kv_write_int8": layers, "decode_attn_int8": layers}
             elif c["kind"] == "verify":
                 want = {"gptq_gemm": n}
             else:
-                want = {"gptq_gemv" if c["M"] <= 32 else "gptq_gemm": n, "flash_prefill": layers if c["M"] >= 256 else 0}
+                want = {small if c["M"] <= 32 else "gptq_gemm": n, "flash_prefill": layers if c["M"] >= 256 else 0}
             bad = {k: v for k, v in c["launches"].items() if v != want.get(k, 0)}
             if bad:
                 raise AssertionError(f"serve: a {c['kind']} dispatch at M={c['M']} launched {bad}, expected {want}")
@@ -1490,13 +1700,13 @@ class EngineProbe:
         return {"dispatches": len(ms), "median_ms": statistics.median(ms) if ms else None}
 
 
-def serve_leg(torch, K, probe, mod, params, cfg, requests, prefix, speculative):
+def serve_leg(torch, K, probe, mod, params, cfg, requests, prefix, speculative, w4a8=False):
     """One engine run over ``requests`` with the counts set to 0 just
     before it: (requests, totals, metrics)."""
     import numpy as np
 
     scfg = mod.ServeConfig(max_batch=SERVE["MAX_BATCH"], max_seq=SERVE["MAX_SEQ"], prefill_chunk=SERVE["PREFILL_CHUNK"],
-                           speculative=speculative, spec_gamma=SERVE["GAMMA"])
+                           speculative=speculative, spec_gamma=SERVE["GAMMA"], w4a8=w4a8)
     for fn in K.values():
         fn.launches = 0
     probe.calls = []
@@ -1512,7 +1722,7 @@ def serve_leg(torch, K, probe, mod, params, cfg, requests, prefix, speculative):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = counts(K)
-    probe.check_launches(cfg.num_hidden_layers)
+    probe.check_launches(cfg.num_hidden_layers, w4a8)
     if len(done) != len(reqs) or any(len(r.output) != n for r, (_, n, _) in zip(reqs, requests)):
         raise AssertionError("serve: a request did not finish with its length")
     if any(t < 0 or t >= cfg.vocab_size for r in reqs for t in r.output):
@@ -1579,27 +1789,33 @@ def check_streams(torch, params, cfg, legs):
     return stats
 
 
-def profile_engine(torch, mod, params, cfg, speculative, steps=4):
+def profile_engine(torch, mod, params, cfg, speculative, steps=4, w4a8=False):
     """profile_run over ``steps`` warm engine iterations with 8 greedy
     requests of 128 tokens in the slots: plain decode steps, or verify
-    steps when ``speculative``."""
+    steps when ``speculative``; with the mean cache rows a step reads per
+    slot (kv_rows_per_slot)."""
     import numpy as np
 
     engine = mod.ContinuousBatchingEngine(params, cfg, mod.ServeConfig(
-        max_batch=SERVE["MAX_BATCH"], max_seq=SERVE["MAX_SEQ"], speculative=speculative, spec_gamma=SERVE["GAMMA"]),
-        device=DEV)
+        max_batch=SERVE["MAX_BATCH"], max_seq=SERVE["MAX_SEQ"], speculative=speculative, spec_gamma=SERVE["GAMMA"],
+        w4a8=w4a8), device=DEV)
     rng = np.random.default_rng(SERVE["SEED"] + 1)
     for _ in range(SERVE["MAX_BATCH"]):
         engine.submit(rng.integers(0, cfg.vocab_size, 128).astype(np.int32), 96)
     for _ in range(3):  # admission and two warm iterations
         engine.step()
-    log(f"[serve] profile of {'verify' if speculative else 'plain decode'} steps at batch {SERVE['MAX_BATCH']}:")
+    log(f"[serve] profile of {'verify' if speculative else 'plain decode'} steps at batch {SERVE['MAX_BATCH']}"
+        f"{' (w4a8)' if w4a8 else ''}:")
+    rows0 = float(engine.positions.mean())
 
     def run():
         for _ in range(steps):
             engine.step()
 
-    return profile_run(torch, run, steps)
+    res = profile_run(torch, run, steps)
+    # a step attends over rows [0, position]: the mean over the profiled steps
+    res["kv_rows_per_slot"] = (rows0 + float(engine.positions.mean())) / 2 + 1
+    return res
 
 
 def serve_model(torch, cfg):
@@ -1680,6 +1896,222 @@ def phase_serve(torch, K, card):
     return runs
 
 
+def quantized_bytes(node) -> int:
+    """Bytes of every packed word, scale and zero point in a params tree:
+    what a decode step streams (dense leaves such as the embedding are not
+    read whole)."""
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    if isinstance(node, dict):
+        return sum(quantized_bytes(v) for v in node.values())
+    if isinstance(node, list):
+        return sum(quantized_bytes(v) for v in node)
+    if isinstance(node, QuantizedTensor):
+        return sum(t.numel() * t.element_size() for t in (node.qweight, node.scales, node.zeros))
+    return 0
+
+
+def kv_bytes(cfg, slots, rows) -> float:
+    """Bytes a decode step reads from the int8 cache: k and v rows (head
+    width int8 values and one f32 scale each) of every layer and kv head,
+    ``rows`` per slot."""
+    return 2.0 * cfg.num_hidden_layers * slots * cfg.num_key_value_heads * rows * (cfg.hd + 4)
+
+
+def w4a8_decode(torch, K, cfg, sp, tag):
+    """(a) bench.py's batch-32 decode leg (bench.py:653-691): one a16
+    prefill of 32 x 128 tokens (K2), then 64 greedy steps with bf16
+    activations (K1) and 64 from the same cache state with int8
+    activations (K11). Held: the launches, and rows W4A8_ALONE decoded
+    alone (batch 1, int8) from their cache rows giving the batch-32 int8
+    stream token for token. Read, not held: each leg's stream against
+    teacher-forced prefills as check_streams reads it (see phase_w4a8).
+    Returns (counts, per-leg readings)."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import make_cache, prefill
+
+    B, T, STEPS, MAX_SEQ = (W4A8[k] for k in ("B", "T", "STEPS", "MAX_SEQ"))
+    L = cfg.num_hidden_layers
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, device=DEV, generator=gen)
+    for fn in K.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cache = make_cache(cfg, B, MAX_SEQ, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, cfg, prompts, cache, device=DEV)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check_launches({"prefill": counts(K)}, {"prefill": {"w4_planar_gemm": 4 * L + 1, "w4a8_planar_gemv": 0}})
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    fields = ("k", "v", "k_scale", "v_scale")
+    snap = [getattr(cache, f).clone() for f in fields]
+    wbytes = quantized_bytes(sp)
+    legs, streams = {}, {}
+    for a8 in (False, True):
+        for f, t in zip(fields, snap):
+            getattr(cache, f).copy_(t)
+        before = counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, cache = decode_loop(sp, cfg, first, cache, T, STEPS, device=DEV, w4a8=a8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per = delta(before, counts(K))
+        n = (4 * L + 1) * STEPS
+        check_launches({"decode": per}, {"decode": {
+            "w4a8_planar_gemv": n if a8 else 0, "w4_planar_gemv": 0 if a8 else n,
+            "kv_write_int8": L * STEPS, "decode_attn_int8": L * STEPS}})
+        if tuple(toks.shape) != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError("w4a8: decoded ids out of range")
+        name = "w4a8" if a8 else "w4a16"
+        streams[name] = [(prompts[b].tolist(), [int(first[b, 0])] + toks[b].tolist()) for b in range(B)]
+        busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + STEPS, w4a8=a8)
+        legs[name] = {
+            "decode_tok_s": B * STEPS / dt,
+            "decode_ms_per_step": dt / STEPS * 1e3,
+            "launches_per_step": {k: v / STEPS for k, v in per.items() if v},
+            **busy,
+            # the profiled steps attend over T + STEPS + 1 .. + 4 rows
+            "bytes_per_step": wbytes + kv_bytes(cfg, B, T + STEPS + 2.5),
+        }
+    # batch invariance at full depth: rows decoded alone (batch 1) from the
+    # same cache rows and first token give the batch-32 int8 stream's tokens
+    alone = {}
+    for b in W4A8_ALONE:
+        c1 = make_cache(cfg, 1, MAX_SEQ, device=DEV)
+        for f, t in zip(fields, snap):
+            getattr(c1, f).copy_(t[:, b : b + 1])
+        t1, _ = decode_loop(sp, cfg, first[b : b + 1], c1, T, STEPS, device=DEV, w4a8=True)
+        ref = streams["w4a8"][b][1][1:]
+        alone[b] = next((i for i, (x, y) in enumerate(zip(t1[0].tolist(), ref)) if x != y), None)
+        del c1
+    total = counts(K)
+    reads = {}
+    for name, pairs in streams.items():
+        e, n, w = zip(*(stream_check(torch, sp, cfg, p, o) for p, o in pairs))
+        reads[name] = {"argmax_share": sum(e) / sum(n), "tokens": sum(n), "worst_gap_share": max(w)}
+    forks = [next((i for i, (a, b) in enumerate(zip(s16[1], s8[1])) if a != b), None)
+             for s16, s8 in zip(streams["w4a16"], streams["w4a8"])]
+    res = {
+        "config": f"Llama-2-7B shape, {L} layers, W4 g128, {tag}, stacked; B={B}, T={T} prefill (a16), {STEPS} "
+        f"greedy steps per leg from the same cache state",
+        "prefill_ms": prefill_ms,
+        "legs": legs,
+        "streams_against_teacher_forced_prefills": reads,
+        "int8_rows_alone_first_difference": alone,
+        "rows_identical": forks.count(None),
+        "first_fork_tokens": sorted(f for f in forks if f is not None),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"[w4a8] batch-{B} stacked decode, {tag}: {json.dumps(res)}")
+    if any(v is not None for v in alone.values()):
+        raise AssertionError(f"w4a8 ({tag}): a row decoded alone left the batch-{B} int8 stream: {alone}")
+    del cache, snap
+    torch.cuda.empty_cache()
+    return total, legs
+
+
+def w4a8_engine(torch, K, card, cfg, params):
+    """(b) ServeConfig(w4a8=True) over the serve model's 20 greedy
+    requests (the serve phase's, without the sampled ones): K12 in every
+    decode step and bucket-32 prefill, K10 in longer prefills; the
+    bucket-length requests equal greedy_generate(w4a8=True) at batch 1."""
+    from qllm_tpu_torch.models.generate import greedy_generate
+    from qllm_tpu_torch.serve import engine as mod
+
+    requests, prefix = serve_requests(cfg.vocab_size)
+    greedy = [q for q in requests if q[2] != "sampled"]
+    probe = EngineProbe(torch, K, mod)
+    try:
+        reqs, total, res = serve_leg(torch, K, probe, mod, params, cfg, greedy, prefix, False, w4a8=True)
+    finally:
+        probe.restore()
+    log(f"[w4a8] engine leg (ServeConfig(w4a8=True)), {card}: {json.dumps(res)}")
+    for (p, n, kind), r in zip(greedy, reqs):
+        if kind == "bucket":
+            ref = greedy_generate(params, cfg, torch.from_numpy(p)[None], n, device=DEV, w4a8=True)[0, len(p):].tolist()
+            if r.output != ref:
+                first = next(i for i, (a, b) in enumerate(zip(r.output, ref)) if a != b)
+                raise AssertionError(f"w4a8 engine: the {len(p)}-token request left greedy_generate at token {first}")
+    log("[w4a8] bucket-length requests equal to greedy_generate(w4a8=True) at batch 1")
+    wbytes = quantized_bytes(params)
+    legs = {}
+    for a8 in (False, True):
+        busy = profile_engine(torch, mod, params, cfg, False, w4a8=a8)
+        busy["bytes_per_step"] = wbytes + kv_bytes(cfg, SERVE["MAX_BATCH"], busy.pop("kv_rows_per_slot"))
+        legs["engine_w4a8" if a8 else "engine_w4a16"] = busy
+        log(f"[w4a8] engine decode step profile ({'w4a8' if a8 else 'w4a16'}): {json.dumps(busy)}")
+    return total, legs
+
+
+def phase_w4a8(torch, K, card, model):
+    """W4A8: (c) the streaming ceiling; (a) the batch-32 stacked decode
+    legs on the main model, and again on the serve model's weights,
+    stacked; (b) the engine with int8 activations on the serve model;
+    then each decode leg's device-time bandwidth (weight + KV bytes per
+    step over device ms per step) as a share of the ceiling.
+
+    The int8 streams are read against teacher-forced prefills, not held
+    to check_streams' limits: those limits bound the rounding difference
+    between bf16-activation paths, and int8 activations differ from bf16
+    ones by far more than rounding (the JAX package states ~1% extra
+    relative error a matmul), which 32 random layers carry to whole
+    logits: on one H100 the serve model's bf16 stream holds the limits
+    and its int8 stream does not, and on the main model's weights (every
+    column's mean -0.5 * its scale, see serve_model) the bf16 stream
+    already leaves them (readings in PERF.md). The int8 path is held
+    instead by K11 / K12 against their plain versions, by the cross phase
+    (card against CPU, int8 on both sides) and by batch invariance here
+    and in the engine leg."""
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+    from qllm_tpu_torch.ops.stream_bench import measure_stream_gbps
+
+    if model is None:
+        from qllm_tpu_torch.utils.testing import random_quantized_params
+
+        cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
+        sp = stack_layer_params(random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV))
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+        model = (cfg, sp)
+    runs = {}
+    for fn in K.values():
+        fn.launches = 0
+    gbps = measure_stream_gbps(STREAM["K"], STREAM["N"], STREAM["L"], STREAM["ITERS"])
+    runs["w4a8_stream"] = counts(K)
+    check_launches({"stream": runs["w4a8_stream"]}, {"stream": {"stream_pass": STREAM["L"] + 3 * STREAM["ITERS"]}})
+    ceiling = {"stream_gbps": gbps, "share_of_3.35_TB_s": gbps * 1e9 / PEAK_BYTES,
+               "geometry": f"K={STREAM['K']} N={STREAM['N']} L={STREAM['L']}, {STREAM['K'] * STREAM['N'] // 2} bytes a pass"}
+    log(f"[w4a8] streaming ceiling, {card}: {json.dumps(ceiling)}")
+    runs["w4a8_decode"], legs = w4a8_decode(torch, K, *model, "main model")
+    cfg = ModelConfig(num_hidden_layers=SERVE["LAYERS"], **SEVEN_B)
+    params = serve_model(torch, cfg)  # per-layer, for the engine
+    sp = stack_layer_params(params)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    runs["w4a8_decode_serve_model"], legs2 = w4a8_decode(torch, K, cfg, sp, "serve model's weights")
+    del sp
+    runs["serve_w4a8"], engine_legs = w4a8_engine(torch, K, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    legs.update({f"{k}_serve_model": v for k, v in legs2.items()})
+    legs.update(engine_legs)
+    shares = {}
+    for name, leg in legs.items():
+        dev_ms = leg.get("device_busy_ms_per_step")
+        if not isinstance(dev_ms, float):
+            shares[name] = "not measured"
+            continue
+        bw = leg["bytes_per_step"] / (dev_ms / 1e3) / 1e9
+        shares[name] = {"bytes_per_step": leg["bytes_per_step"], "device_ms_per_step": dev_ms,
+                        "device_gbps": bw, "share_of_ceiling": bw / gbps,
+                        "wall_ms_per_step": leg.get("decode_ms_per_step", leg.get("profiled_ms_per_step"))}
+    log(f"[w4a8] decode legs' device-time bandwidth against the ceiling: {json.dumps(shares)}")
+    return runs
+
+
 KERNEL_META = {
     "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
@@ -1694,11 +2126,16 @@ KERNEL_META = {
     # at M <= 32 the TPU runs _qmm_kernel_v3 (:177) for 2/4 bits, _qmm_kernel (:119) for 8
     "gptq_gemv": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:177"),
     "gptq_gemm": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:119"),
+    # the a8 branch (:871-873, :932-942) of the full-K planar kernel
+    "w4a8_planar_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
+    "gptq_w4a8_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:239"),
+    "stream_pass": ("qllm_tpu_torch/csrc/stream.cu", "qllm_tpu/ops/stream_bench.py:26"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
             "w4_grouped_gemv": "mixtral gateup", "gptq_gemv": "gate/up K=4096 N=11008 M=8 4-bit",
-            "gptq_gemm": "gate/up K=4096 N=11008 M=256 4-bit"}
+            "gptq_gemm": "gate/up K=4096 N=11008 M=256 4-bit", "w4a8_planar_gemv": "gateup K=4096 N=22016 M=32",
+            "gptq_w4a8_gemv": "gate/up K=4096 N=11008 M=8 4-bit"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
 # launches on the long path
@@ -1722,7 +2159,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
         "library_ms": head.get("library_ms"),
         "shape": head.get("case"),
     }
-    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm"):
+    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
     return entry
@@ -1730,7 +2167,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,serve,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,moe,long,moe_qwen3,cross",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1750,7 +2187,7 @@ def main() -> int:
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, repack
+    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, repack, stream_bench
 
     K = {
         "w4_planar_gemv": qmm.w4_planar_gemv,
@@ -1764,6 +2201,9 @@ def main() -> int:
         "w4_grouped_gemv": qmm.w4_grouped_gemv,
         "gptq_gemv": qmm2d.gptq_gemv,
         "gptq_gemm": qmm2d.gptq_gemm,
+        "w4a8_planar_gemv": qmm.w4a8_planar_gemv,
+        "gptq_w4a8_gemv": qmm2d.gptq_w4a8_gemv,
+        "stream_pass": stream_bench.stream_pass,
     }
     t_start = time.time()
     t0 = time.time()
@@ -1787,9 +2227,13 @@ def main() -> int:
         runs["main"], model = phase_main(torch, K)
     if "main1" in phases:
         runs["main1"] = phase_main1(torch, K, model)
+    log(f"[time] main, main1 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "w4a8" in phases:
+        runs.update(phase_w4a8(torch, K, card, model))
     model = None
     torch.cuda.empty_cache()
-    log(f"[time] main, main1 {time.time() - t0:.1f} s")
+    log(f"[time] w4a8 {time.time() - t0:.1f} s")
     t0 = time.time()
     if "serve" in phases:
         runs.update(phase_serve(torch, K, card))

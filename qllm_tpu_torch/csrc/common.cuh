@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,6 +20,13 @@ __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a scale or zero point stored as f32 (type 0), fp16 (1) or bf16 (2), as f32
+__device__ __forceinline__ float load_param(const void* p, int type, size_t i) {
+  if (type == 0) return __ldg(static_cast<const float*>(p) + i);
+  if (type == 1) return __half2float(__ldg(static_cast<const __half*>(p) + i));
+  return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + i));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -9,17 +9,9 @@
 // Neither kernel splits its sums with atomics: a row's result depends
 // only on that row of x and the weights, never on M or on the run.
 
-#include <cuda_fp16.h>
-
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_param(const void* p, int type, size_t i) {
-  if (type == 0) return __ldg(static_cast<const float*>(p) + i);
-  if (type == 1) return __half2float(__ldg(static_cast<const __half*>(p) + i));
-  return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(p) + i));
-}
 
 __device__ __forceinline__ float load_x(const void* x, int x_f32, size_t i) {
   if (x_f32) return static_cast<const float*>(x)[i];

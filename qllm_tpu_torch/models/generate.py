@@ -4,7 +4,10 @@ so there is no compiled step: each call runs the layers directly.
 
 Each function takes ``device`` ("cuda" unless the caller asks for the
 CPU) and raises when the card is asked for and absent; the tokens are
-moved there and the params and cache must already live there.
+moved there and the params and cache must already live there. ``w4a8``
+asks for per-token int8 activations wherever the JAX package's W4A8
+takes them (the decode-size matmuls; a prefill of more than 32 rows keeps
+bf16 activations, as there).
 """
 
 from __future__ import annotations
@@ -59,11 +62,12 @@ def prefill(
     tokens: torch.Tensor,  # [B, T]
     cache: QuantizedKVCache,
     device: Device = "cuda",
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, QuantizedKVCache]:
     """Run the prompt through the model, filling cache[0:T) in place.
     Returns (last-token logits [B, V], cache)."""
     tokens = _on(cache, tokens, device)
-    logits, cache = forward(params, cfg, tokens, cache, pos=0)
+    logits, cache = forward(params, cfg, tokens, cache, pos=0, w4a8=w4a8)
     return logits[:, -1, :], cache
 
 
@@ -75,9 +79,10 @@ def decode_step(
     cache: QuantizedKVCache,
     pos: Union[int, torch.Tensor],  # index where this token is written
     device: Device = "cuda",
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, QuantizedKVCache]:
     token = _on(cache, token, device)
-    logits, cache = forward(params, cfg, token, cache, pos=pos)
+    logits, cache = forward(params, cfg, token, cache, pos=pos, w4a8=w4a8)
     return logits[:, -1, :], cache
 
 
@@ -91,6 +96,7 @@ def greedy_generate(
     quantized_kv: bool = True,
     eos_token_id: Optional[int] = None,
     device: Device = "cuda",
+    w4a8: bool = False,
 ) -> torch.Tensor:
     """Greedy decode. Returns [B, T + max_new_tokens] token ids (fewer
     when every row has emitted ``eos_token_id``)."""
@@ -98,7 +104,7 @@ def greedy_generate(
     max_seq = max_seq or (T + max_new_tokens)
     cache = make_cache(cfg, B, max_seq, quantized_kv, device=device)
     prompt = prompt.to(cache.device)
-    logits, cache = prefill(params, cfg, prompt, cache, device=device)
+    logits, cache = prefill(params, cfg, prompt, cache, device=device, w4a8=w4a8)
     out = [prompt]
     token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     finished = torch.zeros((B,), dtype=torch.bool, device=cache.device)
@@ -110,6 +116,6 @@ def greedy_generate(
                 break
         if i == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, cfg, token, cache, T + i, device=device)
+        logits, cache = decode_step(params, cfg, token, cache, T + i, device=device, w4a8=w4a8)
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     return torch.cat([t.to(torch.int32) for t in out], dim=1)

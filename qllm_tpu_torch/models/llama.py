@@ -24,6 +24,7 @@ import torch
 from ..ops.attention import decode_attention, decode_attention_ring, kv_write_int8
 from ..ops.flash_prefill import prefill_attention_flash
 from ..ops.kv_cache import QuantizedKVCache
+from ..ops.qmm import _mean_sq
 from ..ops.ref_matmul import qmatmul
 from ..quant.qtensor import QuantizedTensor
 
@@ -161,11 +162,12 @@ def check_llama_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"not ported yet (llama family only): {off}")
 
 
-def apply_linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def apply_linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None, w4a8: bool = False) -> torch.Tensor:
     """x [..., K] @ w -> [..., N]; w is a dense [K, N] tensor or a
-    QuantizedTensor."""
+    QuantizedTensor (``w4a8``: int8 activations where the JAX package's
+    W4A8 takes them; a dense weight ignores it)."""
     if isinstance(w, QuantizedTensor):
-        return qmatmul(x, w, bias)
+        return qmatmul(x, w, bias, w4a8=w4a8)
     y = (x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.bfloat16).to(torch.float32)).to(x.dtype)
     if bias is not None:
         y = y + bias
@@ -186,19 +188,6 @@ def _norm_input(pv, cfg: ModelConfig, h: torch.Tensor, name: str):
 def _mat(x):
     """Materialise a pending fused norm (stacked.NormedX) if present."""
     return x.materialize() if hasattr(x, "materialize") else x
-
-
-def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
-    """mean(x^2) over the last axis, keepdim, summed in an order that does
-    not depend on the number of rows: PyTorch's CUDA reduction picks its
-    thread layout from the row count, so one long reduction would give a
-    row other bits at batch 8 than alone. In 128-wide pieces, then over
-    the pieces, every row is summed the same way at any batch."""
-    D = xf.shape[-1]
-    sq = xf * xf
-    if D % 128 == 0 and D > 128:
-        sq = sq.reshape(*sq.shape[:-1], D // 128, 128).sum(dim=-1)
-    return sq.sum(dim=-1, keepdim=True) / D
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -316,23 +305,26 @@ def _check_ring_cfg(cfg: ModelConfig) -> None:
 
 
 class LayerView:
-    """Accessor for one layer's params in a per-layer dict."""
+    """Accessor for one layer's params in a per-layer dict; ``w4a8`` rides
+    on the view to every quantized matmul of the layer (the grouped
+    expert launches stay a16, as in the JAX package)."""
 
-    def __init__(self, lp: Dict[str, Any]):
+    def __init__(self, lp: Dict[str, Any], w4a8: bool = False):
         self.lp = lp
+        self.w4a8 = w4a8
 
     def get(self, name):
         return self.lp.get(name)
 
     def apply(self, name, x):
-        return apply_linear(self.lp[name], x, self.lp.get(f"{name}_bias"))
+        return apply_linear(self.lp[name], x, self.lp.get(f"{name}_bias"), w4a8=self.w4a8)
 
     def apply_expert(self, name, e: int, x):
         """x @ experts_stacked[name][e] for a host-int expert index (the
         dense all-experts loop)."""
         from .moe import expert_linear
 
-        return expert_linear(self.lp["experts_stacked"][name], e, x)
+        return expert_linear(self.lp["experts_stacked"][name], e, x, w4a8=self.w4a8)
 
     def apply_experts_grouped(self, name, ids, x_rows, x_shared: bool = False):
         """y[i] = x_rows[i] @ W[ids[i]] for every selection in one launch;
@@ -564,10 +556,11 @@ def _moe_forward(pv, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             ye = pv.apply_expert("down_proj", e, act_fn(cfg.hidden_act, gate) * up)
             out = out + ye.to(torch.float32) * weights[..., e : e + 1]
         return out.to(x.dtype)
+    a8 = pv.w4a8
     for e, ep in enumerate(pv.get("experts")):
-        gate = apply_linear(ep["gate_proj"], x)
-        up = apply_linear(ep["up_proj"], x)
-        ye = apply_linear(ep["down_proj"], act_fn(cfg.hidden_act, gate) * up)
+        gate = apply_linear(ep["gate_proj"], x, w4a8=a8)
+        up = apply_linear(ep["up_proj"], x, w4a8=a8)
+        ye = apply_linear(ep["down_proj"], act_fn(cfg.hidden_act, gate) * up, w4a8=a8)
         out = out + ye.to(torch.float32) * weights[..., e : e + 1]
     return out.to(x.dtype)
 
@@ -625,13 +618,13 @@ def embed_tokens_forward(params: Dict[str, Any], cfg: ModelConfig, token_ids: to
     return emb[token_ids.to(torch.int64).clamp(0, emb.shape[0] - 1)]
 
 
-def final_logits(params: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+def final_logits(params: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, w4a8: bool = False) -> torch.Tensor:
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings or "lm_head" not in params:
         emb = params["embed_tokens"]
         logits = h.to(torch.bfloat16).to(torch.float32) @ emb.to(torch.bfloat16).to(torch.float32).T
     else:
-        logits = apply_linear(params["lm_head"], h, params.get("lm_head_bias"))
+        logits = apply_linear(params["lm_head"], h, params.get("lm_head_bias"), w4a8=w4a8)
     return logits.to(torch.float32)
 
 
@@ -650,6 +643,7 @@ def forward(
     token_ids: torch.Tensor,  # [B, T]
     cache: Optional[QuantizedKVCache] = None,
     pos: Union[None, int, torch.Tensor] = None,  # write offset into the cache
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, Optional[QuantizedKVCache]]:
     """Full forward -> (logits [B, T, V] float32, cache).
 
@@ -658,7 +652,10 @@ def forward(
     over cache positions [0, pos+T). ``pos`` is an int, or a [B] tensor of
     per-slot offsets; one that lies on the CPU is bounds-checked on the
     host and copied to the device once. Stacked params (models.stacked)
-    take the stacked loop."""
+    take the stacked loop. ``w4a8``: per-token int8 activations into
+    every quantized matmul where the JAX package's W4A8 (its
+    ``QLLM_TPU_W4A8`` switch) takes them; an explicit argument here, read
+    by nothing global."""
     check_llama_family(cfg)
     if not isinstance(params["layers"], list):
         if cache is None:
@@ -668,7 +665,7 @@ def forward(
             )
         from .stacked import forward_stacked
 
-        return forward_stacked(params, cfg, token_ids, cache, pos)
+        return forward_stacked(params, cfg, token_ids, cache, pos, w4a8=w4a8)
     B, T = token_ids.shape
     device = token_ids.device
     kv_len = None
@@ -683,5 +680,5 @@ def forward(
     h = embed_tokens_forward(params, cfg, token_ids)
     cos, sin = _rope_cos_sin(positions, cfg.rot_dim, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):
-        h, cache = _block_attn_mlp(LayerView(lp), cfg, h, cos, sin, mask, cache, i, pos, slots)
-    return final_logits(params, cfg, h), cache
+        h, cache = _block_attn_mlp(LayerView(lp, w4a8), cfg, h, cos, sin, mask, cache, i, pos, slots)
+    return final_logits(params, cfg, h, w4a8), cache

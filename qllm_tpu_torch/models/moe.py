@@ -9,7 +9,9 @@ kernel (K8, ``ops.qmm.qmatmul_grouped_experts``) reads the selected
 experts' words straight out of it, with the ids on the device, and
 nothing is gathered or copied. ``models.llama._moe_forward`` takes that
 sparse path whenever B*T*k < E and keeps the dense loop (K1 / K2 per
-expert) for prefill and large batches, where every expert is hit anyway.
+expert, K11 at M <= 32 under W4A8) for prefill and large batches, where
+every expert is hit anyway. The grouped launches stay a16 under W4A8,
+as in the JAX package (``qmatmul_grouped_experts`` passes a8=False).
 """
 
 from __future__ import annotations
@@ -159,11 +161,11 @@ def grouped_expert_linear(w, ids: torch.Tensor, x_rows: torch.Tensor, x_shared: 
     return y.to(x_rows.dtype)
 
 
-def expert_linear(w, e: int, x: torch.Tensor) -> torch.Tensor:
+def expert_linear(w, e: int, x: torch.Tensor, w4a8: bool = False) -> torch.Tensor:
     """y = x @ W[e] for one [E]-stacked expert weight and a host-int index
-    (the dense loop): quantized stacks ride K1 / K2 with ``e`` as the
-    stack index, dense stacks index directly."""
+    (the dense loop): quantized stacks ride K1 / K2 (K11 under ``w4a8``)
+    with ``e`` as the stack index, dense stacks index directly."""
     if isinstance(w, QuantizedTensor):
-        return qmatmul_stacked(x, w, e)
+        return qmatmul_stacked(x, w, e, w4a8=w4a8)
     y = x.to(torch.bfloat16).to(torch.float32) @ w[e].to(torch.bfloat16).to(torch.float32)
     return y.to(x.dtype)

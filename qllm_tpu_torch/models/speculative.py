@@ -17,6 +17,9 @@ keeps riding along (the batch shape is fixed) with its cache offset held
 where it finished, so its writes stay inside the cache; JAX clamps them
 there instead. Neither touches the tokens a row returns. Ring caches are
 refused, as in JAX (the ring append assumes one token per step).
+``w4a8`` reaches every forward of a loop, the draft model's included
+(in the JAX package one process-wide switch covers both); a verify over
+gamma + 1 rows at batch B keeps bf16 activations once B (gamma + 1) > 32.
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ def speculative_decode_loop(
     hist_len: torch.Tensor,  # [B] int32
     gamma: int = 4,
     ngram: int = 2,
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, object, int]:
     """Greedy-decode >= ``steps`` tokens with n-gram speculation. Returns
     (tokens [B, steps], exactly the greedy stream; cache; rounds, the
@@ -121,7 +125,7 @@ def speculative_decode_loop(
     rounds = 0
     while int(cursor.min()) < steps:
         draft = ngram_draft(history, hist_len, gamma, ngram)
-        logits, cache = forward(params, cfg, torch.cat([token, draft], dim=1), cache, pos=pos)
+        logits, cache = forward(params, cfg, torch.cat([token, draft], dim=1), cache, pos=pos, w4a8=w4a8)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, 1 + gamma]
         acc = _accept_len(draft, nxt)
         emit = (acc + 1).to(torch.int32)
@@ -145,6 +149,7 @@ def speculative_generate(
     gamma: int = 4,
     ngram: int = 2,
     device: Device = "cuda",
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """Prefill + speculative greedy decode. Returns ([B, T +
     max_new_tokens] ids, identical to greedy_generate's, and the number
@@ -156,14 +161,14 @@ def speculative_generate(
     max_seq = max_seq or (T + max_new_tokens)
     cache = make_cache(cfg, B, max_seq + gamma + 1, quantized_kv, device=device)
     prompt = prompt.to(cache.device).to(torch.int32)
-    logits, cache = prefill(params, cfg, prompt, cache, device=device)
+    logits, cache = prefill(params, cfg, prompt, cache, device=device, w4a8=w4a8)
     first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     history = torch.zeros((B, T + max_new_tokens + gamma + 1), dtype=torch.int32, device=cache.device)
     history[:, :T] = prompt
     history[:, T : T + 1] = first
     hist_len = torch.full((B,), T + 1, dtype=torch.int32, device=cache.device)
     toks, _, rounds = speculative_decode_loop(
-        params, cfg, first, cache, T, max_new_tokens - 1, history, hist_len, gamma=gamma, ngram=ngram
+        params, cfg, first, cache, T, max_new_tokens - 1, history, hist_len, gamma=gamma, ngram=ngram, w4a8=w4a8
     )
     return torch.cat([prompt, first, toks], dim=1), rounds + 1  # + the prefill's first token
 
@@ -180,6 +185,7 @@ def draft_speculative_decode_loop(
     pos0,  # [B] or scalar
     steps: int,
     gamma: int = 4,
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, object, object, int]:
     """Greedy decode with a DRAFT MODEL proposing gamma tokens per round:
     gamma draft-model steps, ONE target forward over gamma + 1 positions,
@@ -199,11 +205,11 @@ def draft_speculative_decode_loop(
     while int(cursor.min()) < steps:
         tok, drafts = token, []
         for i in range(gamma):
-            dlogits, draft_cache = forward(draft_params, draft_cfg, tok, draft_cache, pos=pos + i)
+            dlogits, draft_cache = forward(draft_params, draft_cfg, tok, draft_cache, pos=pos + i, w4a8=w4a8)
             tok = torch.argmax(dlogits[:, -1], dim=-1).to(torch.int32)[:, None]
             drafts.append(tok)
         draft = torch.cat(drafts, dim=1)
-        logits, cache = forward(params, cfg, torch.cat([token, draft], dim=1), cache, pos=pos)
+        logits, cache = forward(params, cfg, torch.cat([token, draft], dim=1), cache, pos=pos, w4a8=w4a8)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         acc = torch.clamp(_accept_len(draft, nxt), max=gamma - 1)
         emit = (acc + 1).to(torch.int32)
@@ -226,6 +232,7 @@ def draft_speculative_generate(
     quantized_kv: bool = True,
     gamma: int = 4,
     device: Device = "cuda",
+    w4a8: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """Prefill both models + draft-model speculative greedy decode.
     Returns ([B, T + max_new_tokens] ids, identical to the target's
@@ -237,10 +244,10 @@ def draft_speculative_generate(
     cache = make_cache(cfg, B, max_seq + gamma + 1, quantized_kv, device=device)
     dcache = make_cache(draft_cfg, B, max_seq + gamma + 1, quantized_kv, device=device)
     prompt = prompt.to(cache.device).to(torch.int32)
-    logits, cache = prefill(params, cfg, prompt, cache, device=device)
-    _, dcache = prefill(draft_params, draft_cfg, prompt, dcache, device=device)
+    logits, cache = prefill(params, cfg, prompt, cache, device=device, w4a8=w4a8)
+    _, dcache = prefill(draft_params, draft_cfg, prompt, dcache, device=device, w4a8=w4a8)
     first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     toks, _, _, rounds = draft_speculative_decode_loop(
-        params, cfg, draft_params, draft_cfg, first, cache, dcache, T, max_new_tokens - 1, gamma=gamma
+        params, cfg, draft_params, draft_cfg, first, cache, dcache, T, max_new_tokens - 1, gamma=gamma, w4a8=w4a8
     )
     return torch.cat([prompt, first, toks], dim=1), rounds + 1

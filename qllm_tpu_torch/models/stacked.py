@@ -291,8 +291,9 @@ _FUSED_OF = {
 
 class NormedX:
     """An activation with a PENDING RMSNorm, fused into the next stacked
-    quantized matmul (K1 normalises the row in-kernel; at M > 32 the norm
-    runs just before K2). Other consumers call ``materialize()``."""
+    quantized matmul (K1 normalises the row in-kernel, K11 in its
+    quantizer prologue; at M > 32 the norm runs just before K2). Other
+    consumers call ``materialize()``."""
 
     __slots__ = ("x", "w_stacked", "layer", "eps")
 
@@ -317,12 +318,14 @@ class NormedX:
 class StackedLayerView:
     """llama.LayerView equivalent over [L]-stacked params + layer index;
     fused q/k/v and gate/up outputs are computed once per input and
-    sliced per consumer."""
+    sliced per consumer. ``w4a8`` rides on the view to every stacked
+    matmul (K11 where the JAX package's W4A8 takes int8 activations)."""
 
-    def __init__(self, slp: Dict[str, Any], l: int, cfg: ModelConfig):
+    def __init__(self, slp: Dict[str, Any], l: int, cfg: ModelConfig, w4a8: bool = False):
         self.lp = slp
         self.l = l
         self.cfg = cfg
+        self.w4a8 = w4a8
         self._fused_memo = {}
 
     def get(self, name):
@@ -368,7 +371,7 @@ class StackedLayerView:
         from .moe import expert_linear
 
         w, bias = self._expert_stack(name)
-        return expert_linear(w, bias + e, x)
+        return expert_linear(w, bias + e, x, w4a8=self.w4a8)
 
     def apply_experts_grouped(self, name, ids, x_rows, x_shared: bool = False):
         from .moe import grouped_expert_linear
@@ -381,7 +384,7 @@ class StackedLayerView:
         if isinstance(w, list):
             # a heterogeneous entry of hybrid params stays per layer
             b = self.lp.get(f"{name}_bias")
-            return apply_linear(w[self.l], _mat(x), None if b is None else b[self.l])
+            return apply_linear(w[self.l], _mat(x), None if b is None else b[self.l], w4a8=self.w4a8)
         b = self.lp.get(f"{name}_bias")
         bias = None if b is None else b[self.l]
         if isinstance(w, QuantizedTensor):
@@ -389,7 +392,7 @@ class StackedLayerView:
             if isinstance(x, NormedX):
                 norm_kw = {"norm_w": x.w_stacked, "norm_eps": x.eps}
                 x = x.x
-            y = qmatmul_stacked(x, w, self.l, **norm_kw)
+            y = qmatmul_stacked(x, w, self.l, **norm_kw, w4a8=self.w4a8)
         else:
             if isinstance(x, NormedX):
                 x = x.materialize()
@@ -406,9 +409,10 @@ def forward_stacked(
     token_ids: torch.Tensor,
     cache,
     pos,
+    w4a8: bool = False,
 ):
     """Decode/prefill forward over stacked params, layer by layer; the
-    semantics of models.llama.forward with a cache."""
+    semantics of models.llama.forward with a cache (``w4a8`` as there)."""
     check_llama_family(cfg)
     B, T = token_ids.shape
     pos = 0 if pos is None else pos
@@ -424,9 +428,9 @@ def forward_stacked(
     slp = params["layers"]
     for layer in range(cfg.num_hidden_layers):
         h, cache = _block_attn_mlp(
-            StackedLayerView(slp, layer, cfg), cfg, h, cos, sin, mask, cache, layer, pos, slots
+            StackedLayerView(slp, layer, cfg, w4a8), cfg, h, cos, sin, mask, cache, layer, pos, slots
         )
-    return final_logits(params, cfg, h), cache
+    return final_logits(params, cfg, h, w4a8), cache
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,14 @@ for the stacks ``models.stacked`` prepares: 4-bit planar words
     in;
   * K2 ``w4_planar_gemm`` (M > 32, prefill): dequantize to bf16 in
     registers, bf16 tensor-core product with f32 accumulation; the
-    RMSNorm runs before it.
+    RMSNorm runs before it;
+  * K11 ``w4a8_planar_gemv`` (M <= 32 with ``w4a8=True``, where the JAX
+    package takes its full-K kernel): per-token int8 activations
+    (``quantize_rows_int8``, bit for bit the JAX package's) against the
+    nibbles in s8 x s8 -> s32 products on the tensor cores, the zero-point
+    term on the x8 sums, and the token scale applied last; the RMSNorm
+    that JAX runs before its a8 kernel (which fuses none) runs in K11's
+    quantizer prologue.
 
 ``qmatmul_grouped_experts(x_rows, stack, ids)`` computes
 ``y[i] = x_rows[i] @ dequant(stack[ids[i]])`` for every MoE (token,
@@ -37,6 +44,11 @@ from ..quant.qtensor import QuantizedTensor
 
 __all__ = [
     "qmatmul_stacked",
+    "quantize_rows_int8",
+    "quantize_rows_int8_plain",
+    "w4a8_planar_gemv",
+    "w4a8_planar_gemv_plain",
+    "a8_full_k_ok",
     "qmatmul_grouped_experts",
     "grouped_experts_ok",
     "w4_grouped_gemv",
@@ -50,14 +62,31 @@ __all__ = [
 ]
 
 GEMV_MAX_M = 32
+# the JAX package's VMEM cap on a full-K planar block, (K/8) * bn words
+# (QLLM_TPU_QMM_FULLK_MAX's default, pallas_qmm.py:1181): the a8 kernel
+# runs only where JAX's full-K kernel would
+_FULLK_MAX_BYTES = 4 << 20
+
+
+def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """mean(x^2) over the last axis, keepdim, summed in an order that does
+    not depend on the number of rows: PyTorch's CUDA reduction picks its
+    thread layout from the row count, so one long reduction would give a
+    row other bits at batch 8 than alone. In 128-wide pieces, then over
+    the pieces, every row is summed the same way at any batch."""
+    D = xf.shape[-1]
+    sq = xf * xf
+    if D % 128 == 0 and D > 128:
+        sq = sq.reshape(*sq.shape[:-1], D // 128, 128).sum(dim=-1)
+    return sq.sum(dim=-1, keepdim=True) / D
 
 
 def _rms_norm_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm over the last axis with the weight product in f32 (the
-    pre-normalize the JAX package runs outside its blocked kernel)."""
+    pre-normalize the JAX package runs outside its blocked kernel and
+    before its a8 kernel); a row's bits do not depend on the row count."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
+    return (xf * torch.rsqrt(_mean_sq(xf) + eps) * w.to(torch.float32)).to(x.dtype)
 
 
 def planar_full_ok(K: int, g: int) -> bool:
@@ -78,6 +107,24 @@ def planar_bk(K: int, g: int, target: int = 2048):
         if K % bk == 0 and bk <= target:
             best = bk
     return best
+
+
+def _pick_block(dim: int, quantum: int, target: int) -> int:
+    """The largest multiple of ``quantum`` that divides ``dim`` and is <=
+    ``target``, else ``dim`` (pallas_qmm.py:55)."""
+    best = None
+    for b in range(quantum, min(dim, target) + 1, quantum):
+        if dim % b == 0:
+            best = b
+    return best if best is not None else dim
+
+
+def a8_full_k_ok(K: int, g: int, Np: int) -> bool:
+    """Where ``_qmm_2d_stacked`` takes its full-K kernel at M <= 32, and so
+    its a8 branch under W4A8 (pallas_qmm.py:1164-1180): the full-K
+    geometry and a (K/8) x bn word block within the VMEM cap, bn =
+    _pick_block(Np, 128, 512) (no tuned table carries over)."""
+    return planar_full_ok(K, g) and (K // 8) * _pick_block(Np, 128, 512) * 4 <= _FULLK_MAX_BYTES
 
 
 def _kernel_geometry_ok(K: int, g: int) -> bool:
@@ -293,6 +340,125 @@ w4_planar_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# W4A8: the activation quantizer and K11 w4a8_planar_gemv
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows_int8_plain(x: torch.Tensor, group_size: int):
+    """Per-token symmetric int8 activations, as the JAX package computes
+    them (pallas_qmm.py:366-367, :1271-1275): x [M, K] as it arrives, in
+    f32 -> (x8 int8 [M, K], sx f32 [M], per-group sums of x8 int32 [M,
+    K / group_size]). sx = max(max|x|, 1e-8) / 127, x8 = clip(round half
+    to even(x / sx), -127, 127); both divisions are by tensors, which
+    PyTorch carries out as IEEE quotients on the card too."""
+    M, K = x.shape
+    xf = x.to(torch.float32)
+    amax = torch.clamp(xf.abs().amax(dim=1), min=1e-8)
+    sx = amax / torch.full_like(amax, 127.0)
+    x8 = torch.clamp(torch.round(xf / sx[:, None]), -127, 127).to(torch.int8)
+    xsum = x8.to(torch.int32).reshape(M, K // group_size, group_size).sum(dim=2, dtype=torch.int32)
+    return x8, sx, xsum
+
+
+def quantize_rows_int8(x: torch.Tensor, group_size: int):
+    """The quantizer that K11 and K12 launch first, alone, in natural k
+    order (for checks): x [M, K] bf16 / f32 -> (x8, sx, xsum) as the plain
+    version gives them."""
+    if not _build.use_kernel(x, "quantize_rows_int8"):
+        return quantize_rows_int8_plain(x, group_size)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("quantize_rows_int8: x must be bf16/f32 [M, K]")
+    M, K = x.shape
+    x = x.contiguous()
+    x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    xsum = torch.empty((M, K // group_size), dtype=torch.int32, device=x.device)
+    code = _build.load_library().qllm_quantize_rows_int8(
+        x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
+        M, K, group_size, 1, _build.stream(x),
+    )
+    _build.check("quantize_rows_int8", code)
+    return x8, sx, xsum
+
+
+def w4a8_planar_gemv_plain(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zs: torch.Tensor,
+    layer: int,
+    norm_w: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The plain version of K11: x8, sx = quantize(x), x first RMS-
+    normalised by norm_w[layer] (``_rms_norm_rows``, rounded to x's dtype)
+    when given; y[m, n] = sx[m] * sum_g ((x8_g . q_g[:, n]) * s_g[n] - (sum
+    x8_g) * zs_g[n]), f32, rounded to bf16. The integer dots are exact in
+    f32 (below 2^24)."""
+    M, K = x.shape
+    G = scales.shape[1]
+    g = K // G
+    if norm_w is not None:
+        x = _rms_norm_rows(x, norm_w[layer], eps)
+    x8, sx, _ = quantize_rows_int8_plain(x, g)
+    v = _planar_values(qweight[layer], K).reshape(G, g, -1)
+    xg = x8.to(torch.float32).reshape(M, G, g)
+    d = torch.einsum("mgk,gkn->mgn", xg, v)
+    xsum = xg.sum(dim=2)
+    sc = scales[layer].to(torch.float32)
+    zz = zs[layer].to(torch.float32)
+    y = (d * sc[None] - xsum[:, :, None] * zz[None]).sum(dim=1)
+    return (y * sx[:, None]).to(torch.bfloat16)
+
+
+def w4a8_planar_gemv(
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zs: torch.Tensor,
+    layer: int,
+    norm_w: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """K11: x [M <= 32, K] bf16 or f32, normalised (norm_w [L, K]) and
+    quantized per row in the kernel's prologue -> y [M, Np] bf16 (see the
+    plain version). Replaces the a8 branch of _qmm_kernel_planar_full
+    (pallas_qmm.py:832). Bound: bytes (words + scales + zs + x + y) over
+    3.35 TB/s."""
+    if not _build.use_kernel(x, "w4a8_planar_gemv"):
+        return w4a8_planar_gemv_plain(x, qweight, scales, zs, layer, norm_w, eps)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= x.shape[0] <= GEMV_MAX_M:
+        raise ValueError(f"w4a8_planar_gemv: x must be bf16/f32 [M <= {GEMV_MAX_M}, K]")
+    M, K = x.shape
+    L, Np, G = _check_stack("w4a8_planar_gemv", x, qweight, scales, zs, layer, K)
+    if not planar_full_ok(K, K // G) or Np % 32:
+        raise ValueError(f"w4a8_planar_gemv: K={K}, G={G}, Np={Np} is not the full-K geometry")
+    x = x.contiguous()
+    nw_f32 = 0
+    if norm_w is not None:
+        if tuple(norm_w.shape) != (L, K) or norm_w.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError("w4a8_planar_gemv: norm_w must be bf16/f32 [L, K]")
+        norm_w = norm_w.contiguous()
+        nw_f32 = int(norm_w.dtype == torch.float32)
+    x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, Np), dtype=torch.bfloat16, device=x.device)
+    sms = _sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    warps = max(1, min(8, K // 64, -(-16 * sms // (Np // 32))))
+    code = _build.load_library().qllm_w4a8_planar_gemv(
+        x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
+        scales.data_ptr(), zs.data_ptr(), _build.ptr(norm_w), nw_f32, float(eps), out.data_ptr(), layer, M, K, Np,
+        K // G, warps, _build.stream(x),
+    )
+    _build.check("w4a8_planar_gemv", code)
+    w4a8_planar_gemv.launches += 1
+    return out
+
+
+w4a8_planar_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K8 w4_grouped_gemv
 # ---------------------------------------------------------------------------
 
@@ -390,13 +556,18 @@ def qmatmul_stacked(
     layer: int,
     norm_w: Optional[torch.Tensor] = None,
     norm_eps: float = 1e-6,
+    w4a8: bool = False,
 ) -> torch.Tensor:
     """y = x @ dequant(stack[layer]) for a planar, zs-prefolded, bf16-scale
     4-bit stack (the counterpart of ``qmatmul_pallas_stacked``).
 
     ``norm_w`` ([L, K] stacked RMSNorm weights): compute
     ``rms_norm(x, norm_w[layer]) @ W``, fused into K1 at M <= 32 and
-    applied before K2 at M > 32. x: [..., K] -> [..., N] in x.dtype."""
+    applied before K2 at M > 32. ``w4a8``: int8 activations (K11) where
+    the JAX package's W4A8 takes them, M <= 32 in the full-K geometry
+    (``a8_full_k_ok``), the norm applied first (in K11's prologue, as the
+    JAX package applies it before its a8 kernel); every other call keeps
+    K1 / K2. x: [..., K] -> [..., N] in x.dtype."""
     K, N = qt_stacked.in_features, qt_stacked.out_features
     g = qt_stacked.effective_group_size
     if not (
@@ -420,7 +591,10 @@ def qmatmul_stacked(
     for d in lead:
         M *= d
     x2 = x.reshape(M, K)
-    if M <= GEMV_MAX_M:
+    Np = qt_stacked.qweight.shape[-1]
+    if w4a8 and M <= GEMV_MAX_M and a8_full_k_ok(K, g, Np):
+        y = w4a8_planar_gemv(x2, qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer, norm_w, norm_eps)
+    elif M <= GEMV_MAX_M:
         y = w4_planar_gemv(
             x2.to(torch.bfloat16),
             qt_stacked.qweight,

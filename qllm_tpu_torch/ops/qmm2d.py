@@ -15,12 +15,19 @@ does branch by branch:
     CUDA kernel K10 ``gptq_gemm``, the counterpart of ``_qmm_kernel``
     (:119) at M > 32.
 
+  * M <= 32 with ``w4a8=True`` (2 and 4 bits in the per-group geometry,
+    where the JAX package takes ``_qmm_kernel_w4a8``): per-token int8
+    activations (``ops.qmm.quantize_rows_int8``), exact s8 x s8 -> s32
+    group dots, ``y = bf16(sx * (sum_g d_g s_g - sum(x8_g) (z s)_g))``.
+    CUDA kernel K12 ``gptq_w4a8_gemv``, the counterpart of
+    ``_qmm_kernel_w4a8`` (:239) with the correction after it (:385-396).
+    8-bit weights and M > 32 keep K9 / K10, as in JAX.
+
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor; the plain versions compute
 ``_qmm_2d``'s function in the JAX package's order of rounding. The
 act-order permutation is applied to x before either (``ref_matmul.py``
-:86). ``_qmm_kernel_w4a8`` (:239) is not ported: ``serve.ServeConfig``
-refuses ``w4a8=True``.
+:86).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from . import _build
 from ..quant.qtensor import QuantizedTensor, unpack_rows
+from .qmm import quantize_rows_int8_plain
 
 __all__ = [
     "qmatmul_2d",
@@ -39,6 +47,8 @@ __all__ = [
     "gptq_gemv_plain",
     "gptq_gemm",
     "gptq_gemm_plain",
+    "gptq_w4a8_gemv",
+    "gptq_w4a8_gemv_plain",
     "GEMV_MAX_M",
 ]
 
@@ -239,14 +249,84 @@ gptq_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K12 gptq_w4a8_gemv
+# ---------------------------------------------------------------------------
+
+
+def gptq_w4a8_gemv_plain(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """The plain version of K12: ``_qmm_2d``'s W4A8 branch. x8, sx, xsum =
+    quantize(x); y1 = sum_g (x8_g . q_g) * s_g (exact integer dots in f32);
+    y = bf16((y1 - xsum @ (z * s)) * sx)."""
+    _check_bits(bits)
+    M, K, N, g, G, q, s, z = _operands(x, qweight, scales, zeros, bits, group_size)
+    x8, sx, xsum = quantize_rows_int8_plain(x, g)
+    d = torch.einsum("mgk,gkn->mgn", x8.to(torch.float32).reshape(M, G, g), q)
+    y1 = (d * s[None]).sum(dim=1)
+    corr = xsum.to(torch.float32) @ (z * s)
+    return ((y1 - corr) * sx[:, None]).to(torch.bfloat16)
+
+
+def _w4a8_splits(rows: int, N: int, group_rows: int) -> Tuple[int, int]:
+    """K9's split of K, each split widened to whole groups (K12 subtracts
+    whole groups' zero-point terms): from the weight's shape alone."""
+    _, per = _gemv_splits(rows, N)
+    per = -(-per // group_rows) * group_rows
+    return -(-rows // per), per
+
+
+def gptq_w4a8_gemv(
+    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+) -> torch.Tensor:
+    """K12: x [M <= 32, K] bf16 or f32 -> y [M, N] bf16 (see the plain
+    version), 2- and 4-bit words. Replaces ``_qmm_kernel_w4a8``
+    (pallas_qmm.py:239). Bound: bytes (words + scales + zeros + x + y)
+    over 3.35 TB/s."""
+    if bits not in (2, 4):
+        raise NotImplementedError(f"gptq_w4a8_gemv serves 2/4 bits, got {bits}")
+    if not _build.use_kernel(x, "gptq_w4a8_gemv"):
+        return gptq_w4a8_gemv_plain(x, qweight, scales, zeros, bits, group_size)
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= x.shape[0] <= GEMV_MAX_M:
+        raise ValueError(f"gptq_w4a8_gemv: x must be bf16/f32 [M <= {GEMV_MAX_M}, K]")
+    M, K = x.shape
+    g = _group(K, group_size)
+    N, s_type = _check_weight("gptq_w4a8_gemv", x, qweight, scales, zeros, bits, K, g)
+    pf = 32 // bits
+    x = x.contiguous()
+    splits, per = _w4a8_splits(K // pf, N, g // pf)
+    dev = x.device
+    x8 = torch.empty((M, K), dtype=torch.int8, device=dev)
+    sx = torch.empty((M,), dtype=torch.float32, device=dev)
+    xsum = torch.empty((M, K // g), dtype=torch.int32, device=dev)
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    code = _build.load_library().qllm_gptq_w4a8_gemv(
+        x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
+        qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), s_type, _build.ptr(part), out.data_ptr(),
+        bits, M, K, N, g, splits, per, _build.stream(x),
+    )
+    _build.check("gptq_w4a8_gemv", code)
+    gptq_w4a8_gemv.launches += 1
+    return out
+
+
+gptq_w4a8_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the per-layer matmul entry point
 # ---------------------------------------------------------------------------
 
 
-def qmatmul_2d(x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def qmatmul_2d(
+    x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor] = None, w4a8: bool = False
+) -> torch.Tensor:
     """y = x @ dequant(qt) (+ bias) for a 2-D GPTQ-order weight (the
     counterpart of ``qmatmul_pallas`` with the perm applied first):
-    K9 at M <= 32, else K10. x: [..., K] -> [..., N] in x.dtype."""
+    K9 at M <= 32, else K10; with ``w4a8``, K12 where ``_qmm_2d`` takes
+    its W4A8 kernel (2/4 bits, M <= 32, the per-group geometry).
+    x: [..., K] -> [..., N] in x.dtype."""
     _check_bits(qt.bits)
     if qt.planar or qt.zeros_prefolded or qt.qweight.dim() != 2:
         raise ValueError("qmatmul_2d takes a per-layer GPTQ-order weight (not a serving stack)")
@@ -255,7 +335,11 @@ def qmatmul_2d(x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor
         x = torch.index_select(x, -1, qt.perm.to(torch.int64))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
-    fn = gptq_gemv if x2.shape[0] <= GEMV_MAX_M else gptq_gemm
+    small = x2.shape[0] <= GEMV_MAX_M
+    if w4a8 and small and _per_group_branch(K, _group(K, qt.group_size), qt.bits):
+        fn = gptq_w4a8_gemv
+    else:
+        fn = gptq_gemv if small else gptq_gemm
     y = fn(x2, qt.qweight, qt.scales, qt.zeros, qt.bits, qt.group_size)
     y = y.reshape(*lead, N).to(x.dtype)
     return y if bias is None else y + bias

@@ -5,7 +5,10 @@ of ``qllm_tpu/ops/ref_matmul.py``), and the ``qmatmul`` dispatch.
 weight to ``ops.qmm.qmatmul_stacked`` and its CUDA kernels. A 2-D
 per-layer weight takes ``qmatmul_ref`` on the CPU, as the JAX package's
 ``qmatmul`` does there, and ``ops.qmm2d.qmatmul_2d`` (CUDA kernels K9 /
-K10, the counterpart of ``qmatmul_pallas``) on the card.
+K10, the counterpart of ``qmatmul_pallas``) on the card. With
+``w4a8=True`` a 2-D weight takes ``qmatmul_2d`` on either device (K12
+where ``_qmm_2d`` takes int8 activations; plain versions on the CPU), so
+the choice of int8 activations is never dropped.
 """
 
 from __future__ import annotations
@@ -51,18 +54,19 @@ def qmatmul_ref(
 
 
 def qmatmul(
-    x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor] = None
+    x: torch.Tensor, qt: QuantizedTensor, bias: Optional[torch.Tensor] = None, w4a8: bool = False
 ) -> torch.Tensor:
     """Quantized matmul. A 3-D qweight is an L=1 serving stack and goes
-    through the stacked kernels with layer 0."""
+    through the stacked kernels with layer 0. ``w4a8``: int8 activations
+    where the JAX package's W4A8 takes them."""
     if qt.qweight.dim() == 3:
         from .qmm import qmatmul_stacked
 
-        y = qmatmul_stacked(x, qt, 0)
-    elif _build.use_kernel(x, "qmatmul"):
+        y = qmatmul_stacked(x, qt, 0, w4a8=w4a8)
+    elif w4a8 or _build.use_kernel(x, "qmatmul"):
         from .qmm2d import qmatmul_2d
 
-        return qmatmul_2d(x, qt, bias)
+        return qmatmul_2d(x, qt, bias, w4a8=w4a8)
     else:
         return qmatmul_ref(x, qt, bias)
     if bias is not None:

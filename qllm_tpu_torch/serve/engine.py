@@ -18,6 +18,11 @@ they still decide each prefill's M (K9 at M <= 32, K10 above), and so
 which kernel branch it takes, as on the TPU. Dense params are served as
 they come (per-layer 2-D weights through ``ops.qmm2d``), MoE params are
 hybrid-stacked with bf16 scales at construction, as the JAX engine does.
+``ServeConfig(w4a8=True)`` passes the choice of per-token int8
+activations to every dispatch's forward (K12 on per-layer weights, K11
+on stacks, where the JAX package's W4A8 takes them); the JAX engine sets
+a process-wide environment switch instead, so there two engines in one
+process cannot differ, while here each keeps its own numerics.
 The engine's random numbers come from a ``torch.Generator`` seeded per
 dispatch from (ServeConfig.seed, dispatch count), so a run is
 reproducible from its seed; they are not ``jax.random``'s bits.
@@ -70,7 +75,10 @@ class ServeConfig:
     speculative: bool = False
     spec_gamma: int = 4
     spec_ngram: int = 2
-    # W4A8 (int8 activations): not ported; True raises at construction
+    # W4A8: per-token int8 activations in the decode-size matmuls (2/4-bit
+    # per-layer weights through K12, full-K planar stacks through K11);
+    # prefills of more than 32 rows and 8-bit weights keep bf16
+    # activations, as in the JAX package. This engine's choice only.
     w4a8: bool = False
 
 
@@ -112,12 +120,12 @@ Sampling = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 @torch.no_grad()
 def _batched_decode_step(
-    params, cfg: ModelConfig, tokens, cache, positions, sampling: Sampling = None, generator=None
+    params, cfg: ModelConfig, tokens, cache, positions, sampling: Sampling = None, generator=None, w4a8=False
 ):
     """tokens [B, 1], positions [B] -> (next tokens [B] int32 on the
     device, cache). ``sampling``: (temperature, top_k, top_p) per slot
     (None = all greedy: no sort in the step)."""
-    logits, cache = forward(params, cfg, tokens, cache, pos=positions)
+    logits, cache = forward(params, cfg, tokens, cache, pos=positions, w4a8=w4a8)
     last = logits[:, -1, :]
     if sampling is None:
         return torch.argmax(last, dim=-1).to(torch.int32), cache
@@ -136,6 +144,7 @@ def _batched_decode_multi(
     eos: Optional[int],
     sampling: Sampling = None,
     generator=None,
+    w4a8: bool = False,
 ):
     """``steps`` decode steps with no host read between them: next tokens
     (greedy, or sampled) chained per slot, eos-aware freezing.
@@ -150,7 +159,7 @@ def _batched_decode_multi(
     active = active.to(dev)
     trace = []
     for _ in range(steps):
-        logits, cache = forward(params, cfg, tokens, cache, pos=positions)
+        logits, cache = forward(params, cfg, tokens, cache, pos=positions, w4a8=w4a8)
         last = logits[:, -1, :]
         if sampling is None:
             nxt = torch.argmax(last, dim=-1).to(torch.int32)
@@ -197,6 +206,7 @@ def _batched_spec_step(
     gamma: int,
     ngram: int,
     eos: Optional[int],
+    w4a8: bool = False,
 ):
     """One speculative round for the whole batch: draft gamma tokens per
     slot from its history (on the host), verify them in ONE forward over
@@ -206,27 +216,27 @@ def _batched_spec_step(
     apart from the cache."""
     draft = ngram_draft(history, hist_len, gamma, ngram)
     seq = torch.cat([tokens.to(torch.int32), draft], dim=1)
-    logits, cache = forward(params, cfg, seq.to(cache.device), cache, pos=positions)
+    logits, cache = forward(params, cfg, seq.to(cache.device), cache, pos=positions, w4a8=w4a8)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu()  # [B, 1 + gamma]
     el, tokens, positions, active2 = _spec_accept(nxt, draft, tokens, positions, active, eos)
     return nxt, el, tokens, cache, positions, active2
 
 
 @torch.no_grad()
-def _prefill_one(params, cfg: ModelConfig, tokens, cache, length: int):
+def _prefill_one(params, cfg: ModelConfig, tokens, cache, length: int, w4a8: bool = False):
     """Right-padded prompt [1, Tb]; only positions < length are real.
     Returns (the last real position's logits [1, V], cache); the first
     token is picked outside (greedy or sampled per request)."""
-    logits, cache = forward(params, cfg, tokens, cache, pos=0)
+    logits, cache = forward(params, cfg, tokens, cache, pos=0, w4a8=w4a8)
     return logits[:, length - 1], cache
 
 
 @torch.no_grad()
-def _prefill_chunk(params, cfg: ModelConfig, tokens, cache, offset: int, length: int):
+def _prefill_chunk(params, cfg: ModelConfig, tokens, cache, offset: int, length: int, w4a8: bool = False):
     """One chunk [1, C] of a long prompt at position ``offset``; returns
     the logits after the LAST REAL position (meaningful on the final
     chunk only) and the cache."""
-    logits, cache = forward(params, cfg, tokens, cache, pos=offset)
+    logits, cache = forward(params, cfg, tokens, cache, pos=offset, w4a8=w4a8)
     return logits[:, min(max(length - offset - 1, 0), tokens.shape[1] - 1)], cache
 
 
@@ -260,13 +270,6 @@ class ContinuousBatchingEngine:
         from ..models.moe import has_stackable_experts
         from ..models.stacked import stack_layer_params_hybrid
 
-        if serve_cfg.w4a8:
-            raise NotImplementedError(
-                "ServeConfig(w4a8=True) needs the int8-activation kernels, which are not ported: "
-                "_qmm_kernel_w4a8 (queue-2 row #6, qllm_tpu/ops/pallas_qmm.py:239), "
-                "_qmm_kernel_w4a8_v3_stacked (row #4) and the a8 branch of "
-                "_qmm_kernel_planar_full (row #1)"
-            )
         self.device = resolve_device(device)
         pdev = _params_device(params)
         if pdev is None or pdev.type != self.device.type:
@@ -348,7 +351,7 @@ class ContinuousBatchingEngine:
         padded = np.zeros((1, Tb), np.int32)
         padded[0, :Tp] = toks
         mini = self._make_mini_cache(Tb)
-        _, mini = _prefill_one(self.params, self.cfg, self._dev(padded), mini, Tp)
+        _, mini = _prefill_one(self.params, self.cfg, self._dev(padded), mini, Tp, w4a8=self.scfg.w4a8)
         pid = len(self._prefixes)
         self._prefixes[pid] = (toks, mini)
         return pid
@@ -403,7 +406,7 @@ class ContinuousBatchingEngine:
         n = min(width, T - done)
         window = np.zeros((1, width), np.int32)
         window[0, :n] = req.prompt[done : done + n]
-        last_logits, mini = _prefill_chunk(self.params, self.cfg, self._dev(window), mini, done, T)
+        last_logits, mini = _prefill_chunk(self.params, self.cfg, self._dev(window), mini, done, T, w4a8=self.scfg.w4a8)
         return last_logits, mini, done + n
 
     def _finish_admission(self, req: Request, slot: int, mini: QuantizedKVCache, last_logits) -> None:
@@ -490,7 +493,7 @@ class ContinuousBatchingEngine:
             padded = np.zeros((1, Tb), np.int32)
             padded[0, :T] = req.prompt
             mini = self._make_mini_cache(Tb)
-            last_logits, mini = _prefill_one(self.params, self.cfg, self._dev(padded), mini, T)
+            last_logits, mini = _prefill_one(self.params, self.cfg, self._dev(padded), mini, T, w4a8=self.scfg.w4a8)
             self._finish_admission(req, slot, mini, last_logits)
 
     def _step(self, on_token) -> None:
@@ -521,6 +524,7 @@ class ContinuousBatchingEngine:
             self.cache,
             torch.from_numpy(self.positions.copy()),
             *self._sampling_args(act),
+            w4a8=self.scfg.w4a8,
         )
         next_np = next_tokens.cpu().numpy()
         for slot in act:
@@ -562,6 +566,7 @@ class ContinuousBatchingEngine:
             self.scfg.spec_gamma,
             self.scfg.spec_ngram,
             self.scfg.eos_token_id,
+            w4a8=self.scfg.w4a8,
         )
         emit_np, el_np, toks_np, pos_np = emit.numpy(), el.numpy(), toks.numpy(), pos.numpy()
         for s in act:
@@ -596,6 +601,7 @@ class ContinuousBatchingEngine:
             steps,
             self.scfg.eos_token_id,
             *self._sampling_args(act),
+            w4a8=self.scfg.w4a8,
         )
         trace_np = trace.cpu().numpy()  # the one host read of the chunk
         pos_np, toks_np = pos.cpu().numpy(), toks.cpu().numpy()

@@ -234,3 +234,62 @@ def test_gptq_gemm_kernel_matches_plain(gen, M, K, N, bits, g, sdtype, xdtype):
     y = qmm2d.gptq_gemm(x, qw, sc, zr, bits, g).float()
     ref = qmm2d.gptq_gemm_plain(x, qw, sc, zr, bits, g).float()
     torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)
+
+
+def _a8_close(y, ref):
+    """Within one bf16 ulp of the plain version plus 1e-3 * max|y|."""
+    y, ref = y.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+    assert bool(((y - ref).abs() <= ulp + 1e-3 * ref.abs().max()).all()), float((y - ref).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantizer_kernel_is_bit_exact(gen, dtype):
+    x = (torch.randn((9, 1280), device="cuda", generator=gen) * 3).to(dtype)
+    x[2] = 0
+    for a, b in zip(qmm.quantize_rows_int8(x, 64), qmm.quantize_rows_int8_plain(x, 64)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("M,K,Np,g,norm", [(1, 1024, 512, 128, False), (8, 1280, 384, 64, True),
+                                           (20, 2048, 1024, 128, True), (32, 512, 640, 32, False)])
+def test_w4a8_planar_gemv_kernel_matches_plain(gen, M, K, Np, g, norm):
+    L = 2
+    qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((L, K // g, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+    zs = (sc.float() * 8).to(torch.bfloat16)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    nw = (torch.rand((L, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+    args = (x, qw, sc, zs, 1, nw, 1e-5)
+    _a8_close(qmm.w4a8_planar_gemv(*args), qmm.w4a8_planar_gemv_plain(*args))
+
+
+@pytest.mark.parametrize(
+    "M,K,N,bits,g,sdtype",
+    [(1, 512, 1000, 4, 128, torch.float16), (8, 1024, 640, 2, 64, torch.bfloat16),
+     (32, 4096, 384, 4, 128, torch.float32), (5, 256, 512, 4, 16, torch.float16)],
+)
+def test_gptq_w4a8_gemv_kernel_matches_plain(gen, M, K, N, bits, g, sdtype):
+    qw, sc, zr = _gptq(gen, K, N, bits, g, sdtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    _a8_close(qmm2d.gptq_w4a8_gemv(x, qw, sc, zr, bits, g), qmm2d.gptq_w4a8_gemv_plain(x, qw, sc, zr, bits, g))
+
+
+def test_gptq_w4a8_gemv_rows_do_not_depend_on_m(gen):
+    """Batch invariance, as K9's: a row alone (M = 1) and inside M = 8 give
+    the same bits (the engine's bucket-length requests rely on it)."""
+    for bits in (2, 4):
+        qw, sc, zr = _gptq(gen, 4096, 4096, bits, 128)
+        x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+        y8 = qmm2d.gptq_w4a8_gemv(x, qw, sc, zr, bits, 128)
+        for m in (0, 5):
+            assert torch.equal(qmm2d.gptq_w4a8_gemv(x[m : m + 1], qw, sc, zr, bits, 128)[0], y8[m]), (bits, m)
+
+
+def test_stream_pass_kernel_is_exact(gen):
+    from qllm_tpu_torch.ops import stream_bench
+
+    words = torch.randint(0, 255, (3, 512, 2200), dtype=torch.int32, device="cuda", generator=gen)
+    for layer, passes in ((0, 1), (2, 5)):
+        got = stream_bench.stream_pass(words, layer, passes)
+        assert torch.equal(got, stream_bench.stream_pass_plain(words, layer, passes))

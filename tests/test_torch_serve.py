@@ -234,10 +234,35 @@ def test_engine_speculative_eos_and_sampled_fallback():
     assert rg.output == greedy[0, len(pg) :].tolist() and len(rh.output) == 6
 
 
-def test_engine_w4a8_raises():
-    _, _, tcfg, tp = _model()
-    with pytest.raises(NotImplementedError, match="_qmm_kernel_w4a8"):
-        TEngine(tp, tcfg, ServeConfig(max_batch=1, max_seq=32, w4a8=True), device="cpu")
+def test_chunked_admission_window_past_the_admission_cache():
+    """max_seq 40 is not a multiple of prefill_chunk 16, so a 36-token
+    prompt's last chunk [32, 48) runs past the 40-row admission cache. The
+    port cuts that window to [32, 40) and serves the one-shot prefill's
+    tokens (JAX's greedy_generate on the same params). JAX's engine moves
+    the window back to [24, 40) instead (dynamic_update_slice clamps,
+    qllm_tpu/serve/engine.py:480-497) and writes the chunk's K/V over
+    prompt rows 24-31: recorded on the layer-0 keys, which hold each
+    row's own token alone, against a one-shot prefill's."""
+    jcfg, jp, tcfg, tp = _model()
+    prompt = _prompts(31, (36,))[0]
+    T, S, new = len(prompt), 40, 4
+    scfg = dict(max_batch=1, max_seq=S, prefill_chunk=16)
+    ref = np.asarray(j_greedy_generate(jp, jcfg, jnp.asarray(prompt[None]), new, max_seq=S))[0, T:].tolist()
+    teng = TEngine(tp, tcfg, ServeConfig(**scfg), device="cpu")
+    treq = teng.submit(prompt, new)
+    teng.run()
+    assert treq.output == ref
+
+    jeng = JEngine(jp, jcfg, JServeConfig(**scfg))
+    jeng.submit(prompt, new)
+    jeng.run()
+    _, one_shot = jllama.forward(jp, jcfg, jnp.asarray(prompt[None]), j_make_cache(jcfg, 1, S), pos=0)
+    k_ref = np.asarray(one_shot.k[0, 0, :, :T], np.int32)
+    k_jax = np.asarray(jeng.cache.k[0, 0, :, :T], np.int32)
+    k_port = teng.cache.k[0, 0, :, :T].numpy().astype(np.int32)
+    assert np.abs(k_port - k_ref).max() <= 1  # the same rows, up to one int8 step
+    assert np.array_equal(k_jax[:, :24], k_ref[:, :24])
+    assert np.abs(k_jax[:, 24:32] - k_ref[:, 24:32]).max() > 16  # rows 24-31 hold other tokens
 
 
 def test_engine_params_must_live_on_its_device():
