@@ -50,6 +50,18 @@ Phases, each of which fails the run on any error or disagreement:
      with bf16 and with int8 activations (K12 on the 4-bit layer, K9 on
      the 8-bit one); then 2 layers at Mixtral and at Qwen3 width, a short
      prompt and sparse steps: logits within tolerance, the same greedy ids;
+ 11. widths (after serve): the 7B geometry stacked at other widths
+     through the JAX package's routing: 2-bit g128 with f32 scales, 32
+     layers, batch-8 prefill of 128 tokens (the fallback's K10) and 32
+     greedy steps through K14 (v3); the same with bf16 scales (K14 v4)
+     and under W4A8 at batch 32 (K15), 4 layers; 3-bit g128, 32 layers,
+     f32 and bf16 scales, a batch-1 prompt of 32 tokens and 32 steps
+     through K16; 8-bit and 4-bit act-order stacks through the fallback
+     (K9 / K10) and a 4-bit planar=False stack through K14, 4 layers.
+     Each leg: launches asserted, tok/s, device busy share, peak GiB, the
+     streams against teacher-forced prefills (zero-mean weights at the
+     serve model's spread) and the first steps on the card against the
+     CPU's plain versions on the first 2 layers;
  10. w4a8 (run after main1, on its model): (a) bench.py's batch-32 decode
      leg: 32 prompts of 128 tokens prefilled once, then 64 greedy steps
      with bf16 activations (K1) and 64 from the same cache state with
@@ -596,6 +608,7 @@ def phase_kernels(torch, timer):
     rows.extend(gptq_rows(torch, timer, gen))
     rows.extend(a8_rows(torch, timer, gen, stack, dequant))
     rows.append(stream_row(torch, timer, gen))
+    rows.extend(stacked_rows(torch, timer, gen))
     return rows
 
 
@@ -2112,6 +2125,321 @@ def phase_w4a8(torch, K, card, model):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# widths: stacked serving at 2, 3, 8 bits, act-order and non-planar 4-bit
+# ---------------------------------------------------------------------------
+
+# K14-K16 rows: (kernel, bits, scale storage, fused) at the 7B stacked
+# projections, M = 1, 8, 32 at gate|up and down, M = 8 at qkv and lm_head,
+# on a stack of STACK_L layers, layer 1 (its control: the plain version of
+# layer 2)
+STACKED_VARIANTS = (
+    ("gptq_stacked_gemv", 2, "f32", False),  # v3
+    ("gptq_stacked_gemv", 2, "bf16", True),  # v4
+    ("gptq_stacked_w4a8_gemv", 2, "f32", False),
+    ("bitplane_stacked_gemv", 3, "f32", False),
+    ("bitplane_stacked_gemv", 3, "bf16", True),
+    ("bitplane_stacked_gemv", 5, "bf16", True),
+)
+STACKED_PROJ = (("qkv", 4096, 12288), ("gateup", 4096, 22016), ("down", 11008, 4096), ("lm_head", 4096, 32000))
+STACKED_TOL = 1e-2  # |y - plain| <= 1e-2 * max|plain| (tests/test_torch_qmm2d.py)
+STACK_L = 4
+# the widths legs: batch, prompt, steps, cache rows; batch-32 W4A8; the
+# odd widths' batch-1 prompt (M = 32: K16 prefills, as JAX's chip can);
+# depth of the short legs; depth of the card-vs-CPU cut and its prompt
+WIDTHS = dict(B=8, T=128, STEPS=32, MAX_SEQ=192, LAYERS=32, SHORT_LAYERS=4, B_A8=32, T_ODD=32,
+              CROSS_LAYERS=2, CROSS_B=2, CROSS_T=24)
+
+
+# the widths legs' card-vs-CPU bound on ||card - cpu|| / ||cpu|| of the
+# logits, with equal greedy ids. The plain versions round as the kernels
+# do and only the f32 summation order differs, but across two layers of
+# 7B width one-ulp bf16 flips of the activations put single logits of the
+# 2-bit model 0.19-0.23 apart (rel 1.0-1.1%, one H100; LOGIT_TOL's
+# elementwise 5e-2 is read, not held); a kernel that reads the wrong
+# layer or group misses this by a factor of tens
+WIDTHS_CROSS_REL = 3e-2
+
+
+def widths_scale(bits: int) -> float:
+    """The weight scale that gives a bits-wide model the serve model's
+    weight spread: uniform words spread sqrt((4^bits - 1) / 12) steps."""
+    std = lambda b: ((4.0**b - 1.0) / 12.0) ** 0.5  # noqa: E731
+    return SERVE_MODEL["WEIGHT_SCALE"] * std(4) / std(bits)
+
+
+def stacked_rows(torch, timer, gen):
+    """K14, K15 and K16 at the 7B stacked shapes against their plain
+    versions (1e-2 * max|plain|, the largest gap also in bf16 ulps of the
+    plain output), with a control: the same kernel output against the
+    plain version of the next layer must miss the limit. Library time:
+    torch.matmul on the layer dequantized to bf16."""
+    from qllm_tpu_torch.ops import qmm, qmm_stacked as qs
+    from qllm_tpu_torch.quant.qtensor import unpack_rows
+
+    rows = []
+    for kname, bits, sd, fused in STACKED_VARIANTS:
+        dtype = torch.float32 if sd == "f32" else torch.bfloat16
+        for pname, Kf, N in STACKED_PROJ:
+            Np = -(-N // 512) * 512
+            G = Kf // 128
+            qw = torch.randint(-(2**31), 2**31, (STACK_L, Kf * bits // 32, Np), dtype=torch.int32, device=DEV,
+                               generator=gen)
+            sc = (torch.rand((STACK_L, G, Np), device=DEV, generator=gen) + 0.5) * widths_scale(bits)
+            zs = (sc * ((1 << bits) / 2.0 - 0.5)).to(dtype)
+            sc = sc.to(dtype)
+            w = ((unpack_rows(qw[1], bits, Kf).float().reshape(G, 128, Np) * sc[1].float()[:, None]
+                  - zs[1].float()[:, None]).reshape(Kf, Np).to(torch.bfloat16))
+            for M in ((1, 8, 32) if pname in ("gateup", "down") else (8,)):
+                x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+                if kname == "gptq_stacked_w4a8_gemv":
+                    x8, _, _ = qmm.quantize_rows_int8(x, 128)
+                    args = lambda layer: (x8, qw, sc, layer, bits, 128)  # noqa: E731
+                else:
+                    args = lambda layer: (x, qw, sc, zs, layer, bits, 128, fused)  # noqa: E731
+                in_bytes = args(1)[0].numel() * args(1)[0].element_size()
+                fn, plain = getattr(qs, kname), getattr(qs, kname + "_plain")
+                y = fn(*args(1))
+                torch.cuda.synchronize()
+                ref = plain(*args(1)).float()
+                yf = y.float()
+                scale = float(ref.abs().max())
+                err = float((yf - ref).abs().max())
+                ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+                err_ulps = float(((yf - ref).abs() / ulp).max())
+                control = float((yf - plain(*args(2)).float()).abs().max())
+                limit = STACKED_TOL * scale
+                ok = err <= limit < control
+                ms = timer(lambda: fn(*args(1)))
+                plain_ms = timer(lambda: plain(*args(1)), reps=5, warmup=1)
+                lib_ms = timer(lambda: torch.matmul(x, w))
+                # the function's bytes: the layer's words and scales (and zs
+                # when fused), x in, y out (bf16 fused, else f32)
+                nbytes = (qw[1].numel() * 4 + sc[1].numel() * sc.element_size() * (2 if fused else 1)
+                          + in_bytes + M * Np * (2 if fused else 4))
+                b_ms, b_by = bound(nbytes, 2.0 * M * Kf * Np, PEAK_INT8 if "w4a8" in kname else PEAK_BF16)
+                case = f"{pname} K={Kf} N={Np} M={M} {bits}-bit {sd} scales" + (" fused" if fused else "")
+                rows.append(dict(kernel=kname, case=case, max_abs_err=err, max_err_bf16_ulps=err_ulps,
+                                 tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control, ok=bool(ok),
+                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                log(f"[kernel] {json.dumps(rows[-1])}")
+                if not ok:
+                    raise AssertionError(f"{kname} {case}: max_abs_err {err}, limit {limit}, control {control}")
+            del qw, sc, zs, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def widths_model(torch, bits, layers, scale_dtype, planar=True, act_order=False, seed=30):
+    """A Llama-2-7B-shape model at ``bits`` g128 (quantized lm_head), drawn
+    on the card with zero-mean weights at the serve model's spread and 8
+    lm_head columns scaled up 8x (serve_model), stacked for serving with
+    ``planar`` and ``scale_store_dtype``."""
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
+    from qllm_tpu_torch.utils.testing import random_quantized_params
+
+    cfg = ModelConfig(num_hidden_layers=layers, **SEVEN_B)
+    params = random_quantized_params(cfg, seed, bits=bits, group_size=128, quantize_lm_head=True, device=DEV,
+                                     scale=widths_scale(bits), centered=True, act_order=act_order)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    cols = torch.randperm(cfg.vocab_size, device=DEV, generator=gen)[: SERVE_MODEL["SEPARATE"]]
+    sc = params["lm_head"].scales
+    sc[:, cols] = (sc[:, cols].float() * SERVE_MODEL["SEPARATE_BY"]).to(sc.dtype)
+    sp = stack_layer_params(params, planar=planar, scale_store_dtype=scale_dtype)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=scale_dtype)
+    del params
+    torch.cuda.synchronize()
+    return cfg, sp
+
+
+def stream_check_chunked(torch, params, cfg, prompt, out, chunk):
+    """stream_check's teacher-forced reading in forwards of at most
+    ``chunk`` rows on one cache (an odd-width stack serves M <= 32 on the
+    card, as on JAX's chip)."""
+    from qllm_tpu_torch.models.generate import make_cache
+    from qllm_tpu_torch.models.llama import forward
+
+    ids = torch.tensor(list(prompt) + out[:-1], dtype=torch.int32, device=DEV)[None]
+    cache = make_cache(cfg, 1, ids.shape[1], device=DEV)
+    parts = []
+    with torch.no_grad():
+        for p0 in range(0, ids.shape[1], chunk):
+            lg, cache = forward(params, cfg, ids[:, p0 : p0 + chunk], cache, pos=p0)
+            parts.append(lg[0])
+    lf = torch.cat(parts)[len(prompt) - 1 :].float()
+    top = lf.max(dim=-1).values
+    mine = torch.gather(lf, 1, torch.tensor(out, device=DEV)[:, None].long())[:, 0]
+    gap = top - mine
+    return int((gap == 0).sum()), len(out), float((gap / (top.abs() + 1)).max())
+
+
+def widths_cross(torch, cfg, sp, B, T, w4a8):
+    """The first steps card against CPU on the first CROSS_LAYERS layers of
+    the same stacks: a prefill of B prompts of T tokens and one decode
+    step, held to the same greedy ids and ||card - cpu|| / ||cpu|| below
+    WIDTHS_CROSS_REL (W4A8's step: A8_MODEL_REL, as the cross phase's
+    engine leg); LOGIT_TOL is read. The CPU runs every kernel's plain
+    version, a 2-D fallback weight included (K9 / K10's, as cross_engine
+    does)."""
+    from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+    from qllm_tpu_torch.ops import _build
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    n = WIDTHS["CROSS_LAYERS"]
+    cut = {k: (v.map_arrays(lambda a: a[:n]) if isinstance(v, QuantizedTensor) else v[:n])
+           for k, v in sp["layers"].items()}
+    cut = {**sp, "layers": cut}
+    ccfg = dataclasses.replace(cfg, num_hidden_layers=n)
+    gen = torch.Generator()
+    gen.manual_seed(17)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, generator=gen)
+    use_kernel = _build.use_kernel
+    logits = {}
+    for side, params in (("cuda", cut), ("cpu", _to_cpu(cut))):
+        dev = DEV if side == "cuda" else "cpu"
+        if side == "cpu":
+            _build.use_kernel = lambda t, name: name == "qmatmul" or use_kernel(t, name)
+        try:
+            cache = make_cache(ccfg, B, T + 8, device=dev)
+            lg0, cache = prefill(params, ccfg, prompts, cache, device=dev)
+            tok = torch.argmax(lg0.float().cpu(), dim=-1).to(torch.int32)[:, None] if side == "cuda" else tok
+            lg1, _ = decode_step(params, ccfg, tok, cache, T, device=dev, w4a8=w4a8)
+        finally:
+            _build.use_kernel = use_kernel
+        logits[side] = (lg0.float().cpu(), lg1.float().cpu())
+    res = {}
+    for i, name in enumerate(("prefill", "step")):
+        a, b = logits["cuda"][i], logits["cpu"][i]
+        res[f"{name}_max_abs_err"] = float((a - b).abs().max())
+        res[f"{name}_rel_err"] = float((a - b).norm() / b.norm())
+        res[f"{name}_within_tol"] = bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL))
+        res[f"{name}_same_ids"] = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    ok = (res["prefill_rel_err"] < WIDTHS_CROSS_REL and res["prefill_same_ids"]
+          and (res["step_rel_err"] < A8_MODEL_REL if w4a8 else
+               res["step_rel_err"] < WIDTHS_CROSS_REL and res["step_same_ids"]))
+    return res, ok
+
+
+def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=None):
+    """One widths leg: B prompts of T tokens prefilled (a16) into a fresh
+    int8 cache and ``steps`` greedy steps (``w4a8`` as given), with every
+    count set to 0 just before and the launches asserted; tok/s, the device
+    busy share of 4 warm steps, peak GiB; the streams against teacher-forced
+    prefills (check_streams' limits; ``chunk``: in forwards of that many
+    rows); and the first steps card against CPU on a cut of the stacks."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import make_cache, prefill
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, device=DEV, generator=gen)
+    for fn in K.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cache = make_cache(cfg, B, T + steps + 8, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, cfg, prompts, cache, device=DEV)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    mark = counts(K)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    t0 = time.perf_counter()
+    toks, cache = decode_loop(sp, cfg, first, cache, T, steps, device=DEV, w4a8=w4a8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = counts(K)
+    per_phase = {"prefill": mark, "decode": delta(mark, total)}
+    log(f"[widths] {tag}: launches per phase {json.dumps({p: {k: v for k, v in c.items() if v} for p, c in per_phase.items()})}")
+    check_launches(per_phase, expected)
+    lf = logits.float()
+    if not bool(torch.isfinite(lf).all()) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"widths {tag}: logits not finite or ids out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + steps, steps=4, w4a8=w4a8)
+    del cache
+    streams = [(prompts[b].tolist(), [int(first[b, 0])] + toks[b].tolist()) for b in range(B)]
+    if chunk is None:
+        reads = [stream_check(torch, sp, cfg, p, o) for p, o in streams]
+    else:
+        reads = [stream_check_chunked(torch, sp, cfg, p, o, chunk) for p, o in streams]
+    e, n, w = zip(*reads)
+    stats = {"argmax_share": sum(e) / sum(n), "tokens": sum(n), "worst_gap_share": max(w)}
+    cross, cross_ok = widths_cross(torch, cfg, sp, min(B, WIDTHS["CROSS_B"]), min(T, WIDTHS["CROSS_T"]), w4a8)
+    res = {
+        "config": f"Llama-2-7B shape, {cfg.num_hidden_layers} layers, {tag}; B={B}, T={T} prefill, {steps} "
+        f"greedy steps" + (" (w4a8)" if w4a8 else ""),
+        "prefill_ms": prefill_ms,
+        "decode_tok_s": B * steps / dt,
+        "decode_ms_per_step": dt / steps * 1e3,
+        **busy,
+        "peak_mem_gib": peak,
+        "launches_per_step": {k: v / steps for k, v in per_phase["decode"].items() if v},
+        "streams_against_teacher_forced_prefills": stats,
+        f"card_vs_cpu_{WIDTHS['CROSS_LAYERS']}_layers": cross,
+    }
+    log(f"[widths] {tag}: {json.dumps(res)}")
+    # int8 activations differ from bf16 by more than rounding: their streams
+    # are read against the a16 prefills, not held (phase_w4a8)
+    if not w4a8 and (stats["argmax_share"] < STREAM_EXACT or stats["worst_gap_share"] > STREAM_GAP):
+        raise AssertionError(f"widths {tag}: streams outside the teacher-forced limits {stats}")
+    if not cross_ok:
+        raise AssertionError(f"widths {tag}: card vs CPU {cross}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_widths(torch, K):
+    """Stacked serving at every width on the 7B geometry (each leg through
+    widths_leg): 2-bit g128 with f32 scales at full depth (prefill through
+    the fallback's K10, decode through K14 v3), with bf16 scales (K14 v4)
+    and under W4A8 at batch 32 (K15); 3-bit g128 at full depth with both
+    scale storages (K16 unfused and fused; batch 1, a 32-token prompt);
+    8-bit and 4-bit act-order stacks through the fallback (K9 / K10) and a
+    4-bit planar=False stack through K14."""
+    W = WIDTHS
+    L, S = W["LAYERS"], W["STEPS"]
+    Ls = W["SHORT_LAYERS"]
+    runs = {}
+
+    def leg(name, bits, layers, sd, B, T, expected, planar=True, act_order=False, w4a8=False, chunk=None):
+        t0 = time.time()
+        cfg, sp = widths_model(torch, bits, layers, sd, planar=planar, act_order=act_order)
+        runs[f"widths_{name}"] = widths_leg(torch, K, name, cfg, sp, B, T, S, expected, w4a8=w4a8, chunk=chunk)
+        del sp
+        torch.cuda.empty_cache()
+        log(f"[time] widths {name} {time.time() - t0:.1f} s")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, ns = 4 * L + 1, 4 * Ls + 1
+    att = lambda layers: {"kv_write_int8": layers * S, "decode_attn_int8": layers * S}  # noqa: E731
+    leg("w2_g128_f32", 2, L, f32, W["B"], W["T"], {
+        "prefill": {"gptq_gemm": n, "gptq_stacked_gemv": 0},
+        "decode": {"gptq_stacked_gemv": n * S, "gptq_gemv": 0, **att(L)}})
+    leg("w2_g128_bf16", 2, Ls, bf16, W["B"], W["T"], {
+        "prefill": {"gptq_gemm": ns}, "decode": {"gptq_stacked_gemv": ns * S, **att(Ls)}})
+    leg("w2_g128_f32_w4a8_b32", 2, Ls, f32, W["B_A8"], W["T"], {
+        "prefill": {"gptq_gemm": ns, "gptq_stacked_w4a8_gemv": 0},
+        "decode": {"gptq_stacked_w4a8_gemv": ns * S, "gptq_stacked_gemv": 0, **att(Ls)}}, w4a8=True)
+    for sd, tag in ((f32, "f32"), (bf16, "bf16")):
+        leg(f"w3_g128_{tag}_b1", 3, L, sd, 1, W["T_ODD"], {
+            "prefill": {"bitplane_stacked_gemv": n, "gptq_gemm": 0},
+            "decode": {"bitplane_stacked_gemv": n * S, **att(L)}}, chunk=W["T_ODD"])
+    leg("w8_g128_bf16", 8, Ls, bf16, W["B"], W["T"], {
+        "prefill": {"gptq_gemm": ns}, "decode": {"gptq_gemv": ns * S, "gptq_stacked_gemv": 0}})
+    # act-order: no q/k/v or gate/up fusion (7 projections a layer); the
+    # lm_head (no perm) stays planar: K2 / K1
+    leg("w4_g128_act_order", 4, Ls, bf16, W["B"], W["T"], {
+        "prefill": {"gptq_gemm": 7 * Ls, "w4_planar_gemm": 1},
+        "decode": {"gptq_gemv": 7 * Ls * S, "w4_planar_gemv": S}}, act_order=True)
+    leg("w4_g128_nonplanar", 4, Ls, bf16, W["B"], W["T"], {
+        "prefill": {"gptq_gemm": 4 * Ls, "w4_planar_gemm": 1},
+        "decode": {"gptq_stacked_gemv": 4 * Ls * S, "w4_planar_gemv": S, "planarize_w4": 0}}, planar=False)
+    return runs
+
+
 KERNEL_META = {
     "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
@@ -2130,12 +2458,19 @@ KERNEL_META = {
     "w4a8_planar_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "gptq_w4a8_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:239"),
     "stream_pass": ("qllm_tpu_torch/csrc/stream.cu", "qllm_tpu/ops/stream_bench.py:26"),
+    # v3 (:476); with bf16 scales the fused v4 (:514)
+    "gptq_stacked_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:476"),
+    "gptq_stacked_w4a8_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:584"),
+    "bitplane_stacked_gemv": ("qllm_tpu_torch/csrc/bitplane.cu", "qllm_tpu/ops/pallas_qmm.py:676"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
             "w4_grouped_gemv": "mixtral gateup", "gptq_gemv": "gate/up K=4096 N=11008 M=8 4-bit",
             "gptq_gemm": "gate/up K=4096 N=11008 M=256 4-bit", "w4a8_planar_gemv": "gateup K=4096 N=22016 M=32",
-            "gptq_w4a8_gemv": "gate/up K=4096 N=11008 M=8 4-bit"}
+            "gptq_w4a8_gemv": "gate/up K=4096 N=11008 M=8 4-bit",
+            "gptq_stacked_gemv": "gateup K=4096 N=22016 M=8 2-bit f32",
+            "gptq_stacked_w4a8_gemv": "gateup K=4096 N=22016 M=32 2-bit",
+            "bitplane_stacked_gemv": "gateup K=4096 N=22016 M=1 3-bit f32"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
 # launches on the long path
@@ -2159,7 +2494,8 @@ def summary_entry(name, replaces, launches, mine, headline=""):
         "library_ms": head.get("library_ms"),
         "shape": head.get("case"),
     }
-    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv"):
+    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
+                                  "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
     return entry
@@ -2167,7 +2503,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,widths,moe,long,moe_qwen3,cross",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2187,7 +2523,7 @@ def main() -> int:
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, repack, stream_bench
+    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, qmm_stacked, repack, stream_bench
 
     K = {
         "w4_planar_gemv": qmm.w4_planar_gemv,
@@ -2204,6 +2540,9 @@ def main() -> int:
         "w4a8_planar_gemv": qmm.w4a8_planar_gemv,
         "gptq_w4a8_gemv": qmm2d.gptq_w4a8_gemv,
         "stream_pass": stream_bench.stream_pass,
+        "gptq_stacked_gemv": qmm_stacked.gptq_stacked_gemv,
+        "gptq_stacked_w4a8_gemv": qmm_stacked.gptq_stacked_w4a8_gemv,
+        "bitplane_stacked_gemv": qmm_stacked.bitplane_stacked_gemv,
     }
     t_start = time.time()
     t0 = time.time()
@@ -2238,6 +2577,10 @@ def main() -> int:
     if "serve" in phases:
         runs.update(phase_serve(torch, K, card))
     log(f"[time] serve {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "widths" in phases:
+        runs.update(phase_widths(torch, K))
+    log(f"[time] widths {time.time() - t0:.1f} s")
     t0 = time.time()
     if "moe" in phases or "long" in phases:
         cfg, sp, runs["moe_load"] = load_moe(torch, K, "Mixtral-8x7B", MIXTRAL)

@@ -22,6 +22,33 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// an activation stored as f32 (x_f32 = 1) or bf16, as f32
+__device__ __forceinline__ float load_x(const void* x, int x_f32, size_t i) {
+  if (x_f32) return static_cast<const float*>(x)[i];
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+}
+
+// `p` advanced by `i` elements of a parameter stored as type 0 (f32), 1
+// (fp16) or 2 (bf16)
+inline const void* param_offset(const void* p, int type, size_t i) {
+  return static_cast<const char*>(p) + i * (type == 0 ? 4 : 2);
+}
+
+// The partial sums of K-split GEMV blocks, part [splits, MN], added in
+// split order and written as bf16 (out_bf16 = 1) or f32: a row's result
+// depends on the split count alone, never on M
+static __global__ void split_sum_out_kernel(const float* __restrict__ part, int splits, int MN, int out_bf16,
+                                            void* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * MN + i];
+  if (out_bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(acc);
+  else
+    static_cast<float*>(out)[i] = acc;
+}
+
 // a scale or zero point stored as f32 (type 0), fp16 (1) or bf16 (2), as f32
 __device__ __forceinline__ float load_param(const void* p, int type, size_t i) {
   if (type == 0) return __ldg(static_cast<const float*>(p) + i);

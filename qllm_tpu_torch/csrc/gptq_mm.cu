@@ -13,11 +13,6 @@
 
 namespace {
 
-__device__ __forceinline__ float load_x(const void* x, int x_f32, size_t i) {
-  if (x_f32) return static_cast<const float*>(x)[i];
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-}
-
 // ---------------------------------------------------------------------------
 // K9 gptq_gemv (decode, M <= 32).
 //
@@ -122,16 +117,6 @@ __global__ void __launch_bounds__(kGemvThreads)
   }
 }
 
-// the splits' partial sums added in split order, rounded to bf16
-__global__ void split_sum_kernel(const float* __restrict__ part, int splits, int MN,
-                                 __nv_bfloat16* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * MN + i];
-  out[i] = __float2bfloat16_rn(acc);
-}
-
 template <int BITS, int MT>
 void launch_gemv_mt(dim3 grid, cudaStream_t st, const void* x, int x_f32, const uint32_t* qw, const void* sc,
                     const void* zr, int s_type, int M, int K, int N, int g, int rps, float* part,
@@ -182,7 +167,7 @@ QLLM_API int qllm_gptq_gemv(const void* x, int x_f32, const void* qweight, const
     launch_gemv_bits<8>(grid, st, x, x_f32, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
   if (splits > 1) {
     const int MN = M * N;
-    split_sum_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, o);
+    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, 1, o);
   }
   return qllm_launch_status();
 }

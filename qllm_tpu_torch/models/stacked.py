@@ -2,17 +2,21 @@
 ``qllm_tpu/models/stacked.py``).
 
 ``stack_layer_params`` replaces the per-layer list with one dict of
-[L]-leading leaves and prepares every quantized stack for serving: q/k/v
-and gate/up fused column-wise, out-features padded to a multiple of 512,
-4-bit words relaid out planar (kernel K4 on the card), zero points
-pre-folded to ``zs = zeros * scales`` and scales stored bf16: the one
-layout the CUDA matmul kernels take.
-The stacked buffers are bit-identical to the JAX package's.
+[L]-leading leaves and prepares every quantized stack for serving
+(``prepare_stacked_tensor``): q/k/v and gate/up fused column-wise where
+they share their quantization, out-features padded to a multiple of 512,
+4-bit words without act-order relaid out planar (kernel K4 on the card)
+where the geometry admits it, every other stack (2/3/5/6/7/8 bits,
+act-order, ``planar=False``) kept in its packed GPTQ-order or bit-plane
+words, zero points pre-folded to ``zs = zeros * scales`` and scales / zs
+stored in ``scale_store_dtype``. The stacked buffers are bit-identical to
+the JAX package's for the same options.
 
 ``forward_stacked`` walks the layers in a Python loop (the JAX package's
 ``lax.scan`` over layer indices); every quantized matmul reads its layer
 straight out of the stack (ops.qmm.qmatmul_stacked), and the pre-matmul
-RMSNorms ride into the decode matmul kernel (NormedX).
+RMSNorms ride into the decode matmul kernel (NormedX) or run just before
+it.
 
 MoE models take ``stack_layer_params_hybrid``: the attention projections,
 norms and routers stack to [L] leaves as above, and the experts, stacked
@@ -29,7 +33,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..ops.qmm import _kernel_geometry_ok, _rms_norm_rows, planar_bk, planar_full_ok, qmatmul_stacked
+from ..ops.qmm import _rms_norm_rows, planar_bk, planar_full_ok, qmatmul_stacked
 from ..ops.repack import planarize_w4
 from ..quant.qtensor import (
     QuantizedTensor,
@@ -164,12 +168,20 @@ def _stack_qt(vals) -> QuantizedTensor:
 
 
 LANE_QUANTUM = 512
+# The port's default scale storage: bf16, the layout its planar kernels
+# take (bench.py:417 serves it too). The JAX package's default is f32,
+# whose planar stacks run _qmm_kernel_planar (pallas_qmm.py:999), not yet
+# ported: scale_store_dtype=torch.float32 is taken for every stack that
+# does not become planar.
+SCALE_STORE_DTYPE = torch.bfloat16
 
 
-def stack_layer_params(params: Dict[str, Any]) -> Dict[str, Any]:
+def stack_layer_params(
+    params: Dict[str, Any], planar: bool = True, scale_store_dtype: torch.dtype = SCALE_STORE_DTYPE
+) -> Dict[str, Any]:
     """Replace the per-layer list with one dict of [L, ...] leaves, every
-    quantized stack in the serving layout the CUDA matmul kernels take
-    (``prepare_stacked_tensor``)."""
+    quantized stack in its serving layout (``prepare_stacked_tensor`` with
+    ``planar`` and ``scale_store_dtype``)."""
     if not is_stackable(params):
         raise ValueError(
             "params are not stackable (heterogeneous layers or MoE); use the "
@@ -180,7 +192,7 @@ def stack_layer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     for k in list(layers[0].keys()):
         vals = [lp[k] for lp in layers]
         if isinstance(vals[0], QuantizedTensor):
-            prepared[k] = prepare_stacked_tensor(_stack_qt(vals))
+            prepared[k] = prepare_stacked_tensor(_stack_qt(vals), planar=planar, scale_store_dtype=scale_store_dtype)
         else:
             prepared[k] = torch.stack(vals)
     out = dict(params)
@@ -188,25 +200,37 @@ def stack_layer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def prepare_stacked_tensor(node: QuantizedTensor, lane_quantum: int = LANE_QUANTUM) -> QuantizedTensor:
-    """Serving prep for one [L]-stacked QuantizedTensor: out-features
-    padded to a multiple of ``lane_quantum`` (512; narrow expert stacks
-    take 128, models.moe), 4-bit words relaid out planar (K4 on the
-    card), zero points pre-folded to ``zs = zeros * scales`` and scales /
-    zs stored bf16 (the JAX package's ``scale_store_dtype=bfloat16``)."""
+def prepare_stacked_tensor(
+    node: QuantizedTensor,
+    lane_quantum: int = LANE_QUANTUM,
+    planar: bool = True,
+    scale_store_dtype: torch.dtype = SCALE_STORE_DTYPE,
+) -> QuantizedTensor:
+    """Serving prep for one [L]-stacked QuantizedTensor, the JAX package's
+    semantics: out-features padded to a multiple of ``lane_quantum`` (512;
+    narrow expert stacks take 128, models.moe); with ``planar``, 4-bit
+    words without act-order relaid out planar (K4 on the card) where the
+    planar kernels admit the geometry (``planar_bk`` or ``planar_full_ok``);
+    every other stack keeps its packed words; zero points pre-folded to
+    ``zs = zeros * scales`` (in f32) and scales / zs stored in
+    ``scale_store_dtype``. The JAX package's tuned wider padding
+    (ops.autotune.padded_width_hint) holds TPU measurements and is not
+    ported.
+
+    A planar stack with f32 scales would run ``_qmm_kernel_planar``
+    (pallas_qmm.py:999), not yet ported: it raises NotImplementedError."""
     g = node.effective_group_size
     K = node.in_features
-    if not (
-        node.bits == 4
+    is_planar = (
+        planar
+        and node.bits == 4
         and node.perm is None
         and (planar_bk(K, g) is not None or planar_full_ok(K, g))
-        and _kernel_geometry_ok(K, g)
-    ):
+    )
+    if is_planar and scale_store_dtype == torch.float32:
         raise NotImplementedError(
-            f"the serving stack is 4-bit planar without act-order (bits={node.bits}, "
-            f"K={K}, g={g}, perm={node.perm is not None}); GPTQ-order and odd-bit "
-            "stacks need _qmm_kernel_v3/v4_stacked and _qmm_kernel_odd_stacked "
-            "(qllm_tpu/ops/pallas_qmm.py:476, :514, :676), not yet ported"
+            "a planar stack with f32 scales runs _qmm_kernel_planar (qllm_tpu/ops/pallas_qmm.py:999), "
+            "not yet ported; use scale_store_dtype=torch.bfloat16 or planar=False"
         )
     scales = node.scales.to(torch.float32)
     zeros = node.zeros.to(torch.float32)
@@ -219,26 +243,30 @@ def prepare_stacked_tensor(node: QuantizedTensor, lane_quantum: int = LANE_QUANT
         zeros = torch.nn.functional.pad(zeros, (0, pad))
     return dataclasses.replace(
         node,
-        qweight=planarize_w4(qweight, K),
-        scales=scales.to(torch.bfloat16),
-        zeros=(zeros * scales).to(torch.bfloat16),
-        planar=True,
+        qweight=planarize_w4(qweight, K) if is_planar else qweight,
+        scales=scales.to(scale_store_dtype),
+        zeros=(zeros * scales).to(scale_store_dtype),
+        planar=is_planar,
         zeros_prefolded=True,
     )
 
 
-def prepare_lm_head(qt: QuantizedTensor) -> QuantizedTensor:
+def prepare_lm_head(qt: QuantizedTensor, scale_store_dtype: torch.dtype = SCALE_STORE_DTYPE) -> QuantizedTensor:
     """Serving prep for a quantized lm_head as an L=1 stack (ops.qmatmul
-    routes 3-D tensors through the stacked kernels with layer 0)."""
-    return prepare_stacked_tensor(qt.map_arrays(lambda a: a[None]))
+    routes 3-D tensors through the stacked kernels with layer 0); an
+    act-order head stays 2-D, as in the JAX package."""
+    if qt.perm is not None:
+        return qt
+    return prepare_stacked_tensor(qt.map_arrays(lambda a: a[None]), scale_store_dtype=scale_store_dtype)
 
 
 def unstack_layer_params(
     params: Dict[str, Any], n_layers: int, cfg: ModelConfig = None
 ) -> Dict[str, Any]:
-    """Inverse of stack_layer_params: per-layer list with the lane padding
-    stripped and fused projections split back (``cfg`` gives the split
-    boundaries)."""
+    """Inverse of stack_layer_params: per-layer list with planar words
+    unplanarized, zs un-prefolded (zeros = zs / scales in f32), the lane
+    padding stripped, the act-order perm sliced and fused projections
+    split back (``cfg`` gives the split boundaries)."""
     stacked = params["layers"]
 
     def split_fused(lp):
@@ -261,13 +289,19 @@ def unstack_layer_params(
         for k, v in stacked.items():
             if isinstance(v, QuantizedTensor):
                 N = v.out_features
-                qw = unplanarize_packed(v.qweight[i], v.in_features)
+                qw = v.qweight[i]
+                if v.planar:
+                    qw = unplanarize_packed(qw, v.in_features)
                 scales = v.scales[i, :, :N].to(torch.float32)
+                zeros = v.zeros[i, :, :N].to(torch.float32)
+                if v.zeros_prefolded:
+                    zeros = zeros / scales
                 lp[k] = dataclasses.replace(
                     v,
                     qweight=qw[:, :N].contiguous(),
                     scales=scales,
-                    zeros=v.zeros[i, :, :N].to(torch.float32) / scales,
+                    zeros=zeros,
+                    perm=None if v.perm is None else v.perm[i],
                     planar=False,
                     zeros_prefolded=False,
                 )

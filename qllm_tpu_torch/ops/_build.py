@@ -57,6 +57,9 @@ _SIGNATURES = {
     "qllm_w4a8_planar_gemv": [_P, _I] + [_P] * 6 + [_I, _F, _P] + [_I] * 6 + [_P],
     "qllm_gptq_w4a8_gemv": [_P, _I] + [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_P],
     "qllm_stream_pass": [_P, _P] + [_I] * 5 + [_P],
+    "qllm_gptq_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
+    "qllm_gptq_stacked_w4a8_gemv": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
+    "qllm_bitplane_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,25 +1,27 @@
-"""Planar W4 matmul on [L]-stacked serving weights (the counterpart of
-the planar subset of ``qllm_tpu/ops/pallas_qmm.py``).
+"""Quantized matmul on [L]-stacked serving weights (the counterpart of
+``qmatmul_pallas_stacked`` in ``qllm_tpu/ops/pallas_qmm.py``).
 
 ``qmatmul_stacked(x, qt, layer)`` computes ``y = x @ dequant(qt[layer])``
-for the stacks ``models.stacked`` prepares: 4-bit planar words
-``[L, K/8, Np]``, bf16 scales and prefolded ``zs = zeros * scales``
-``[L, G, Np]``. Two hand-written CUDA kernels serve it:
+for the stacks ``models.stacked`` prepares, and takes the branch the JAX
+package's gate takes (``stacked_route``, pallas_qmm.py:1576-1664):
 
-  * K1 ``w4_planar_gemv`` (M <= 32, decode): per-group dots over the
-    integer nibbles on the tensor cores (exact products, f32 sums) with
-    the zero-point correction in-kernel, and the pre-matmul RMSNorm fused
-    in;
-  * K2 ``w4_planar_gemm`` (M > 32, prefill): dequantize to bf16 in
-    registers, bf16 tensor-core product with f32 accumulation; the
-    RMSNorm runs before it;
-  * K11 ``w4a8_planar_gemv`` (M <= 32 with ``w4a8=True``, where the JAX
-    package takes its full-K kernel): per-token int8 activations
-    (``quantize_rows_int8``, bit for bit the JAX package's) against the
-    nibbles in s8 x s8 -> s32 products on the tensor cores, the zero-point
-    term on the x8 sums, and the token scale applied last; the RMSNorm
-    that JAX runs before its a8 kernel (which fuses none) runs in K11's
-    quantizer prologue.
+  * 4-bit planar stacks ``[L, K/8, Np]`` with bf16 scales and prefolded
+    ``zs = zeros * scales`` ``[L, G, Np]``: K1 ``w4_planar_gemv`` (M <= 32,
+    decode: per-group dots over the integer nibbles on the tensor cores,
+    the zero-point correction and the pre-matmul RMSNorm in-kernel), K2
+    ``w4_planar_gemm`` (M > 32, prefill: dequantize to bf16 in registers,
+    bf16 tensor-core product; the RMSNorm runs before it), K11
+    ``w4a8_planar_gemv`` (M <= 32 with ``w4a8=True`` where the JAX package
+    takes its full-K kernel: per-token int8 activations,
+    ``quantize_rows_int8``, bit for bit the JAX package's, in s8 x s8 ->
+    s32 tensor-core products, the RMSNorm in K11's quantizer prologue);
+  * GPTQ-order 2/4-bit and bit-plane 3/5/6/7-bit stacks at M <= 32: K14,
+    K15 and K16 (``ops.qmm_stacked``), with what JAX computes outside its
+    kernels done here in torch: the pre-normalize, the f32 zero-point
+    correction of the unfused kernels and the int8 token scale;
+  * everything else (8 bits, act-order, M > 32 off the planar path): the
+    layer sliced out, un-prefolded, unplanarized and unpadded, through
+    ``ops.ref_matmul.qmatmul`` (K9 / K10 / K12 on the card).
 
 ``qmatmul_grouped_experts(x_rows, stack, ids)`` computes
 ``y[i] = x_rows[i] @ dequant(stack[ids[i]])`` for every MoE (token,
@@ -34,7 +36,9 @@ carry over: launch shapes are picked here in code.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +48,8 @@ from ..quant.qtensor import QuantizedTensor
 
 __all__ = [
     "qmatmul_stacked",
+    "stacked_route",
+    "odd_stacked_kernel_ok",
     "quantize_rows_int8",
     "quantize_rows_int8_plain",
     "w4a8_planar_gemv",
@@ -99,8 +105,6 @@ def planar_bk(K: int, g: int, target: int = 2048):
     because models.stacked decides planarization with it)."""
     if g <= 0 or K % (2 * g):
         return None
-    import math
-
     quantum = math.lcm(256, 16 * g)
     best = None
     for bk in range(quantum, K + 1, quantum):
@@ -131,6 +135,52 @@ def _kernel_geometry_ok(K: int, g: int) -> bool:
     """What K1 and K2 take: groups of a multiple of 32 values (whole
     32-value tiles of each half of K) and a group split at K/2."""
     return g > 0 and g % 32 == 0 and K % 64 == 0 and (K // 2) % g == 0
+
+
+def _choose_bk(K: int, g: int, pf: int, target: int) -> int:
+    """The JAX package's k-block for GPTQ-order words (pallas_qmm.py:101);
+    it decides whether the decode branch runs the per-group kernel (scale
+    after each group's dot) or the field-loop kernel (scale in the
+    weight)."""
+    quantum = 128 * pf if K // g == 1 else math.lcm(128 * pf, 8 * g)
+    best = None
+    for bk in range(quantum, K + 1, quantum):
+        if K % bk == 0 and bk <= target:
+            best = bk
+    return best if best is not None else K
+
+
+def _per_group_branch(K: int, g: int, bits: int) -> bool:
+    """The JAX gate's per-group geometry for 2/4-bit GPTQ-order words:
+    ``v3_ok`` of ``_qmm_2d`` at M <= 32 (pallas_qmm.py:355-360) and the
+    non-planar condition of ``qmatmul_pallas_stacked`` (:1657-1661)."""
+    if bits not in (2, 4):
+        return False
+    npar = 8 // bits
+    return _choose_bk(K, g, 32 // bits, 2048) % g == 0 and (g // npar) % 8 == 0
+
+
+def _choose_bk_odd(K: int, g: int, target: int):
+    """The JAX package's k-block for the bit-plane kernel, or None
+    (pallas_qmm.py:646): bk % g == 0, bk % 256 == 0, (bk // g) % 8 == 0,
+    else the full K when K % 256 == 0."""
+    if g <= 0 or K % 32 or K % g:
+        return None
+    quantum = math.lcm(256, 8 * g)
+    best = None
+    for bk in range(quantum, K + 1, quantum):
+        if K % bk == 0 and bk <= target:
+            best = bk
+    if best is None and K % 256 == 0:
+        best = K
+    return best
+
+
+def odd_stacked_kernel_ok(K: int, group_size: int) -> bool:
+    """Whether the JAX package serves a (K, g) odd-width stack with its
+    bit-plane kernel (pallas_qmm.py:668, the default k-block target)."""
+    g = K if group_size == -1 else group_size
+    return g % 8 == 0 and _choose_bk_odd(K, g, 2048) is not None
 
 
 def _planar_values(qw: torch.Tensor, K: int) -> torch.Tensor:
@@ -550,6 +600,77 @@ w4_grouped_gemv.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def stacked_route(qt_stacked: QuantizedTensor, M: int, w4a8: bool = False) -> str:
+    """The branch ``qmatmul_pallas_stacked`` takes for this stack at M rows
+    (pallas_qmm.py:1576-1664, with the JAX package's kernels forced as on
+    its chip), one of:
+
+      * "planar": K1 / K2 / K11 (a 4-bit planar stack in the geometry
+        they take, ``_kernel_geometry_ok``);
+      * "v3", "v4", "a8": 2/4-bit GPTQ-order words, M <= 32, the per-group
+        geometry; "v4" (K14 fused) for prefolded bf16-scale stacks, "a8"
+        (K15) under ``w4a8`` for the other prefolded ones, else "v3" (K14
+        unfused);
+      * "odd", "odd_fused": 3/5/6/7 bits, M <= 32, in the bit-plane
+        kernel's geometry (``odd_stacked_kernel_ok``); fused for prefolded
+        bf16-scale stacks (K16);
+      * "fallback": the layer through ``ops.ref_matmul.qmatmul``.
+
+    The JAX package's ``QLLM_TPU_FUSED_CORR_V3`` experiment switch is not
+    ported: a GPTQ-order stack fuses its correction when its scales are
+    stored bf16, as the JAX package's default does. A planar stack with
+    f32 scales (``_qmm_kernel_planar``, pallas_qmm.py:999) raises."""
+    bits = qt_stacked.bits
+    K = qt_stacked.in_features
+    g = qt_stacked.effective_group_size
+    bf16_scales = qt_stacked.scales.dtype != torch.float32
+    if qt_stacked.planar:
+        if not bf16_scales:
+            raise NotImplementedError(
+                "qmatmul_stacked: a planar stack with f32 scales runs _qmm_kernel_planar "
+                "(qllm_tpu/ops/pallas_qmm.py:999), not yet ported; stack with "
+                "scale_store_dtype=torch.bfloat16 (models.stacked.stack_layer_params)"
+            )
+        ok = bits == 4 and qt_stacked.perm is None and qt_stacked.zeros_prefolded and _kernel_geometry_ok(K, g)
+        return "planar" if ok else "fallback"
+    if qt_stacked.perm is not None or M > GEMV_MAX_M or bits not in (2, 3, 4, 5, 6, 7):
+        return "fallback"
+    fuse = qt_stacked.zeros_prefolded and bf16_scales
+    if bits in (3, 5, 6, 7):
+        if not odd_stacked_kernel_ok(K, qt_stacked.group_size):
+            return "fallback"
+        return "odd_fused" if fuse else "odd"
+    if not _per_group_branch(K, g, bits):
+        return "fallback"
+    if fuse:
+        return "v4"
+    return "a8" if w4a8 and qt_stacked.zeros_prefolded else "v3"
+
+
+def _stacked_fallback(x, qt_stacked, layer, norm_w, norm_eps, w4a8):
+    """``qmatmul_pallas_stacked``'s fallback (pallas_qmm.py:1665-1728): the
+    layer sliced out, zeros un-prefolded (zs / scales in the stored
+    dtype), planar words unplanarized, the lane padding stripped, x
+    pre-normalized, then the per-layer ``qmatmul``."""
+    from ..quant.qtensor import unplanarize_packed
+    from .ref_matmul import qmatmul
+
+    if norm_w is not None:
+        x = _rms_norm_rows(x, norm_w[layer], norm_eps)
+    qt = qt_stacked.map_arrays(lambda a: a[layer])
+    if qt_stacked.zeros_prefolded:
+        qt = dataclasses.replace(qt, zeros=qt.zeros / qt.scales, zeros_prefolded=False)
+    if qt_stacked.planar:
+        qt = dataclasses.replace(qt, qweight=unplanarize_packed(qt.qweight, qt.in_features), planar=False)
+    N = qt.out_features
+    if qt.qweight.shape[-1] != N:
+        qt = dataclasses.replace(
+            qt, qweight=qt.qweight[:, :N].contiguous(), scales=qt.scales[:, :N].contiguous(),
+            zeros=qt.zeros[:, :N].contiguous(),
+        )
+    return qmatmul(x, qt, w4a8=w4a8)
+
+
 def qmatmul_stacked(
     x: torch.Tensor,
     qt_stacked: QuantizedTensor,
@@ -558,65 +679,78 @@ def qmatmul_stacked(
     norm_eps: float = 1e-6,
     w4a8: bool = False,
 ) -> torch.Tensor:
-    """y = x @ dequant(stack[layer]) for a planar, zs-prefolded, bf16-scale
-    4-bit stack (the counterpart of ``qmatmul_pallas_stacked``).
+    """y = x @ dequant(stack[layer]) for a stack ``models.stacked`` prepared
+    (the counterpart of ``qmatmul_pallas_stacked``), through the branch
+    ``stacked_route`` names.
 
     ``norm_w`` ([L, K] stacked RMSNorm weights): compute
-    ``rms_norm(x, norm_w[layer]) @ W``, fused into K1 at M <= 32 and
-    applied before K2 at M > 32. ``w4a8``: int8 activations (K11) where
-    the JAX package's W4A8 takes them, M <= 32 in the full-K geometry
-    (``a8_full_k_ok``), the norm applied first (in K11's prologue, as the
-    JAX package applies it before its a8 kernel); every other call keeps
-    K1 / K2. x: [..., K] -> [..., N] in x.dtype."""
+    ``rms_norm(x, norm_w[layer]) @ W``, fused into K1 (planar, M <= 32) and
+    K11, applied before every other kernel. ``w4a8``: int8 activations
+    where the JAX package's W4A8 takes them: K11 on planar stacks at M <=
+    32 in the full-K geometry (``a8_full_k_ok``), K15 on prefolded f32-scale
+    2/4-bit GPTQ-order stacks, K12 in the fallback; every other call keeps
+    bf16 / f32 activations. x: [..., K] -> [..., N] in x.dtype."""
     K, N = qt_stacked.in_features, qt_stacked.out_features
-    g = qt_stacked.effective_group_size
-    if not (
-        qt_stacked.bits == 4
-        and qt_stacked.planar
-        and qt_stacked.zeros_prefolded
-        and qt_stacked.perm is None
-        and qt_stacked.scales.dtype == torch.bfloat16
-        and _kernel_geometry_ok(K, g)
-    ):
-        raise NotImplementedError(
-            "qmatmul_stacked serves 4-bit planar stacks with bf16 scales and "
-            "prefolded zeros (models.stacked.stack_layer_params) "
-            f"whose groups of a multiple of 32 split at K/2 (K={K}, g={g}); f32-scale "
-            "stacks (_qmm_kernel_planar, pallas_qmm.py:999), GPTQ-order stacks "
-            "(_qmm_kernel_v3/v4_stacked, :476/:514) and odd bits "
-            "(_qmm_kernel_odd_stacked, :676) are not yet ported"
-        )
     lead = x.shape[:-1]
     M = 1
     for d in lead:
         M *= d
+    route = stacked_route(qt_stacked, M, w4a8)
+    if route == "fallback":
+        return _stacked_fallback(x, qt_stacked, layer, norm_w, norm_eps, w4a8).to(x.dtype)
+    g = qt_stacked.effective_group_size
     x2 = x.reshape(M, K)
     Np = qt_stacked.qweight.shape[-1]
-    if w4a8 and M <= GEMV_MAX_M and a8_full_k_ok(K, g, Np):
-        y = w4a8_planar_gemv(x2, qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer, norm_w, norm_eps)
-    elif M <= GEMV_MAX_M:
-        y = w4_planar_gemv(
-            x2.to(torch.bfloat16),
-            qt_stacked.qweight,
-            qt_stacked.scales,
-            qt_stacked.zeros,
-            layer,
-            norm_w,
-            norm_eps,
-        )
+    if route == "planar":
+        y = _planar_matmul(x2, qt_stacked, layer, norm_w, norm_eps, w4a8, M, K, g, Np)
     else:
-        if norm_w is not None:
-            x2 = _rms_norm_rows(x2, norm_w[layer], norm_eps)
-        y = w4_planar_gemm(
-            x2.to(torch.bfloat16),
-            qt_stacked.qweight,
-            qt_stacked.scales,
-            qt_stacked.zeros,
-            layer,
-        )
+        y = _packed_matmul(x2, qt_stacked, layer, norm_w, norm_eps, route, K, g)
     if y.shape[1] != N:
         y = y[:, :N]
     return y.reshape(*lead, N).to(x.dtype)
+
+
+def _planar_matmul(x2, qt_stacked, layer, norm_w, norm_eps, w4a8, M, K, g, Np):
+    if w4a8 and M <= GEMV_MAX_M and a8_full_k_ok(K, g, Np):
+        return w4a8_planar_gemv(x2, qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer, norm_w, norm_eps)
+    if M <= GEMV_MAX_M:
+        return w4_planar_gemv(
+            x2.to(torch.bfloat16), qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer, norm_w, norm_eps
+        )
+    if norm_w is not None:
+        x2 = _rms_norm_rows(x2, norm_w[layer], norm_eps)
+    return w4_planar_gemm(x2.to(torch.bfloat16), qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer)
+
+
+def _packed_matmul(x2, qt_stacked, layer, norm_w, norm_eps, route, K, g):
+    """K14 / K15 / K16 and the work JAX does outside them (pallas_qmm.py:
+    1434-1473, 1530-1559): the pre-normalize, the f32 correction
+    ``out - xsum @ zs[layer]`` of the unfused kernels, the token scale."""
+    from . import qmm_stacked
+
+    if norm_w is not None:
+        x2 = _rms_norm_rows(x2, norm_w[layer], norm_eps)
+    bits, gs = qt_stacked.bits, qt_stacked.group_size
+    qw, sc, zs = qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros
+    if route in ("v4", "odd_fused"):
+        fn = qmm_stacked.gptq_stacked_gemv if route == "v4" else qmm_stacked.bitplane_stacked_gemv
+        return fn(x2, qw, sc, zs, layer, bits, gs, True)
+    sx = None
+    if route == "a8":
+        x8, sx, xsum = quantize_rows_int8(x2, g)
+        out = qmm_stacked.gptq_stacked_w4a8_gemv(x8, qw, sc, layer, bits, gs)
+        xsum = xsum.to(torch.float32)
+    else:
+        fn = qmm_stacked.gptq_stacked_gemv if route == "v3" else qmm_stacked.bitplane_stacked_gemv
+        out = fn(x2, qw, sc, None, layer, bits, gs, False)
+        xsum = x2.to(torch.float32).reshape(x2.shape[0], K // g, g).sum(dim=2)
+    zs_l = zs[layer].to(torch.float32)
+    if not qt_stacked.zeros_prefolded:
+        zs_l = zs_l * sc[layer].to(torch.float32)
+    y = out - xsum @ zs_l
+    if sx is not None:
+        y = y * sx[:, None]
+    return y.to(torch.bfloat16)
 
 
 def grouped_experts_ok(qt_stacked: QuantizedTensor) -> bool:

@@ -32,14 +32,13 @@ act-order permutation is applied to x before either (``ref_matmul.py``
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 from ..quant.qtensor import QuantizedTensor, unpack_rows
-from .qmm import quantize_rows_int8_plain
+from .qmm import _per_group_branch, quantize_rows_int8_plain
 
 __all__ = [
     "qmatmul_2d",
@@ -68,26 +67,6 @@ def _check_bits(bits: int) -> None:
 
 def _group(K: int, group_size: int) -> int:
     return K if group_size == -1 else group_size
-
-
-def _choose_bk(K: int, g: int, pf: int, target: int) -> int:
-    """The JAX package's k-block (pallas_qmm.py:101); it decides whether
-    the decode branch runs the per-group kernel (scale after each group's
-    dot) or the field-loop kernel (scale in the weight)."""
-    quantum = 128 * pf if K // g == 1 else math.lcm(128 * pf, 8 * g)
-    best = None
-    for bk in range(quantum, K + 1, quantum):
-        if K % bk == 0 and bk <= target:
-            best = bk
-    return best if best is not None else K
-
-
-def _per_group_branch(K: int, g: int, bits: int) -> bool:
-    """``v3_ok`` of ``_qmm_2d`` at M <= 32 (pallas_qmm.py:355-360)."""
-    if bits not in (2, 4):
-        return False
-    npar = 8 // bits
-    return _choose_bk(K, g, 32 // bits, 2048) % g == 0 and (g // npar) % 8 == 0
 
 
 def _operands(x, qweight, scales, zeros, bits, group_size):

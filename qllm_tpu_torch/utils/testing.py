@@ -10,6 +10,7 @@ package carry its params across with ``interop.params_from_numpy``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Union
 
 import torch
@@ -29,12 +30,20 @@ def random_quantized_tensor(
     group_size: int = 128,
     scale: float = 0.01,
     centered: bool = False,
+    act_order: bool = False,
 ) -> QuantizedTensor:
     """Random words, scales uniform in [0.5, 1.5) * scale (fp16), zeros
-    at mid-range, on ``gen``'s device. Uniform words average 2^(bits-1) -
-    0.5, so zeros of 2^(bits-1) give every column a mean of -0.5 * its
-    scale; ``centered`` puts the zeros at 2^(bits-1) - 0.5 (mean 0)."""
-    return _random_qt(gen, (), in_features, out_features, bits, group_size, scale, centered)
+    at mid-range, on ``gen``'s device. Words are GPTQ-order for 2, 4 and 8
+    bits and plane-major bit planes for 3, 5, 6 and 7 (quant.qtensor).
+    Uniform words average 2^(bits-1) - 0.5, so zeros of 2^(bits-1) give
+    every column a mean of -0.5 * its scale; ``centered`` puts the zeros
+    at 2^(bits-1) - 0.5 (mean 0). ``act_order``: a random int32 ``perm``
+    of the K rows (x is gathered by it before the product)."""
+    qt = _random_qt(gen, (), in_features, out_features, bits, group_size, scale, centered)
+    if act_order:
+        perm = torch.randperm(in_features, generator=gen, device=gen.device).to(torch.int32)
+        qt = dataclasses.replace(qt, perm=perm)
+    return qt
 
 
 def random_stacked_expert_tensor(
@@ -85,10 +94,12 @@ def random_quantized_params(
     experts_prestacked: bool = False,
     scale: float = 0.01,
     centered: bool = False,
+    act_order: bool = False,
 ) -> Dict[str, Any]:
     """Random W-quantized params with dense embed/norm and, when
     ``quantize_lm_head``, a packed lm_head; ``scale`` and ``centered`` go
-    to every packed weight (see ``random_quantized_tensor``). MoE configs (``num_local_experts``)
+    to every packed weight, ``act_order`` to every layer's (see
+    ``random_quantized_tensor``). MoE configs (``num_local_experts``)
     get an f32 router [D, E] and E expert MLPs of width
     ``intermediate_size`` per layer: a per-expert list, or with
     ``experts_prestacked`` raw [E]-leading ``experts_stacked`` tensors with
@@ -119,7 +130,7 @@ def random_quantized_params(
         }
         for name in names:
             Kf, Nf = shapes[name]
-            lp[name] = random_quantized_tensor(gen, Kf, Nf, bits, group_size, scale, centered)
+            lp[name] = random_quantized_tensor(gen, Kf, Nf, bits, group_size, scale, centered, act_order)
         if cfg.qk_norm:
             # rms: one [hd] weight shared by the heads; cohere: per head
             qs, ks = ((hd,), (hd,)) if cfg.qk_norm == "rms" else ((H, hd), (Hkv, hd))

@@ -293,3 +293,79 @@ def test_stream_pass_kernel_is_exact(gen):
     for layer, passes in ((0, 1), (2, 5)):
         got = stream_bench.stream_pass(words, layer, passes)
         assert torch.equal(got, stream_bench.stream_pass_plain(words, layer, passes))
+
+
+def _packed_stack(gen, bits, K, Np, g, L=3, dtype=torch.float32):
+    """Random GPTQ-order (2/4 bits) or bit-plane (3/5/6/7) words, scales and
+    zs = zeros * scales for a zero-mean stack, in ``dtype``."""
+    rows = K * bits // 32
+    qw = torch.randint(-(2**31), 2**31, (L, rows, Np), dtype=torch.int32, device="cuda", generator=gen)
+    G = K // g
+    sc = (torch.rand((L, G, Np), device="cuda", generator=gen) + 0.5) * 0.01
+    zs = sc * ((1 << bits) / 2.0 - 0.5)
+    return qw, sc.to(dtype), zs.to(dtype)
+
+
+def _close_to_plain_not_to_next_layer(y, ref, ref_next):
+    """Within 1e-2 * max|plain| of layer 1's plain version, and outside it
+    against layer 2's (the kernel reads the layer it is told to)."""
+    y, ref, ref_next = y.float(), ref.float(), ref_next.float()
+    limit = 1e-2 * float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= limit
+    assert float((y - ref_next).abs().max()) > limit
+
+
+@pytest.mark.parametrize(
+    "bits,K,Np,g,M,fused,dtype",
+    [(2, 1024, 640, 128, 1, False, torch.float32), (4, 512, 512, 64, 8, True, torch.bfloat16),
+     (2, 2048, 384, 64, 32, True, torch.bfloat16), (4, 768, 1024, 128, 5, False, torch.float32)],
+)
+def test_k14_gptq_stacked_gemv_matches_plain(gen, bits, K, Np, g, M, fused, dtype):
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    qw, sc, zs = _packed_stack(gen, bits, K, Np, g, dtype=dtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qs.gptq_stacked_gemv(x, qw, sc, zs, 1, bits, g, fused)
+    assert y.dtype == (torch.bfloat16 if fused else torch.float32)
+    _close_to_plain_not_to_next_layer(y, qs.gptq_stacked_gemv_plain(x, qw, sc, zs, 1, bits, g, fused),
+                                      qs.gptq_stacked_gemv_plain(x, qw, sc, zs, 2, bits, g, fused))
+
+
+@pytest.mark.parametrize("bits,K,Np,g,M", [(2, 1024, 640, 128, 1), (4, 512, 512, 64, 8), (4, 2048, 256, 2048, 32)])
+def test_k15_gptq_stacked_w4a8_gemv_matches_plain(gen, bits, K, Np, g, M):
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    qw, sc, _ = _packed_stack(gen, bits, K, Np, g)
+    x8, _, _ = qmm.quantize_rows_int8(torch.randn((M, K), device="cuda", generator=gen), g)
+    y = qs.gptq_stacked_w4a8_gemv(x8, qw, sc, 1, bits, g)
+    _close_to_plain_not_to_next_layer(y, qs.gptq_stacked_w4a8_gemv_plain(x8, qw, sc, 1, bits, g),
+                                      qs.gptq_stacked_w4a8_gemv_plain(x8, qw, sc, 2, bits, g))
+
+
+@pytest.mark.parametrize(
+    "bits,K,Np,g,M,fused",
+    [(3, 1024, 640, 128, 1, False), (3, 512, 512, 512, 8, True), (5, 768, 384, 64, 32, True),
+     (6, 1024, 256, 32, 3, False), (7, 256, 512, 128, 8, True), (3, 512, 256, 16, 2, False)],
+)
+def test_k16_bitplane_stacked_gemv_matches_plain(gen, bits, K, Np, g, M, fused):
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    dtype = torch.bfloat16 if fused else torch.float32
+    qw, sc, zs = _packed_stack(gen, bits, K, Np, g, dtype=dtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qs.bitplane_stacked_gemv(x, qw, sc, zs, 1, bits, g, fused)
+    _close_to_plain_not_to_next_layer(y, qs.bitplane_stacked_gemv_plain(x, qw, sc, zs, 1, bits, g, fused),
+                                      qs.bitplane_stacked_gemv_plain(x, qw, sc, zs, 2, bits, g, fused))
+
+
+def test_stacked_gemv_rows_do_not_depend_on_m(gen):
+    """Batch invariance of K14 and K16, as K9's: a row alone and inside M =
+    8 give the same bits (their K splits depend on K and N alone)."""
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    for bits, fn in ((2, qs.gptq_stacked_gemv), (3, qs.bitplane_stacked_gemv)):
+        qw, sc, zs = _packed_stack(gen, bits, 4096, 4096, 128, dtype=torch.bfloat16)
+        y8 = fn(x, qw, sc, zs, 1, bits, 128, True)
+        for m in (0, 5):
+            assert torch.equal(fn(x[m : m + 1], qw, sc, zs, 1, bits, 128, True)[0], y8[m]), (bits, m)
