@@ -44,8 +44,8 @@ Phases, each of which fails the run on any error or disagreement:
      norm), batch 1 as (a) and batch 8 with 64 sorted selections per
      step through K8;
   9. cross: the 7B widths at 2 layers on the card and on the CPU (plain
-     versions), B=2, T=32, 8 steps on the plain cache, then B=1, T=256
-     (flash), 16 steps on a ring cache, then the plain-cache steps again
+     versions), B=2, T=32, 4 steps on the plain cache, then B=1, T=256
+     (flash), 8 steps on a ring cache, then the plain-cache steps again
      with W4A8 (K11); the engine over 2 per-layer layers of 4 and 8 bits,
      with bf16 and with int8 activations (K12 on the 4-bit layer, K9 on
      the 8-bit one); then 2 layers at Mixtral and at Qwen3 width, a short
@@ -70,7 +70,19 @@ Phases, each of which fails the run on any error or disagreement:
      model's 20 greedy requests (K12 in every decode step), bucket-length
      requests equal to greedy_generate(w4a8=True) at batch 1; (c) the
      streaming ceiling (K13, ops.stream_bench.measure_stream_gbps) and
-     each decode leg's device-time bandwidth as a share of it.
+     each decode leg's device-time bandwidth as a share of it;
+ 12. f32s (after widths): the 7B geometry at 32 layers, W4 g128 with the
+     serve model's weights, stacked with the defaults (f32 scales and
+     zs, as the JAX package stacks): planar matmuls through K17 (M <= 32)
+     and K18 (M > 32), the decode down_proj (K = 11008, no k-block) through
+     the fallback's K9 (K12 under W4A8) as on the JAX package's chip:
+     batch 8, 128-token prompts and 32 steps on the plain cache; batch 1,
+     a 512-token flash prefill into a ring cache and 32 ring-fused steps;
+     batch 8 with W4A8, 16 steps; then the same params stacked with bf16
+     scales (K1 / K2), 16 steps at batch 8. Each leg: launches asserted,
+     tok/s, device busy share, prefill ms, peak GiB; the plain-cache legs'
+     streams against teacher-forced prefills and their first steps on the
+     card against the CPU's plain versions on the first 2 layers.
 
 Each model path runs with every kernel's launch count set to 0 just
 before it and read just after; the peak device memory of each is
@@ -121,8 +133,9 @@ MAIN = dict(B=8, T=128, STEPS=64, MAX_SEQ=256, LAYERS=32)
 # and the long prompt (bench.py's prefill_512 / prefill_2048 shapes)
 MAIN1 = dict(T=512, STEPS=64, MAX_SEQ=640, T_LONG=2048)
 # the card-vs-CPU cross-check at full width, plain cache then ring cache
-CROSS = dict(B=2, T=32, STEPS=8, MAX_SEQ=64, LAYERS=2)
-CROSS1 = dict(T=256, STEPS=16, MAX_SEQ=280)
+# (steps cut to keep the script's clock: the CPU side is the slow part)
+CROSS = dict(B=2, T=32, STEPS=4, MAX_SEQ=64, LAYERS=2)
+CROSS1 = dict(T=256, STEPS=8, MAX_SEQ=280)
 # the K3a / K3b phase: layers, batch, kv heads, cache length, head width
 ATTN_SHAPE = dict(L=2, B=8, Hkv=32, S=256, D=128)
 K4_SHAPE = (32, 512, 22016)  # the gateup stack, [L, 4096/8, N]
@@ -193,7 +206,7 @@ MOE = dict(T1=512, STEPS1=64, MAX1=640, B=8, T=128, STEPS=64, MAX_SEQ=256)
 # the long-context path: batch 8, cache length, filled rows, steps
 LONG = dict(B=8, MAX_SEQ=16384, POS=12288, STEPS=16)
 # the MoE cross-check legs: (config, batch, prompt, sparse steps)
-CROSS_MOE = (("Mixtral", MIXTRAL, 2, 16, 4), ("Qwen3", QWEN3, 4, 16, 8))
+CROSS_MOE = (("Mixtral", MIXTRAL, 2, 16, 2), ("Qwen3", QWEN3, 4, 16, 4))
 # K8 cases: (name, K, padded N, experts in the stack, selections, mode)
 K8_CASES = (
     ("mixtral gateup", 4096, 28672, 8, 2, "shared"),
@@ -609,6 +622,7 @@ def phase_kernels(torch, timer):
     rows.extend(a8_rows(torch, timer, gen, stack, dequant))
     rows.append(stream_row(torch, timer, gen))
     rows.extend(stacked_rows(torch, timer, gen))
+    rows.extend(f32s_rows(torch, timer, gen))
     return rows
 
 
@@ -824,8 +838,8 @@ def phase_main(torch, K):
     torch.cuda.reset_peak_memory_stats()
     phases = {}
     t0 = time.time()
-    sp = stack_layer_params(params)
-    sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    sp = stack_layer_params(params, scale_store_dtype=torch.bfloat16)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
     del params
     torch.cuda.synchronize()
     load_s = time.time() - t0
@@ -922,11 +936,15 @@ def phase_main1(torch, K, model):
     from qllm_tpu_torch.models.generate import make_cache, prefill
 
     if model is None:
+        from qllm_tpu_torch.models.llama import ModelConfig
+        from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
         from qllm_tpu_torch.utils.testing import random_quantized_params
 
         cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
-        sp = stack_layer_params(random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV))
-        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+        params = random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV)
+        sp = stack_layer_params(params, scale_store_dtype=torch.bfloat16)
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
+        del params
     else:
         cfg, sp = model
     T, STEPS, MAX_SEQ, T_LONG = (MAIN1[k] for k in ("T", "STEPS", "MAX_SEQ", "T_LONG"))
@@ -1082,7 +1100,7 @@ def load_moe(torch, K, name, shape):
     drawn_s = time.time() - t0
     t0 = time.time()
     sp = stack_layer_params_hybrid(params, consume=True)
-    sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
     del params
     torch.cuda.synchronize()
     load_s = time.time() - t0
@@ -1358,7 +1376,7 @@ def cross_moe(torch):
         sides = {}
         for side, params, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
             sp = stack_layer_params_hybrid(params)
-            sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+            sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
             sides[side] = (sp, dev)
         del gpu, cpu
         gen = torch.Generator()
@@ -1483,8 +1501,8 @@ def phase_cross(torch):
     cpu = _to_cpu(gpu)
     sides = {}
     for name, params, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
-        sp = stack_layer_params(params)
-        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+        sp = stack_layer_params(params, scale_store_dtype=torch.bfloat16)
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
         sides[name] = (sp, dev)
     # the card's K4 relayout against the CPU's plain relayout, leaf by leaf
     for k, v in sides["cuda"][0]["layers"].items():
@@ -1513,7 +1531,7 @@ def phase_cross(torch):
     errs = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
     oks = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits["cuda"], logits["cpu"])]
 
-    # batch 1 on a ring cache: a T=256 flash prefill, then 16 ring-fused
+    # batch 1 on a ring cache: a T=256 flash prefill, then ring-fused
     # steps with a flush after every 8th (decode_loop's schedule)
     T1, STEPS1, MAX1 = (CROSS1[k] for k in ("T", "STEPS", "MAX_SEQ"))
     prompt1 = torch.randint(0, cfg.vocab_size, (1, T1), dtype=torch.int32, generator=gen)
@@ -2087,8 +2105,10 @@ def phase_w4a8(torch, K, card, model):
         from qllm_tpu_torch.utils.testing import random_quantized_params
 
         cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
-        sp = stack_layer_params(random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV))
-        sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+        params = random_quantized_params(cfg, 0, quantize_lm_head=True, device=DEV)
+        sp = stack_layer_params(params, scale_store_dtype=torch.bfloat16)
+        sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
+        del params
         model = (cfg, sp)
     runs = {}
     for fn in K.values():
@@ -2102,8 +2122,8 @@ def phase_w4a8(torch, K, card, model):
     runs["w4a8_decode"], legs = w4a8_decode(torch, K, *model, "main model")
     cfg = ModelConfig(num_hidden_layers=SERVE["LAYERS"], **SEVEN_B)
     params = serve_model(torch, cfg)  # per-layer, for the engine
-    sp = stack_layer_params(params)
-    sp["lm_head"] = prepare_lm_head(sp["lm_head"])
+    sp = stack_layer_params(params, scale_store_dtype=torch.bfloat16)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
     runs["w4a8_decode_serve_model"], legs2 = w4a8_decode(torch, K, cfg, sp, "serve model's weights")
     del sp
     runs["serve_w4a8"], engine_legs = w4a8_engine(torch, K, card, cfg, params)
@@ -2234,7 +2254,7 @@ def widths_model(torch, bits, layers, scale_dtype, planar=True, act_order=False,
     """A Llama-2-7B-shape model at ``bits`` g128 (quantized lm_head), drawn
     on the card with zero-mean weights at the serve model's spread and 8
     lm_head columns scaled up 8x (serve_model), stacked for serving with
-    ``planar`` and ``scale_store_dtype``."""
+    ``planar`` and ``scale_store_dtype`` (None: the stacking defaults)."""
     from qllm_tpu_torch.models.llama import ModelConfig
     from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params
     from qllm_tpu_torch.utils.testing import random_quantized_params
@@ -2247,8 +2267,9 @@ def widths_model(torch, bits, layers, scale_dtype, planar=True, act_order=False,
     cols = torch.randperm(cfg.vocab_size, device=DEV, generator=gen)[: SERVE_MODEL["SEPARATE"]]
     sc = params["lm_head"].scales
     sc[:, cols] = (sc[:, cols].float() * SERVE_MODEL["SEPARATE_BY"]).to(sc.dtype)
-    sp = stack_layer_params(params, planar=planar, scale_store_dtype=scale_dtype)
-    sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=scale_dtype)
+    sd = {} if scale_dtype is None else {"scale_store_dtype": scale_dtype}
+    sp = stack_layer_params(params, planar=planar, **sd)
+    sp["lm_head"] = prepare_lm_head(sp["lm_head"], **sd)
     del params
     torch.cuda.synchronize()
     return cfg, sp
@@ -2440,6 +2461,187 @@ def phase_widths(torch, K):
     return runs
 
 
+# K17 / K18 rows: (kernel, projection of STACKED_PROJ, M)
+F32S_CASES = (
+    ("w4_planar_f32s_gemv", "gateup", 1),
+    ("w4_planar_f32s_gemv", "gateup", 8),
+    ("w4_planar_f32s_gemv", "qkv", 8),
+    ("w4_planar_f32s_gemm", "gateup", 1024),
+    ("w4_planar_f32s_gemm", "down", 1024),  # no planar_bk: the relaxed k-block 256
+)
+# the f32s legs: batch, prompt, steps and depth of the plain-cache legs; the
+# ring leg's prompt, steps and cache rows; the W4A8 and bf16-control steps
+F32S = dict(B=8, T=128, STEPS=32, LAYERS=32, T1=512, STEPS1=32, MAX1=640, STEPS_A8=16, STEPS_BF16=16)
+# K17 / K18's second limit, on #3's rounding: the kernel's f32 output within
+# F32S_TIGHT * max|plain|, which the same product with the weight q * s
+# rounded to bf16 first (K2's dequantize-then-dot) must miss
+F32S_TIGHT = 1e-4
+
+
+def f32s_rows(torch, timer, gen):
+    """K17 and K18 at the 7B shapes against their plain versions (f32 out;
+    STACKED_TOL of max|plain|, the largest gap also in bf16 ulps of the
+    plain output), each with a control that must miss: the kernel's output
+    against the next layer's plain version. Then within F32S_TIGHT of
+    max|plain|, with a second control that must miss it: x @ the layer's
+    weight q * s dequantized to bf16, in f32. Library time: torch.matmul
+    on that bf16 weight."""
+    from qllm_tpu_torch.ops import qmm, qmm_planar
+
+    rows = []
+    proj = {p: (Kf, N) for p, Kf, N in STACKED_PROJ}
+    for kname, pname, M in F32S_CASES:
+        Kf, N = proj[pname]
+        Np = -(-N // 512) * 512
+        G = Kf // 128
+        qw = torch.randint(-(2**31), 2**31, (STACK_L, Kf // 8, Np), dtype=torch.int32, device=DEV, generator=gen)
+        sc = (torch.rand((STACK_L, G, Np), device=DEV, generator=gen) + 0.5) * widths_scale(4)
+        w = (qmm._planar_values(qw[1], Kf).reshape(G, 128, Np) * sc[1][:, None]).reshape(Kf, Np).to(torch.bfloat16)
+        x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+        fn, plain = getattr(qmm_planar, kname), getattr(qmm_planar, kname + "_plain")
+        y = fn(x, qw, sc, 1)
+        torch.cuda.synchronize()
+        ref = plain(x, qw, sc, 1)
+        scale = float(ref.abs().max())
+        err = float((y - ref).abs().max())
+        ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-126))) - 7)
+        err_ulps = float(((y - ref).abs() / ulp).max())
+        control = float((y - plain(x, qw, sc, 2)).abs().max())
+        limit = STACKED_TOL * scale
+        tight = F32S_TIGHT * scale
+        control_bf16 = float((torch.matmul(x.float(), w.float()) - ref).abs().max())
+        ok = err <= limit < control and err <= tight < control_bf16
+        ms = timer(lambda: fn(x, qw, sc, 1))
+        plain_ms = timer(lambda: plain(x, qw, sc, 1), reps=5, warmup=1)
+        lib_ms = timer(lambda: torch.matmul(x, w))
+        # the function's bytes: the layer's words and f32 scales, x in, f32 y out
+        b_ms, b_by = bound(qw[1].numel() * 4 + sc[1].numel() * 4 + M * Kf * 2 + M * Np * 4, 2.0 * M * Kf * Np)
+        bk = qmm.planar_bk(Kf, 128) or qmm.planar_bk_relaxed(Kf, 128)
+        case = f"{pname} K={Kf} N={Np} M={M} f32 scales" + (f" (TPU bk {bk})" if M > 32 else "")
+        rows.append(dict(kernel=kname, case=case, max_abs_err=err, max_err_bf16_ulps=err_ulps,
+                         tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control,
+                         tight_tol=f"{F32S_TIGHT}*{scale:.4g}", control_bf16_weight_err=control_bf16, ok=bool(ok), ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"{kname} {case}: max_abs_err {err}, limits {limit} / {tight}, controls {control} / "
+                                 f"{control_bf16}")
+        del qw, sc, w, x, y, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f32s_ring_leg(torch, K, cfg, sp):
+    """The f32s model at batch 1: a T1-token flash prefill into a ring
+    cache and STEPS1 ring-fused greedy steps, every count set to 0 just
+    before and the launches asserted, then the same again warm (the same
+    ids); the device busy share of 8 warm steps, prefill ms, peak GiB."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import make_cache, prefill
+
+    W = F32S
+    L, T, S = cfg.num_hidden_layers, W["T1"], W["STEPS1"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), dtype=torch.int32, device=DEV, generator=gen)
+
+    def run():
+        cache = make_cache(cfg, 1, W["MAX1"], ring=True, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(sp, cfg, prompt, cache, device=DEV)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mark = counts(K)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks, cache = decode_loop(sp, cfg, first, cache, T, S, device=DEV)
+        torch.cuda.synchronize()
+        return logits, toks, cache, mark, (t1 - t0, time.perf_counter() - t1)
+
+    for fn in K.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    logits, toks, cache, mark, cold = run()
+    total = counts(K)
+    per_phase = {"prefill": mark, "decode": delta(mark, total)}
+    log(f"[f32s] b1_ring: launches per phase {json.dumps({p: {k: v for k, v in c.items() if v} for p, c in per_phase.items()})}")
+    check_launches(per_phase, {
+        "prefill": {"w4_planar_f32s_gemm": 4 * L + 1, "flash_prefill": L, "w4_planar_f32s_gemv": 0,
+                    "w4_planar_gemm": 0, "gptq_gemm": 0},
+        "decode": {"w4_planar_f32s_gemv": (3 * L + 1) * S, "gptq_gemv": L * S, "decode_attention_ring": L * S,
+                   "kv_ring_flush": S // 8, "w4_planar_f32s_gemm": 0, "w4_planar_gemv": 0, "kv_write_int8": 0,
+                   "decode_attn_int8": 0},
+    })
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(logits.float()).all()) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("f32s b1_ring: logits not finite or ids out of range")
+    _, toks2, cache, _, warm = run()
+    same = bool(torch.equal(toks, toks2))
+    busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + S, steps=8)
+    res = {
+        "config": f"Llama-2-7B shape, {L} layers, W4 g128 f32 scales (the stacking defaults); B=1, T={T} flash "
+        f"prefill into a ring cache of max_seq {W['MAX1']}, {S} ring-fused greedy steps",
+        "prefill_ms": cold[0] * 1e3,
+        "prefill_warm_ms": warm[0] * 1e3,
+        "decode_tok_s": S / cold[1],
+        "decode_ms_per_step": cold[1] / S * 1e3,
+        "decode_tok_s_warm": S / warm[1],
+        "decode_ms_per_step_warm": warm[1] / S * 1e3,
+        **busy,
+        "peak_mem_gib": peak,
+        "launches_per_step": {k: v / S for k, v in per_phase["decode"].items() if v},
+        "repeat_run_same_ids": same,
+    }
+    log(f"[f32s] b1_ring: {json.dumps(res)}")
+    if not same:
+        raise AssertionError("f32s b1_ring: a second run on the same prompt decoded other ids")
+    del cache
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_f32s(torch, K):
+    """The 7B geometry stacked as the JAX package stacks by default (f32
+    scales and zs): batch 8 on the plain cache, batch 1 on the ring, batch
+    8 under W4A8 (each through widths_leg or f32s_ring_leg), then the same
+    params stacked with bf16 scales (K1 / K2) as the control."""
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    W = F32S
+    L, B, T = W["LAYERS"], W["B"], W["T"]
+    n = 4 * L + 1
+    att = lambda steps: {"kv_write_int8": L * steps, "decode_attn_int8": L * steps}  # noqa: E731
+    runs = {}
+    t0 = time.time()
+    cfg, sp = widths_model(torch, 4, L, None)
+    leaves = [v for v in [*sp["layers"].values(), sp["lm_head"]] if isinstance(v, QuantizedTensor)]
+    if not all(v.planar and v.scales.dtype == v.zeros.dtype == torch.float32 for v in leaves):
+        raise AssertionError("f32s: the default stacking is not planar with f32 scales and zs")
+    log(f"[f32s] drawn and stacked with the defaults (f32 scales, {len(leaves)} planar stacks) in "
+        f"{time.time() - t0:.1f} s")
+    S = W["STEPS"]
+    runs["f32s_b8"] = widths_leg(torch, K, "f32s_b8", cfg, sp, B, T, S, {
+        "prefill": {"w4_planar_f32s_gemm": n, "w4_planar_f32s_gemv": 0, "w4_planar_gemm": 0, "gptq_gemm": 0},
+        "decode": {"w4_planar_f32s_gemv": (3 * L + 1) * S, "gptq_gemv": L * S, "w4_planar_f32s_gemm": 0,
+                   "w4_planar_gemv": 0, **att(S)}})
+    runs["f32s_b1_ring"] = f32s_ring_leg(torch, K, cfg, sp)
+    S = W["STEPS_A8"]
+    runs["f32s_b8_w4a8"] = widths_leg(torch, K, "f32s_b8_w4a8", cfg, sp, B, T, S, {
+        "prefill": {"w4_planar_f32s_gemm": n, "gptq_w4a8_gemv": 0},
+        "decode": {"w4_planar_f32s_gemv": (3 * L + 1) * S, "gptq_w4a8_gemv": L * S, "gptq_gemv": 0,
+                   "w4a8_planar_gemv": 0, **att(S)}}, w4a8=True)
+    del sp
+    torch.cuda.empty_cache()
+    cfg, sp = widths_model(torch, 4, L, torch.bfloat16)
+    S = W["STEPS_BF16"]
+    runs["f32s_bf16_control"] = widths_leg(torch, K, "f32s_bf16_control", cfg, sp, B, T, S, {
+        "prefill": {"w4_planar_gemm": n, "w4_planar_f32s_gemm": 0},
+        "decode": {"w4_planar_gemv": n * S, "w4_planar_f32s_gemv": 0, "gptq_gemv": 0, **att(S)}})
+    del sp
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNEL_META = {
     "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
@@ -2462,6 +2664,8 @@ KERNEL_META = {
     "gptq_stacked_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:476"),
     "gptq_stacked_w4a8_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:584"),
     "bitplane_stacked_gemv": ("qllm_tpu_torch/csrc/bitplane.cu", "qllm_tpu/ops/pallas_qmm.py:676"),
+    "w4_planar_f32s_gemv": ("qllm_tpu_torch/csrc/planar_f32.cu", "qllm_tpu/ops/pallas_qmm.py:999"),
+    "w4_planar_f32s_gemm": ("qllm_tpu_torch/csrc/planar_f32.cu", "qllm_tpu/ops/pallas_qmm.py:999"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
@@ -2470,7 +2674,8 @@ HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefi
             "gptq_w4a8_gemv": "gate/up K=4096 N=11008 M=8 4-bit",
             "gptq_stacked_gemv": "gateup K=4096 N=22016 M=8 2-bit f32",
             "gptq_stacked_w4a8_gemv": "gateup K=4096 N=22016 M=32 2-bit",
-            "bitplane_stacked_gemv": "gateup K=4096 N=22016 M=1 3-bit f32"}
+            "bitplane_stacked_gemv": "gateup K=4096 N=22016 M=1 3-bit f32",
+            "w4_planar_f32s_gemv": "gateup K=4096 N=22016 M=8", "w4_planar_f32s_gemm": "gateup K=4096 N=22016 M=1024"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
 # launches on the long path
@@ -2495,7 +2700,8 @@ def summary_entry(name, replaces, launches, mine, headline=""):
         "shape": head.get("case"),
     }
     if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
-                                  "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv"):
+                                  "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv",
+                                  "w4_planar_f32s_gemv", "w4_planar_f32s_gemm"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
     return entry
@@ -2503,7 +2709,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,widths,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,widths,f32s,moe,long,moe_qwen3,cross",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2523,7 +2729,8 @@ def main() -> int:
     card = gpu_name_and_limit()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    from qllm_tpu_torch.ops import _build, attention, flash_prefill, qmm, qmm2d, qmm_stacked, repack, stream_bench
+    from qllm_tpu_torch.ops import (_build, attention, flash_prefill, qmm, qmm2d, qmm_planar, qmm_stacked, repack,
+                                    stream_bench)
 
     K = {
         "w4_planar_gemv": qmm.w4_planar_gemv,
@@ -2543,6 +2750,8 @@ def main() -> int:
         "gptq_stacked_gemv": qmm_stacked.gptq_stacked_gemv,
         "gptq_stacked_w4a8_gemv": qmm_stacked.gptq_stacked_w4a8_gemv,
         "bitplane_stacked_gemv": qmm_stacked.bitplane_stacked_gemv,
+        "w4_planar_f32s_gemv": qmm_planar.w4_planar_f32s_gemv,
+        "w4_planar_f32s_gemm": qmm_planar.w4_planar_f32s_gemm,
     }
     t_start = time.time()
     t0 = time.time()
@@ -2551,7 +2760,8 @@ def main() -> int:
     blog = _build.build_dir() / "build.log"
     if blog.exists():
         for line in blog.read_text().splitlines():
-            if "Used" in line or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            if ("Used" in line or "Compiling entry function" in line
+                    or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line)):
                 log(f"[build] {line.strip()}")
 
     timer = Timer(torch)
@@ -2581,6 +2791,10 @@ def main() -> int:
     if "widths" in phases:
         runs.update(phase_widths(torch, K))
     log(f"[time] widths {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "f32s" in phases:
+        runs.update(phase_f32s(torch, K))
+    log(f"[time] f32s {time.time() - t0:.1f} s")
     t0 = time.time()
     if "moe" in phases or "long" in phases:
         cfg, sp, runs["moe_load"] = load_moe(torch, K, "Mixtral-8x7B", MIXTRAL)

@@ -87,3 +87,28 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint3
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// the nibbles at bits s..s+3 and s+16..s+19 of w as an exact bf16 pair:
+// OR-ed into the mantissa of 128.0 they give 128 + v, then minus 128
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w, int s) {
+  uint32_t v = ((w >> s) & 0x000F000Fu) | 0x43004300u;
+  return bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __floats2bfloat162_rn(128.f, 128.f)));
+}
+
+// the B registers against A registers taken from a planar word's nibbles
+// (0, 2) and (1, 3): x values (k0, k2) and (k1, k3) of the same four k
+__device__ __forceinline__ void x_fragments(uint2 xv, uint32_t& b0, uint32_t& b1) {
+  b0 = __byte_perm(xv.x, xv.y, 0x5410);
+  b1 = __byte_perm(xv.x, xv.y, 0x7632);
+}
+
+// 16 bytes global -> shared without the registers (zero-filled when
+// !pred), then commit the copies issued so far as one group, and wait
+// until at most N groups are in flight
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }

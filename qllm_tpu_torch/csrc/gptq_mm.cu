@@ -207,13 +207,6 @@ constexpr int kKT = 64;     // k per x tile
 constexpr int kXRow = 72;   // bf16 per x-tile row: 64 used, 144 bytes
 constexpr int kStages = 2;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait0() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
 // xsum[m, gi] = sum of x[m, k] over group gi in f32: one warp per entry
 __global__ void group_sum_kernel(const void* __restrict__ x, int x_f32, int M, int K, int g,
                                  float* __restrict__ xsum) {
@@ -274,7 +267,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   issue_x(0, 0);
   cp_async_commit();
   for (int t = 0; t < T; ++t) {
-    cp_async_wait0();
+    cp_async_wait<0>();
     __syncthreads();  // tile t landed for everyone; the other stage is free
     if (t + 1 < T) issue_x(t + 1, (t + 1) & 1);
     cp_async_commit();

@@ -80,7 +80,8 @@ __global__ void __launch_bounds__(kQuantThreads)
     const int k = tid + j * kQuantThreads;
     v[j] = k < K ? load_act(x, x_f32, row + k) : 0.f;
   }
-  for (int i = tid; i < G; i += kQuantThreads) gsum[i] = 0;
+  if (xsum != nullptr)
+    for (int i = tid; i < G; i += kQuantThreads) gsum[i] = 0;
   float r = 1.f;  // the row's norm factor
   if (nw != nullptr) {
     float ss = 0.f;
@@ -149,8 +150,8 @@ __global__ void __launch_bounds__(kQuantThreads)
 
 int launch_quantize(const void* x, int x_f32, void* x8, void* sx, void* xsum, int M, int K, int g, int npar,
                     cudaStream_t st, const void* nw = nullptr, int nw_f32 = 0, float eps = 0.f) {
-  if (M < 1 || K < 1 || g < 1 || K % g != 0 || K / g > kQuantMaxGroups || (npar != 1 && npar != 2 && npar != 4) ||
-      K % (4 * npar) != 0)
+  if (M < 1 || K < 1 || g < 1 || K % g != 0 || (xsum != nullptr && K / g > kQuantMaxGroups) ||
+      (npar != 1 && npar != 2 && npar != 4) || K % (4 * npar) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   quantize_rows_kernel<<<M, kQuantThreads, 0, st>>>(x, x_f32, K, g, npar, nw, nw_f32, eps,
                                                     static_cast<int8_t*>(x8), static_cast<float*>(sx),
@@ -180,7 +181,10 @@ int launch_quantize(const void* x, int x_f32, void* x8, void* sx, void* xsum, in
 // The x8 sums that the zero-point term needs are taken from the same B
 // registers (dp4a against ones), so a warp that covers part of a group
 // subtracts exactly its part. The warps split K's tiles and meet in
-// shared memory, summed in warp order (no atomics).
+// shared memory, summed in warp order (no atomics). Groups of g % 32 ==
+// 16 (HALF) can close in the middle of a k-tile: the tile then runs as
+// two MMAs, each with the B registers of the other 16 k zeroed, and a
+// group closes after either.
 // ---------------------------------------------------------------------------
 
 constexpr int kA8MaxWarps = 8;
@@ -204,7 +208,7 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <int MT, int P>
+template <int MT, int P, bool HALF>
 __global__ void __launch_bounds__(kA8MaxWarps * 32)
     w4a8_planar_gemv_kernel(const int8_t* __restrict__ x8,         // [M, K]
                             const float* __restrict__ sx,          // [M]
@@ -221,7 +225,7 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
   const int n0 = blockIdx.x * kA8Cols;
   const int Kh = K / 2;
   const int T = K / 64;    // k-tiles of 8 word rows: 32 low-half + 32 high-half k
-  const int tpg = g / 32;  // k-tiles per group
+  const int upg = g / 16;  // 16-k units per group (two a k-tile)
   const int Gh = Kh / g;
   const int t0 = warp * T / nwarps, t1 = (warp + 1) * T / nwarps;
   const uint32_t* wp = qw + static_cast<size_t>(c) * Np + n0 + kA8W * gq;
@@ -265,14 +269,16 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
       }
   }
 
-  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT]) {
+  // part 0: the whole k-tile; 1: its first 16 k, 2: its last 16 k (the
+  // other B registers zeroed, so they add nothing to the dot or the sums)
+  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT], int part) {
     uint32_t bl0[MT], bl1[MT], bh0[MT], bh1[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      bl0[mt] = xv[mt].x;
-      bl1[mt] = xv[mt].y;
-      bh0[mt] = xv[mt].z;
-      bh1[mt] = xv[mt].w;
+      bl0[mt] = part == 2 ? 0u : xv[mt].x;
+      bl1[mt] = part == 1 ? 0u : xv[mt].y;
+      bh0[mt] = part == 2 ? 0u : xv[mt].z;
+      bh1[mt] = part == 1 ? 0u : xv[mt].w;
       xs_lo[mt] = __dp4a(static_cast<int>(bl1[mt]), kOnes, __dp4a(static_cast<int>(bl0[mt]), kOnes, xs_lo[mt]));
       xs_hi[mt] = __dp4a(static_cast<int>(bh1[mt]), kOnes, __dp4a(static_cast<int>(bh0[mt]), kOnes, xs_hi[mt]));
     }
@@ -293,10 +299,9 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
     }
   };
 
-  // close the group of tile t (or this warp's part of it): y += d * s -
-  // sum(x8) * zs for the low-half group and for the high-half one
-  auto flush = [&](int t) {
-    const int grp = t / tpg;
+  // close group grp of each half (or this warp's part of it): y += d * s
+  // - sum(x8) * zs for the low-half group and for the high-half one
+  auto flush = [&](int grp) {
     const size_t col = static_cast<size_t>(n0 + kA8W * gq);
     const size_t lo = static_cast<size_t>(grp) * Np + col, hi = static_cast<size_t>(Gh + grp) * Np + col;
 #pragma unroll
@@ -344,8 +349,16 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) xv[mt] = xbuf[i][mt];
         if (t + P < t1) load(i, t + P);
-        compute(w, xv);
-        if ((t + 1) % tpg == 0 || t + 1 == t1) flush(t);
+        const int u = 2 * t;  // the tile's first 16-k unit
+        if constexpr (HALF) {
+          compute(w, xv, 1);
+          if ((u + 1) % upg == 0) flush(u / upg);
+          compute(w, xv, 2);
+          if ((u + 2) % upg == 0 || t + 1 == t1) flush((u + 1) / upg);
+        } else {
+          compute(w, xv, 0);
+          if ((u + 2) % upg == 0 || t + 1 == t1) flush(u / upg);
+        }
       }
     }
   }
@@ -380,7 +393,10 @@ void launch_planar(int warps, cudaStream_t st, const int8_t* x8, const float* sx
                    __nv_bfloat16* out) {
   // 32 words in flight per thread at MT 1, fewer registers to spare above
   constexpr int P = MT == 1 ? 4 : 2;
-  w4a8_planar_gemv_kernel<MT, P><<<Np / kA8Cols, warps * 32, 0, st>>>(x8, sx, qw, sc, zs, M, K, Np, g, out);
+  if (g % 32 == 0)
+    w4a8_planar_gemv_kernel<MT, P, false><<<Np / kA8Cols, warps * 32, 0, st>>>(x8, sx, qw, sc, zs, M, K, Np, g, out);
+  else
+    w4a8_planar_gemv_kernel<MT, P, true><<<Np / kA8Cols, warps * 32, 0, st>>>(x8, sx, qw, sc, zs, M, K, Np, g, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -558,7 +574,7 @@ QLLM_API int qllm_quantize_rows_int8(const void* x, int x_f32, void* x8, void* s
 QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx, const void* qweight,
                                    const void* scales, const void* zs, const void* norm_w, int nw_f32, float eps,
                                    void* out, int layer, int M, int K, int Np, int g, int warps, void* stream) {
-  if (M < 1 || M > 32 || g < 32 || g % 32 != 0 || K % 64 != 0 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
+  if (M < 1 || M > 32 || g < 16 || g % 16 != 0 || K % 64 != 0 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
       warps < 1 || warps > kA8MaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -81,8 +81,11 @@ def has_stackable_experts(params: Dict[str, Any]) -> bool:
 def _prepare(v: QuantizedTensor) -> QuantizedTensor:
     """The serving prep with the adaptive lane quantum: padding a narrow
     expert stack to 512 columns streams real extra bytes (Qwen3-MoE's
-    768 -> 1024 is +33%), so stacks narrower than 4 x 512 pad to 128."""
-    return prepare_stacked_tensor(v, LANE_QUANTUM if v.out_features >= 4 * LANE_QUANTUM else 128)
+    768 -> 1024 is +33%), so stacks narrower than 4 x 512 pad to 128.
+    Scales stored bf16, the only storage K8 takes (the JAX package's
+    default is f32, served there by per-selection calls)."""
+    q = LANE_QUANTUM if v.out_features >= 4 * LANE_QUANTUM else 128
+    return prepare_stacked_tensor(v, q, scale_store_dtype=torch.bfloat16)
 
 
 def _stack_layer_experts(lp):

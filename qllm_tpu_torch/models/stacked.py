@@ -9,8 +9,9 @@ they share their quantization, out-features padded to a multiple of 512,
 where the geometry admits it, every other stack (2/3/5/6/7/8 bits,
 act-order, ``planar=False``) kept in its packed GPTQ-order or bit-plane
 words, zero points pre-folded to ``zs = zeros * scales`` and scales / zs
-stored in ``scale_store_dtype``. The stacked buffers are bit-identical to
-the JAX package's for the same options.
+stored in ``scale_store_dtype`` (f32 by default, as in the JAX package;
+bf16 is the serving layout of ``bench.py`` and the engine). The stacked
+buffers are bit-identical to the JAX package's for the same options.
 
 ``forward_stacked`` walks the layers in a Python loop (the JAX package's
 ``lax.scan`` over layer indices); every quantized matmul reads its layer
@@ -168,12 +169,11 @@ def _stack_qt(vals) -> QuantizedTensor:
 
 
 LANE_QUANTUM = 512
-# The port's default scale storage: bf16, the layout its planar kernels
-# take (bench.py:417 serves it too). The JAX package's default is f32,
-# whose planar stacks run _qmm_kernel_planar (pallas_qmm.py:999), not yet
-# ported: scale_store_dtype=torch.float32 is taken for every stack that
-# does not become planar.
-SCALE_STORE_DTYPE = torch.bfloat16
+# The default scale storage of the dense stacks, the JAX package's
+# (qllm_tpu/models/stacked.py:145, :225, :324): f32, whose planar stacks
+# run K17 / K18 with the correction outside; bf16 (the serving layout of
+# bench.py:417-449 and of the engine) runs K1 / K2 with it fused.
+SCALE_STORE_DTYPE = torch.float32
 
 
 def stack_layer_params(
@@ -215,10 +215,7 @@ def prepare_stacked_tensor(
     ``zs = zeros * scales`` (in f32) and scales / zs stored in
     ``scale_store_dtype``. The JAX package's tuned wider padding
     (ops.autotune.padded_width_hint) holds TPU measurements and is not
-    ported.
-
-    A planar stack with f32 scales would run ``_qmm_kernel_planar``
-    (pallas_qmm.py:999), not yet ported: it raises NotImplementedError."""
+    ported."""
     g = node.effective_group_size
     K = node.in_features
     is_planar = (
@@ -227,11 +224,6 @@ def prepare_stacked_tensor(
         and node.perm is None
         and (planar_bk(K, g) is not None or planar_full_ok(K, g))
     )
-    if is_planar and scale_store_dtype == torch.float32:
-        raise NotImplementedError(
-            "a planar stack with f32 scales runs _qmm_kernel_planar (qllm_tpu/ops/pallas_qmm.py:999), "
-            "not yet ported; use scale_store_dtype=torch.bfloat16 or planar=False"
-        )
     scales = node.scales.to(torch.float32)
     zeros = node.zeros.to(torch.float32)
     qweight = node.qweight
@@ -534,7 +526,13 @@ def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> 
     dicts is emptied once its experts are stacked and its projections
     fused, and each entry of the working copies is dropped as its stacked
     copy lands, so the sources free progressively instead of doubling
-    resident memory (the [L*E] concat included)."""
+    resident memory (the [L*E] concat included).
+
+    Every stack stores its scales bf16, the experts' included: K8, the
+    grouped expert kernel, takes bf16 scales only, and the JAX package
+    serves its default f32 expert stacks by per-selection calls
+    (grouped_experts_ok, pallas_qmm.py:1820-1823), a path the port does
+    not have."""
     from .moe import _stack_layer_experts
 
     src = params.get("layers")
@@ -562,7 +560,7 @@ def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> 
             slp[k] = vals  # per-layer (possibly sparse-only) entry
         elif isinstance(vals[0], QuantizedTensor):
             if _qt_stackable_across(vals):
-                slp[k] = prepare_stacked_tensor(_stack_qt(vals))
+                slp[k] = prepare_stacked_tensor(_stack_qt(vals), scale_store_dtype=torch.bfloat16)
                 consume_key(k)
             else:
                 slp[k] = vals

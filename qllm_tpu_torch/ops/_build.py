@@ -60,6 +60,8 @@ _SIGNATURES = {
     "qllm_gptq_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "qllm_gptq_stacked_w4a8_gemv": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
     "qllm_bitplane_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
+    "qllm_w4_planar_f32s_gemv": [_P] * 4 + [_I] * 7 + [_P],
+    "qllm_w4_planar_f32s_gemm": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -3,25 +3,34 @@
 
 ``qmatmul_stacked(x, qt, layer)`` computes ``y = x @ dequant(qt[layer])``
 for the stacks ``models.stacked`` prepares, and takes the branch the JAX
-package's gate takes (``stacked_route``, pallas_qmm.py:1576-1664):
+package's gate takes on its chip (``stacked_route``, pallas_qmm.py:
+1576-1664 and ``_qmm_2d_stacked`` :1115-1168):
 
   * 4-bit planar stacks ``[L, K/8, Np]`` with bf16 scales and prefolded
-    ``zs = zeros * scales`` ``[L, G, Np]``: K1 ``w4_planar_gemv`` (M <= 32,
-    decode: per-group dots over the integer nibbles on the tensor cores,
-    the zero-point correction and the pre-matmul RMSNorm in-kernel), K2
+    ``zs = zeros * scales`` ``[L, G, Np]`` (the fused correction): K1
+    ``w4_planar_gemv`` (M <= 32, decode: per-group dots over the integer
+    nibbles on the tensor cores, the zero-point correction and the
+    pre-matmul RMSNorm in-kernel), K2
     ``w4_planar_gemm`` (M > 32, prefill: dequantize to bf16 in registers,
     bf16 tensor-core product; the RMSNorm runs before it), K11
     ``w4a8_planar_gemv`` (M <= 32 with ``w4a8=True`` where the JAX package
     takes its full-K kernel: per-token int8 activations,
     ``quantize_rows_int8``, bit for bit the JAX package's, in s8 x s8 ->
     s32 tensor-core products, the RMSNorm in K11's quantizer prologue);
+  * every other 4-bit planar stack (f32 scales, the JAX package's default,
+    or zeros not prefolded): K17 ``w4_planar_f32s_gemv`` (M <= 32) and
+    K18 ``w4_planar_f32s_gemm`` (M > 32) (``ops.qmm_planar``), with the
+    pre-normalize and the f32 correction ``out - xsum @ zs[layer]`` done
+    here in torch, as the JAX package does outside ``_qmm_kernel_planar``;
   * GPTQ-order 2/4-bit and bit-plane 3/5/6/7-bit stacks at M <= 32: K14,
     K15 and K16 (``ops.qmm_stacked``), with what JAX computes outside its
     kernels done here in torch: the pre-normalize, the f32 zero-point
     correction of the unfused kernels and the int8 token scale;
-  * everything else (8 bits, act-order, M > 32 off the planar path): the
-    layer sliced out, un-prefolded, unplanarized and unpadded, through
-    ``ops.ref_matmul.qmatmul`` (K9 / K10 / K12 on the card).
+  * everything else (8 bits, act-order, M > 32 off the planar path, a
+    planar geometry with no k-block at decode, e.g. the 7B down_proj
+    K = 11008 with f32 scales): the layer sliced out, un-prefolded,
+    unplanarized and unpadded, through ``ops.ref_matmul.qmatmul`` (K9 /
+    K10 / K12 on the card).
 
 ``qmatmul_grouped_experts(x_rows, stack, ids)`` computes
 ``y[i] = x_rows[i] @ dequant(stack[ids[i]])`` for every MoE (token,
@@ -65,12 +74,13 @@ __all__ = [
     "w4_planar_gemm_plain",
     "planar_full_ok",
     "planar_bk",
+    "planar_bk_relaxed",
 ]
 
 GEMV_MAX_M = 32
 # the JAX package's VMEM cap on a full-K planar block, (K/8) * bn words
-# (QLLM_TPU_QMM_FULLK_MAX's default, pallas_qmm.py:1181): the a8 kernel
-# runs only where JAX's full-K kernel would
+# (QLLM_TPU_QMM_FULLK_MAX's default, pallas_qmm.py:1181, :1648): the
+# planar gate and the a8 kernel admit only what JAX's full-K kernel would
 _FULLK_MAX_BYTES = 4 << 20
 
 
@@ -113,6 +123,21 @@ def planar_bk(K: int, g: int, target: int = 2048):
     return best
 
 
+def planar_bk_relaxed(K: int, g: int, target: int = 2048):
+    """k-block of the JAX package's blocked planar kernel at prefill where
+    ``planar_bk`` finds none (pallas_qmm.py:974-996): bk | K, bk % 256 ==
+    0, bk % 2g == 0 (whole groups per half-block), or None. The 7B
+    down_proj K = 11008 = 2^8 * 43 takes bk = 256."""
+    if g <= 0 or K % (2 * g):
+        return None
+    quantum = math.lcm(256, 2 * g)
+    best = None
+    for bk in range(quantum, min(K, target) + 1, quantum):
+        if K % bk == 0:
+            best = bk
+    return best
+
+
 def _pick_block(dim: int, quantum: int, target: int) -> int:
     """The largest multiple of ``quantum`` that divides ``dim`` and is <=
     ``target``, else ``dim`` (pallas_qmm.py:55)."""
@@ -132,9 +157,10 @@ def a8_full_k_ok(K: int, g: int, Np: int) -> bool:
 
 
 def _kernel_geometry_ok(K: int, g: int) -> bool:
-    """What K1 and K2 take: groups of a multiple of 32 values (whole
-    32-value tiles of each half of K) and a group split at K/2."""
-    return g > 0 and g % 32 == 0 and K % 64 == 0 and (K // 2) % g == 0
+    """What the planar kernels (K1, K2, K8, K17, K18) take: groups of a
+    multiple of 16 values (whole 16-value k-tiles of each half of K), a
+    group split at K/2 and K a multiple of 64."""
+    return g >= 16 and g % 16 == 0 and K % 64 == 0 and (K // 2) % g == 0
 
 
 def _choose_bk(K: int, g: int, pf: int, target: int) -> int:
@@ -600,13 +626,32 @@ w4_grouped_gemv.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _planar_chip_ok(qt_stacked: QuantizedTensor, M: int, fuse: bool) -> bool:
+    """The JAX gate's admission of a planar stack on its chip
+    (pallas_qmm.py:1627-1653): a k-block (``planar_bk``), or the fused
+    full-K kernel within its VMEM cap, or at M > 32 the relaxed k-block."""
+    K = qt_stacked.in_features
+    g = qt_stacked.effective_group_size
+    bn = _pick_block(qt_stacked.qweight.shape[-1], 128, 512)
+    ok = planar_bk(K, g, K) is not None or (
+        fuse and planar_full_ok(K, g) and (K // 8) * bn * 4 <= _FULLK_MAX_BYTES
+    )
+    if not ok and M > GEMV_MAX_M:
+        ok = planar_bk_relaxed(K, g, K) is not None
+    return ok
+
+
 def stacked_route(qt_stacked: QuantizedTensor, M: int, w4a8: bool = False) -> str:
     """The branch ``qmatmul_pallas_stacked`` takes for this stack at M rows
-    (pallas_qmm.py:1576-1664, with the JAX package's kernels forced as on
-    its chip), one of:
+    on the JAX package's chip (pallas_qmm.py:1576-1664, then
+    ``_qmm_2d_stacked`` :1115-1168; the CPU-only fusing of f32-scale
+    stacks, :1615, is not the chip's and is not taken), one of:
 
-      * "planar": K1 / K2 / K11 (a 4-bit planar stack in the geometry
-        they take, ``_kernel_geometry_ok``);
+      * "planar": K1 / K2 / K11, a 4-bit planar stack whose correction
+        the JAX package fuses (prefolded zs, bf16 scales);
+      * "planar_f32": K17 / K18, every other 4-bit planar stack (f32
+        scales, or zeros not prefolded): ``_qmm_kernel_planar`` with the
+        correction outside;
       * "v3", "v4", "a8": 2/4-bit GPTQ-order words, M <= 32, the per-group
         geometry; "v4" (K14 fused) for prefolded bf16-scale stacks, "a8"
         (K15) under ``w4a8`` for the other prefolded ones, else "v3" (K14
@@ -614,25 +659,28 @@ def stacked_route(qt_stacked: QuantizedTensor, M: int, w4a8: bool = False) -> st
       * "odd", "odd_fused": 3/5/6/7 bits, M <= 32, in the bit-plane
         kernel's geometry (``odd_stacked_kernel_ok``); fused for prefolded
         bf16-scale stacks (K16);
-      * "fallback": the layer through ``ops.ref_matmul.qmatmul``.
+      * "fallback": the layer through ``ops.ref_matmul.qmatmul``; for a
+        planar stack, a geometry the JAX gate admits no kernel for (at
+        decode: no ``planar_bk`` and no fused full-K kernel, e.g. the 7B
+        down_proj K = 11008 with f32 scales), and groups of g % 16 != 0,
+        which JAX's planar kernels take and the port's do not.
 
-    The JAX package's ``QLLM_TPU_FUSED_CORR_V3`` experiment switch is not
-    ported: a GPTQ-order stack fuses its correction when its scales are
-    stored bf16, as the JAX package's default does. A planar stack with
-    f32 scales (``_qmm_kernel_planar``, pallas_qmm.py:999) raises."""
+    Not mirrored, as in every ported gate: the environment switches
+    (``QLLM_TPU_FUSED_CORR``, ``QLLM_TPU_FUSED_CORR_V3``,
+    ``QLLM_TPU_QMM_PREFILL_FULLK_A8``, ``QLLM_TPU_PREFILL_RELAXED_BK``,
+    ``QLLM_TPU_PREFILL_DEQUANT``) and the autotuned blocks
+    (``_tuned_blocks``, :1562): each takes its default. A GPTQ-order stack
+    fuses its correction when its scales are stored bf16."""
     bits = qt_stacked.bits
     K = qt_stacked.in_features
     g = qt_stacked.effective_group_size
     bf16_scales = qt_stacked.scales.dtype != torch.float32
     if qt_stacked.planar:
-        if not bf16_scales:
-            raise NotImplementedError(
-                "qmatmul_stacked: a planar stack with f32 scales runs _qmm_kernel_planar "
-                "(qllm_tpu/ops/pallas_qmm.py:999), not yet ported; stack with "
-                "scale_store_dtype=torch.bfloat16 (models.stacked.stack_layer_params)"
-            )
-        ok = bits == 4 and qt_stacked.perm is None and qt_stacked.zeros_prefolded and _kernel_geometry_ok(K, g)
-        return "planar" if ok else "fallback"
+        fuse = qt_stacked.zeros_prefolded and bf16_scales
+        ok = bits == 4 and qt_stacked.perm is None and _planar_chip_ok(qt_stacked, M, fuse)
+        if not ok or not _kernel_geometry_ok(K, g):
+            return "fallback"
+        return "planar" if fuse else "planar_f32"
     if qt_stacked.perm is not None or M > GEMV_MAX_M or bits not in (2, 3, 4, 5, 6, 7):
         return "fallback"
     fuse = qt_stacked.zeros_prefolded and bf16_scales
@@ -703,6 +751,8 @@ def qmatmul_stacked(
     Np = qt_stacked.qweight.shape[-1]
     if route == "planar":
         y = _planar_matmul(x2, qt_stacked, layer, norm_w, norm_eps, w4a8, M, K, g, Np)
+    elif route == "planar_f32":
+        y = _planar_unfused_matmul(x2, qt_stacked, layer, norm_w, norm_eps, M, K, g)
     else:
         y = _packed_matmul(x2, qt_stacked, layer, norm_w, norm_eps, route, K, g)
     if y.shape[1] != N:
@@ -720,6 +770,31 @@ def _planar_matmul(x2, qt_stacked, layer, norm_w, norm_eps, w4a8, M, K, g, Np):
     if norm_w is not None:
         x2 = _rms_norm_rows(x2, norm_w[layer], norm_eps)
     return w4_planar_gemm(x2.to(torch.bfloat16), qt_stacked.qweight, qt_stacked.scales, qt_stacked.zeros, layer)
+
+
+def _planar_unfused_matmul(x2, qt_stacked, layer, norm_w, norm_eps, M, K, g):
+    """K17 / K18 and the work JAX does outside ``_qmm_kernel_planar``
+    (pallas_qmm.py:1165-1167, :1300-1304, :1351-1383): the pre-normalize,
+    x in bf16, bf16 scales cast to f32 (here the layer's slice), then
+    ``out - xsum @ zs_l`` in f32 with xsum the group sums of the bf16 x and
+    zs_l the prefolded zs or ``zeros * scales`` folded here, rounded to
+    bf16. Stays a16 under W4A8, as in the JAX package (its a8 branch lives
+    in the fused full-K kernel only)."""
+    from .qmm_planar import w4_planar_f32s_gemm, w4_planar_f32s_gemv
+
+    if norm_w is not None:
+        x2 = _rms_norm_rows(x2, norm_w[layer], norm_eps)
+    xb = x2.to(torch.bfloat16)
+    qw, sc, lsc = qt_stacked.qweight, qt_stacked.scales, layer
+    if sc.dtype != torch.float32:
+        qw, sc, lsc = qw[layer : layer + 1], sc[layer : layer + 1].to(torch.float32), 0
+    fn = w4_planar_f32s_gemv if M <= GEMV_MAX_M else w4_planar_f32s_gemm
+    out = fn(xb, qw, sc, lsc)
+    xsum = xb.to(torch.float32).reshape(M, K // g, g).sum(dim=2)
+    zs_l = qt_stacked.zeros[layer].to(torch.float32)
+    if not qt_stacked.zeros_prefolded:
+        zs_l = zs_l * sc[lsc]
+    return (out - xsum @ zs_l).to(torch.bfloat16)
 
 
 def _packed_matmul(x2, qt_stacked, layer, norm_w, norm_eps, route, K, g):

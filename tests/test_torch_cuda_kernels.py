@@ -11,7 +11,7 @@ import torch
 
 from qllm_tpu_torch.ops import attention as att
 from qllm_tpu_torch.ops import flash_prefill as fp
-from qllm_tpu_torch.ops import qmm, qmm2d, repack
+from qllm_tpu_torch.ops import qmm, qmm2d, qmm_planar, repack
 
 pytestmark = pytest.mark.cuda
 
@@ -252,7 +252,8 @@ def test_quantizer_kernel_is_bit_exact(gen, dtype):
 
 
 @pytest.mark.parametrize("M,K,Np,g,norm", [(1, 1024, 512, 128, False), (8, 1280, 384, 64, True),
-                                           (20, 2048, 1024, 128, True), (32, 512, 640, 32, False)])
+                                           (20, 2048, 1024, 128, True), (32, 512, 640, 32, False),
+                                           (8, 512, 512, 16, False), (5, 768, 384, 48, True)])
 def test_w4a8_planar_gemv_kernel_matches_plain(gen, M, K, Np, g, norm):
     L = 2
     qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
@@ -369,3 +370,95 @@ def test_stacked_gemv_rows_do_not_depend_on_m(gen):
         y8 = fn(x, qw, sc, zs, 1, bits, 128, True)
         for m in (0, 5):
             assert torch.equal(fn(x[m : m + 1], qw, sc, zs, 1, bits, 128, True)[0], y8[m]), (bits, m)
+
+
+def _f32s_stack(gen, K, Np, g, L=3):
+    qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = (torch.rand((L, K // g, Np), device="cuda", generator=gen) + 0.5) * 0.01
+    return qw, sc
+
+
+def _f32s_close(y, x, qw, sc):
+    """K17 / K18 against their plain version on layer 1: within 1e-2 *
+    max|plain|, which the next layer's plain version misses, and within
+    1e-4 * max|plain|, which the product with the weight q * s rounded to
+    bf16 first (a dequantize-then-dot kernel) misses."""
+    ref = qmm_planar.w4_planar_f32s_gemv_plain(x, qw, sc, 1)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(y, ref, atol=1e-2 * scale, rtol=0)
+    assert float((y - qmm_planar.w4_planar_f32s_gemv_plain(x, qw, sc, 2)).abs().max()) > 1e-2 * scale
+    torch.testing.assert_close(y, ref, atol=1e-4 * scale, rtol=0)
+    K, Np = x.shape[1], qw.shape[-1]
+    G = sc.shape[1]
+    w = (qmm._planar_values(qw[1], K).reshape(G, K // G, Np) * sc[1][:, None]).reshape(K, Np).to(torch.bfloat16)
+    assert float((x.float() @ w.float() - ref).abs().max()) > 1e-4 * scale
+
+
+@pytest.mark.parametrize(
+    "M,K,Np,g",
+    [(1, 2048, 512, 128), (8, 512, 1024, 16), (32, 2816, 512, 128), (3, 768, 640, 64)],
+)
+def test_k17_planar_f32s_gemv_matches_plain(gen, M, K, Np, g):
+    qw, sc = _f32s_stack(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm_planar.w4_planar_f32s_gemv(x, qw, sc, 1)
+    assert y.dtype == torch.float32
+    _f32s_close(y, x, qw, sc)
+
+
+@pytest.mark.parametrize(
+    "M,K,Np,g",
+    [(33, 2048, 512, 128), (200, 2816, 640, 128), (64, 512, 512, 16), (130, 1024, 256, 32)],
+)
+def test_k18_planar_f32s_gemm_matches_plain(gen, M, K, Np, g):
+    qw, sc = _f32s_stack(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm_planar.w4_planar_f32s_gemm(x, qw, sc, 1)
+    _f32s_close(y, x, qw, sc)
+
+
+def test_k17_rows_do_not_depend_on_m(gen):
+    qw, sc = _f32s_stack(gen, 4096, 1024, 128)
+    x = torch.randn((32, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm_planar.w4_planar_f32s_gemv(x, qw, sc, 1)
+    for m in (1, 8, 17):
+        assert torch.equal(qmm_planar.w4_planar_f32s_gemv(x[:m], qw, sc, 1), y[:m])
+
+
+@pytest.mark.parametrize("M", [8, 40])
+def test_planar_kernels_take_g16(gen, M):
+    """K1 (M <= 32) and K2 (M > 32) on a g = 16 planar stack."""
+    K, Np = 512, 512
+    qw = torch.randint(-(2**31), 2**31, (2, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((2, K // 16, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+    zs = (sc.float() * 8).to(torch.bfloat16)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    fn, plain = (qmm.w4_planar_gemv, qmm.w4_planar_gemv_plain) if M <= 32 else (qmm.w4_planar_gemm,
+                                                                               qmm.w4_planar_gemm_plain)
+    y, ref = fn(x, qw, sc, zs, 1).float(), plain(x, qw, sc, zs, 1).float()
+    torch.testing.assert_close(y, ref, atol=2e-2 * float(ref.abs().max()), rtol=2e-2)
+
+
+def test_w4a8_g16_full_k_stack_launches_k11(gen):
+    """W4A8 at M <= 32 on a bf16 prefolded g = 16 planar stack in the
+    full-K geometry: qmatmul_stacked takes K11, as the JAX package takes
+    its a8 full-K kernel there, within one bf16 ulp plus 1e-3 * max|y| of
+    K11's plain version."""
+    from qllm_tpu_torch.models.stacked import prepare_stacked_tensor
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    K, N, g, L, M = 512, 512, 16, 2, 8
+    raw = QuantizedTensor(
+        qweight=torch.randint(-(2**31), 2**31, (L, K // 8, N), dtype=torch.int32, device="cuda", generator=gen),
+        scales=((torch.rand((L, K // g, N), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.float16),
+        zeros=torch.randint(0, 16, (L, K // g, N), device="cuda", generator=gen).to(torch.float16),
+        perm=None, bits=4, group_size=g, in_features=K, out_features=N,
+    )
+    st = prepare_stacked_tensor(raw, scale_store_dtype=torch.bfloat16)
+    assert st.planar and qmm.stacked_route(st, M, w4a8=True) == "planar"
+    assert qmm.a8_full_k_ok(K, g, st.qweight.shape[-1])
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm.w4a8_planar_gemv.launches
+    y = qmm.qmatmul_stacked(x, st, 1, w4a8=True)
+    assert qmm.w4a8_planar_gemv.launches == before + 1
+    _a8_close(y, qmm.w4a8_planar_gemv_plain(x, st.qweight, st.scales, st.zeros, 1)[:, :N])

@@ -115,7 +115,7 @@ def _hybrid_both(npp, consume=False):
     ts = tstacked.stack_layer_params_hybrid(tp, consume=consume)
     if consume:  # the caller's layer dicts are handed over and emptied
         assert all(lp == {} for lp in tp["layers"])
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
     return js, ts
 
 
@@ -160,7 +160,7 @@ def test_grouped_gemv_plain_matches_jax_kernel(monkeypatch, K, N, shared):
     raw = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *parts)
     jw = jstacked.prepare_stacked_tensor(raw, lane_quantum=128, planar=True, scale_store_dtype=jnp.bfloat16)
     tw = tstacked.prepare_stacked_tensor(
-        params_from_numpy(jax.tree_util.tree_map(np.asarray, raw), device="cpu"), lane_quantum=128
+        params_from_numpy(jax.tree_util.tree_map(np.asarray, raw), device="cpu"), lane_quantum=128, scale_store_dtype=torch.bfloat16
     )
     _assert_identical({"w": jw}, {"w": tw})
     x = rng.normal(size=(5, K)).astype(np.float32)

@@ -75,6 +75,15 @@ def test_planar_matmul_plain_matches_pallas(monkeypatch, M, K, norm, branch):
 
 
 def test_qmatmul_stacked_refuses_f32_scale_stacks():
+    """The f32-scale planar stack of the JAX package's default stacking,
+    once refused, is served as on the JAX package's chip: K = 256, g = 128
+    has no ``planar_bk`` and its correction is not fused, so decode takes
+    the fallback and prefill K18's plain version (``planar_f32``, the
+    relaxed k-block 256), held against ``_qmm_kernel_planar`` interpreted
+    within one bf16 ulp of the output's magnitude. (The name dates from
+    the refusal.)"""
+    from qllm_tpu.ops.pallas_qmm import _qmm_2d_stacked
+
     rng = np.random.default_rng(0)
     qts = [
         quantize_tensor(jnp.asarray(rng.normal(size=(256, 128)).astype(np.float32)), bits=4, group_size=128)
@@ -82,5 +91,12 @@ def test_qmatmul_stacked_refuses_f32_scale_stacks():
     ]
     js = stack_layer_params({"layers": [{"q_proj": q} for q in qts]})["layers"]["q_proj"]
     ts = params_from_numpy(jax.tree_util.tree_map(np.asarray, js), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tqmm.qmatmul_stacked(torch.zeros((2, 256), dtype=torch.bfloat16), ts, 0)
+    assert ts.planar and ts.scales.dtype == torch.float32
+    assert tqmm.stacked_route(ts, 2) == "fallback" and tqmm.stacked_route(ts, 40) == "planar_f32"
+    xj = jnp.asarray(rng.normal(size=(40, 256)).astype(np.float32), jnp.bfloat16)
+    y_ref = _qmm_2d_stacked(xj, jnp.int32(1), js.qweight, js.scales, js.zeros, 4, 128, 256, js.qweight.shape[-1],
+                            planar=True, prefolded=True, fuse_corr=False)
+    y_ref = np.asarray(y_ref.astype(jnp.float32))[:, :128]
+    y = tqmm.qmatmul_stacked(tensor_from_numpy(np.asarray(xj), "cpu"), ts, 1).float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(y_ref).max())) - 7)
+    np.testing.assert_allclose(y, y_ref, atol=ulp, rtol=0)

@@ -140,8 +140,8 @@ def test_ring_flush_plain_matches_pallas():
 def _stacked_pair(jcfg, npp):
     js = jstacked.stack_layer_params(jax.tree_util.tree_map(jnp.asarray, npp), scale_store_dtype=jnp.bfloat16)
     js["lm_head"] = jstacked.prepare_lm_head(js["lm_head"], scale_store_dtype=jnp.bfloat16)
-    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"))
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"), scale_store_dtype=torch.bfloat16)
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
     return js, ts
 
 
@@ -221,8 +221,8 @@ def test_cache_from_numpy_carries_every_field():
 def _tiny_ring_model():
     jcfg, npp, _ = _params(RING_CFG, 1, 8)
     tcfg = tllama.ModelConfig(**dataclasses.asdict(jcfg))
-    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"))
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"), scale_store_dtype=torch.bfloat16)
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
     return tcfg, ts
 
 

@@ -109,8 +109,8 @@ def test_slice_stacked_prefill_decode_matches_jax(monkeypatch):
     js = jstacked.stack_layer_params(jp, scale_store_dtype=jnp.bfloat16)
     js["lm_head"] = jstacked.prepare_lm_head(js["lm_head"], scale_store_dtype=jnp.bfloat16)
     tp = params_from_numpy(npp, device="cpu")
-    ts = tstacked.stack_layer_params(tp)
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts = tstacked.stack_layer_params(tp, scale_store_dtype=torch.bfloat16)
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
     _assert_stacks_identical(js["layers"], ts["layers"])
     _assert_stacks_identical({"lm_head": js["lm_head"]}, {"lm_head": ts["lm_head"]})
 
@@ -161,7 +161,7 @@ def test_unstack_inverts_stack():
     _, npp, _ = _params()
     tcfg = tllama.ModelConfig(**CFG_KW)
     tp = params_from_numpy(npp, device="cpu")
-    ts = tstacked.stack_layer_params(tp)
+    ts = tstacked.stack_layer_params(tp, scale_store_dtype=torch.bfloat16)
     back = tstacked.unstack_layer_params(ts, tcfg.num_hidden_layers, tcfg)
     for lp0, lp1 in zip(tp["layers"], back["layers"]):
         assert set(lp0) == set(lp1)
@@ -175,7 +175,7 @@ def test_unstack_inverts_stack():
             else:
                 assert torch.equal(lp1[k], v)
     # and stacking the unstacked params again gives the same buffers
-    again = tstacked.stack_layer_params(back)
+    again = tstacked.stack_layer_params(back, scale_store_dtype=torch.bfloat16)
     for k, v in ts["layers"].items():
         if isinstance(v, TQT):
             for f in ("qweight", "scales", "zeros"):
@@ -189,8 +189,8 @@ def test_decode_past_cache_end_raises():
     runs (on the card K3a would otherwise drop it silently)."""
     jcfg, npp, tokens = _params()
     tcfg = tllama.ModelConfig(**dataclasses.asdict(jcfg))
-    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"))
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"), scale_store_dtype=torch.bfloat16)
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
     cache = t_make_cache(tcfg, B, MAX_SEQ, device="cpu")
     first = torch.zeros((B, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="max_seq"):

@@ -249,12 +249,18 @@ def test_stacked_branch_and_plain_versions_match_jax(jax_env, bits, g, K, planar
 
 
 def test_planar_f32_scale_stack_raises_naming_the_next_kernel():
+    """A planar stack with f32 scales, once refused naming
+    ``_qmm_kernel_planar``, now stacks and takes that kernel's port where
+    the JAX package's chip does: K = 256, g = 128 has no ``planar_bk``, so
+    decode takes the fallback and prefill K18 (the relaxed k-block). (The
+    name dates from the refusal.)"""
     rng = np.random.default_rng(3)
     qts = [quantize_tensor(jnp.asarray(rng.normal(size=(256, 128)).astype(np.float32)), bits=4, group_size=128)
            for _ in range(2)]
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, {"layers": [{"q_proj": q} for q in qts]}), "cpu")
-    with pytest.raises(NotImplementedError, match="_qmm_kernel_planar"):
-        tstacked.stack_layer_params(tp, scale_store_dtype=torch.float32)
+    st = tstacked.stack_layer_params(tp, scale_store_dtype=torch.float32)["layers"]["q_proj"]
+    assert st.planar and st.scales.dtype == torch.float32
+    assert qmm.stacked_route(st, 8) == "fallback" and qmm.stacked_route(st, 40) == "planar_f32"
     # planar=False takes f32 scales (K14 unfused)
     sp = tstacked.stack_layer_params(tp, planar=False, scale_store_dtype=torch.float32)
     assert sp["layers"]["q_proj"].scales.dtype == torch.float32 and not sp["layers"]["q_proj"].planar

@@ -178,7 +178,7 @@ def _stacks(K, N, g, L, seed):
     params = {"embed_tokens": jnp.zeros((8, 8)), "norm": jnp.ones((8,)), "layers": [{"q_proj": q} for q in qts]}
     js = jstacked.stack_layer_params(params, scale_store_dtype=jnp.bfloat16)["layers"]["q_proj"]
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), device="cpu")
-    return js, tstacked.stack_layer_params(tp)["layers"]["q_proj"], rng
+    return js, tstacked.stack_layer_params(tp, scale_store_dtype=torch.bfloat16)["layers"]["q_proj"], rng
 
 
 @pytest.mark.parametrize("K,g,M,norm", [(1280, 64, 32, False), (1024, 128, 8, True)])
@@ -262,8 +262,8 @@ def test_tiny_llama_stacked_w4a8_greedy_matches_jax(jax_w4a8):
     tokens = np.random.default_rng(10).integers(0, LLAMA["vocab_size"], (B, T)).astype(np.int32)
     js = jstacked.stack_layer_params(jax.tree_util.tree_map(jnp.asarray, npp), scale_store_dtype=jnp.bfloat16)
     js["lm_head"] = jstacked.prepare_lm_head(js["lm_head"], scale_store_dtype=jnp.bfloat16)
-    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"))
-    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"])
+    ts = tstacked.stack_layer_params(params_from_numpy(npp, device="cpu"), scale_store_dtype=torch.bfloat16)
+    ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
 
     jcache = j_make_cache(jcfg, B, MAX_SEQ)
     jl, jcache = j_prefill(js, jcfg, jnp.asarray(tokens), jcache)
