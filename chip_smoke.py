@@ -21,6 +21,10 @@ Phases, each of which fails the run on any error or disagreement:
      into a ring-fused cache (max_seq 640), 64 ring-fused greedy steps,
      then a 2048-token prompt flash-prefilled into a 2048-row int8
      cache, counts again set to 0 before and read after;
+ 4b. pnp (after main1, on its model): qmatmul_pnp_stacked, the JAX
+     package's ops-level entry point for o_proj -> residual + RMSNorm ->
+     gate|up (K20), at batch 8 for each of the 32 layers, against K1, the
+     residual and K1 with the norm;
   5. serve: the continuous-batching engine (max_batch 8, max_seq 2048,
      prefill_chunk 256) on the 7B shape with per-layer (not stacked) W4
      g128 params, so every matmul runs K9 (M <= 32) or K10: 24 requests
@@ -41,7 +45,10 @@ Phases, each of which fails the run on any error or disagreement:
      [0, 12288) are filled on the card, 16 steps from position 12288 (K3b
      past S = 8192, the JAX package's key-chunked path);
   8. moe_qwen3: Qwen3-30B-A3B (48 layers, 128 experts, top-8, q/k RMS
-     norm), batch 1 as (a) and batch 8 with 64 sorted selections per
+     norm), batch 1 as (a); then from one prefilled batch-1 cache state
+     32 steps through K8 and 32 with moe_fused=True, each token's whole
+     expert MLP in one K19 launch a layer (first-step logits within JAX's
+     fused-vs-two-launch bound); batch 8 with 64 sorted selections per
      step through K8;
   9. cross: the 7B widths at 2 layers on the card and on the CPU (plain
      versions), B=2, T=32, 4 steps on the plain cache, then B=1, T=256
@@ -49,7 +56,10 @@ Phases, each of which fails the run on any error or disagreement:
      with W4A8 (K11); the engine over 2 per-layer layers of 4 and 8 bits,
      with bf16 and with int8 activations (K12 on the 4-bit layer, K9 on
      the 8-bit one); then 2 layers at Mixtral and at Qwen3 width, a short
-     prompt and sparse steps: logits within tolerance, the same greedy ids;
+     prompt and sparse steps: bf16 expert stacks through K8, Qwen3 at
+     batch 1 with moe_fused (K19), f32-scale stacks (the JAX package's
+     default) at batch 1 and 2 and a 2-bit Qwen3 served per selection (no
+     K8): logits within tolerance, the same greedy ids;
  11. widths (after serve): the 7B geometry stacked at other widths
      through the JAX package's routing: 2-bit g128 with f32 scales, 32
      layers, batch-8 prefill of 128 tokens (the fallback's K10) and 32
@@ -205,14 +215,42 @@ QWEN3 = dict(
 MOE = dict(T1=512, STEPS1=64, MAX1=640, B=8, T=128, STEPS=64, MAX_SEQ=256)
 # the long-context path: batch 8, cache length, filled rows, steps
 LONG = dict(B=8, MAX_SEQ=16384, POS=12288, STEPS=16)
-# the MoE cross-check legs: (config, batch, prompt, sparse steps)
-CROSS_MOE = (("Mixtral", MIXTRAL, 2, 16, 2), ("Qwen3", QWEN3, 4, 16, 4))
+# the MoE cross-check legs: (name, config, batches, prompt, sparse steps,
+# scale storage, expert bits, moe_fused), each batch on the same stacks;
+# bf16 4-bit stacks run K8 (K19 with moe_fused), the others are served per
+# selection (no K8)
+CROSS_MOE = (
+    ("Mixtral", MIXTRAL, (2,), 16, 2, "bf16", 4, False),
+    ("Qwen3", QWEN3, (4,), 16, 4, "bf16", 4, False),
+    ("Qwen3 fused", QWEN3, (1,), 16, 4, "bf16", 4, True),
+    ("Mixtral f32", MIXTRAL, (1, 2), 16, 2, "f32", 4, False),
+    ("Qwen3 f32", QWEN3, (1, 2), 16, 4, "f32", 4, False),
+    ("Qwen3 2-bit", QWEN3, (1,), 16, 4, "f32", 2, False),
+)
 # K8 cases: (name, K, padded N, experts in the stack, selections, mode)
 K8_CASES = (
     ("mixtral gateup", 4096, 28672, 8, 2, "shared"),
     ("qwen3 gateup", 2048, 1536, 128, 8, "shared"),
     ("qwen3 down", 768, 2048, 128, 64, "sorted"),
 )
+# K19 (the fused expert MLP) at Qwen3-30B-A3B's batch-1 decode: experts in
+# the stack, hidden (K1), expert width (K2), padded down width, selections
+K19_CASE = dict(E=128, K1=2048, K2=768, Np2=2048, n=8)
+# K20 (o_proj -> residual + RMSNorm -> gate|up) at the 7B's shapes: rows
+K20_ROWS = (1, 8)
+# K19 / K20 against their plain versions: one bf16 ulp of max|plain| on the
+# bf16 outputs, 1e-5 * max|plain| on K20's f32 residual (f32 sums of the
+# same products in another order)
+HN_TOL = 1e-5
+# the fused leg of moe_qwen3: steps from the batch-1 prefill's cache state,
+# and JAX's own fused-vs-two-launch bound on the first step's logits
+# (tests/test_moe_sparse.py:431: max|fused - two launches| / max|two launches|)
+FUSED = dict(STEPS=32, REL=0.02)
+# the pnp path: o_proj -> residual + RMSNorm -> gate|up through
+# qmatmul_pnp_stacked for each layer of the 7B at batch 8, against K1, the
+# residual and K1 with the norm (tests/test_pnp_kernel.py: 2e-2 on hn and
+# 3e-2 on y2, relative to the largest value)
+PNP = dict(M=8, HN_REL=2e-2, Y2_REL=3e-2)
 # K3b past the one-shot limit: layers, batch, kv heads, rows, head width, n_rep
 LONG_ATTN_SHAPE = dict(L=1, B=8, Hkv=8, S=16384, D=128, n_rep=4)
 DEV = "cuda"
@@ -572,6 +610,9 @@ def phase_kernels(torch, timer):
         del qw, sc, zs, x, y, y_ref
     torch.cuda.empty_cache()
 
+    rows.extend(fused_rows(torch, timer, gen, stack))
+    torch.cuda.empty_cache()
+
     # K3b past the JAX package's one-shot limit (its key-chunked kernel, #15)
     L, B, Hkv, S, D, n_rep = (LONG_ATTN_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D", "n_rep"))
     kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=dev, generator=gen)
@@ -764,6 +805,94 @@ def a8_rows(torch, timer, gen, stack, dequant):
                2.0 * M * Kf * N, extra)
         del qt, w
     torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_ulp(ref) -> float:
+    """One bf16 ulp at the largest magnitude of ``ref``."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
+
+
+def fused_rows(torch, timer, gen, stack):
+    """K19 at Qwen3-30B-A3B's batch-1 decode (8 experts of a 128-expert
+    stack, one shared row) and K20 at the 7B's o_proj and gate|up (M = 1
+    and 8), each against its plain version. No single PyTorch call computes
+    either function (library_ms null); the yardstick is what the port runs
+    without them: K8's two launches with the activation between them for
+    K19, K1 on o_proj, the residual and K1 with the norm on gate|up for K20."""
+    from qllm_tpu_torch.ops import qmm
+
+    rows = []
+    E, K1, K2, Np2, n = (K19_CASE[k] for k in ("E", "K1", "K2", "Np2", "n"))
+    gq, gs, gz = stack(K1, 2 * K2, L=E)
+    dq, ds, dz = stack(K2, Np2, L=E)
+    ids = torch.randperm(E, generator=gen, device=DEV)[:n].to(torch.int32)
+    x = torch.randn((1, K1), device=DEV, generator=gen).to(torch.bfloat16)
+    args = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", True)
+    y = qmm.w4_grouped_fused_mlp(*args)
+    torch.cuda.synchronize()
+    y_ref = qmm.w4_grouped_fused_mlp_plain(*args)
+    err = float((y.float() - y_ref.float()).abs().max())
+    tol = bf16_ulp(y_ref)
+
+    def two_launch():
+        gu = qmm.w4_grouped_gemv(x, gq, gs, gz, ids, True).float()
+        a = gu[:, :K2] * torch.sigmoid(gu[:, :K2]) * gu[:, K2 : 2 * K2]
+        return qmm.w4_grouped_gemv(a.to(torch.bfloat16), dq, ds, dz, ids, False)
+
+    yard_ms = timer(two_launch)
+    ms = timer(lambda: qmm.w4_grouped_fused_mlp(*args))
+    plain_ms = timer(lambda: qmm.w4_grouped_fused_mlp_plain(*args), reps=5, warmup=1)
+    per_expert = gq[0].numel() * 4 + 2 * gs[0].numel() * 2 + dq[0].numel() * 4 + 2 * ds[0].numel() * 2
+    nbytes = n * per_expert + x.numel() * 2 + n * Np2 * 2 + n * 4
+    b_ms, b_by = bound(nbytes, 2.0 * n * (K1 * 2 * K2 + K2 * Np2))
+    rows.append(dict(kernel="w4_grouped_fused_mlp", case=f"qwen3 K1={K1} K2={K2} N2={Np2} E={E} n={n} shared",
+                     max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol, ms=ms,
+                     plain_ms=plain_ms, library_ms=None, yardstick="K8 gate|up, silu * up, K8 down",
+                     yardstick_ms=yard_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if err > tol:
+        raise AssertionError(f"w4_grouped_fused_mlp: max_abs_err {err} > {tol}")
+    del gq, gs, gz, dq, ds, dz, y, y_ref
+
+    D, Kg = SEVEN_B["hidden_size"], SEVEN_B["intermediate_size"]
+    Np = -(-2 * Kg // 512) * 512
+    q1, s1, z1 = stack(D, D)
+    q2, s2, z2 = stack(D, Np)
+    nw = (torch.rand((2, D), device=DEV, generator=gen) + 0.5).to(torch.bfloat16)
+    for M in K20_ROWS:
+        x1 = torch.randn((M, D), device=DEV, generator=gen).to(torch.bfloat16)
+        h = torch.randn((M, D), device=DEV, generator=gen) * 4.0
+        args = (x1, h, q1, s1, z1, q2, s2, z2, nw, 1, 1e-5)
+        hn, y2 = qmm.w4_pnp_gemv(*args)
+        torch.cuda.synchronize()
+        hn_ref, y2_ref = qmm.w4_pnp_gemv_plain(*args)
+        err_hn = float((hn - hn_ref).abs().max())
+        err_y2 = float((y2.float() - y2_ref.float()).abs().max())
+        tol_hn, tol_y2 = HN_TOL * float(hn_ref.abs().max()), bf16_ulp(y2_ref)
+        ok = err_hn <= tol_hn and err_y2 <= tol_y2
+
+        def k1_pair():
+            hn1 = h + qmm.w4_planar_gemv(x1, q1, s1, z1, 1).float()
+            return qmm.w4_planar_gemv(hn1.to(torch.bfloat16), q2, s2, z2, 1, nw, 1e-5)
+
+        yard_ms = timer(k1_pair)
+        ms = timer(lambda: qmm.w4_pnp_gemv(*args))
+        plain_ms = timer(lambda: qmm.w4_pnp_gemv_plain(*args), reps=5, warmup=1)
+        nbytes = (q1[1].numel() * 4 + 2 * s1[1].numel() * 2 + q2[1].numel() * 4 + 2 * s2[1].numel() * 2
+                  + M * D * 2 + M * D * 4 + D * 2 + M * D * 4 + M * Np * 2)
+        b_ms, b_by = bound(nbytes, 2.0 * M * (D * D + D * Np))
+        rows.append(dict(kernel="w4_pnp_gemv", case=f"o_proj K={D} N={D} -> gate|up N={Np} M={M}",
+                         max_abs_err=max(err_hn, err_y2), hn_max_abs_err=err_hn, y2_max_abs_err=err_y2,
+                         tol=f"hn {HN_TOL} * max|plain| ({tol_hn:.4g}), y2 one bf16 ulp ({tol_y2:.4g})", ok=ok,
+                         ms=ms, plain_ms=plain_ms, library_ms=None,
+                         yardstick="K1 o_proj, + h, K1 gate|up with the norm", yardstick_ms=yard_ms, bound_ms=b_ms,
+                         bound_by=b_by, bytes=nbytes))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"w4_pnp_gemv M={M}: hn err {err_hn} (tol {tol_hn}), y2 err {err_y2} (tol {tol_y2})")
     return rows
 
 
@@ -1043,13 +1172,93 @@ def phase_main1(torch, K, model):
     return total
 
 
-def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: bool = False):
+def phase_pnp(torch, K, model):
+    """qmatmul_pnp_stacked (K20), the JAX package's ops-level entry point
+    for o_proj -> residual + RMSNorm -> gate|up (no model path calls it,
+    there or here), on the 7B's stacked o_proj, gate|up and
+    post-attention norm weights for each of the 32 layers at batch 8,
+    counts set to 0 before and read after; against K1 on o_proj, the
+    residual and K1 with the norm on gate|up, and the time of both."""
+    from qllm_tpu_torch.models.llama import ModelConfig
+    from qllm_tpu_torch.ops import qmm
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(15)
+    if model is None:  # the main model's planar bf16 stacks, drawn at random
+        cfg = ModelConfig(num_hidden_layers=MAIN["LAYERS"], **SEVEN_B)
+        L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+
+        def qt(K, N, Np):
+            qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device=DEV, generator=gen)
+            sc = ((torch.rand((L, K // 128, Np), device=DEV, generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+            return QuantizedTensor(qweight=qw, scales=sc, zeros=(sc.float() * 8).to(torch.bfloat16), perm=None,
+                                   bits=4, group_size=128, in_features=K, out_features=N, sym=False, planar=True,
+                                   zeros_prefolded=True)
+
+        layers = {"o_proj": qt(D, D, D), "gateup_proj": qt(D, 2 * I, -(-2 * I // 512) * 512),
+                  "post_attention_layernorm": torch.ones((L, D), dtype=torch.bfloat16, device=DEV)}
+    else:
+        cfg, sp = model
+        layers = sp["layers"]
+    o, gu, nw = layers["o_proj"], layers["gateup_proj"], layers["post_attention_layernorm"]
+    L, M, eps = cfg.num_hidden_layers, PNP["M"], cfg.rms_norm_eps
+    if not qmm.pnp_stacked_ok(o, gu):
+        raise AssertionError("pnp: the 7B's o_proj / gate|up stacks are not K20's")
+    x1 = torch.randn((M, o.in_features), device=DEV, generator=gen).to(torch.bfloat16)
+    h = torch.randn((M, o.out_features), device=DEV, generator=gen) * 4.0
+
+    def fused():
+        return [qmm.qmatmul_pnp_stacked(x1, h, o, gu, nw, l, eps) for l in range(L)]
+
+    def two_launch():
+        out = []
+        for l in range(L):
+            hn = h + qmm.qmatmul_stacked(x1, o, l).float()
+            out.append((hn, qmm.qmatmul_stacked(hn.to(torch.bfloat16), gu, l, norm_w=nw, norm_eps=eps)))
+        return out
+
+    torch.cuda.synchronize()
+    for fn in K.values():
+        fn.launches = 0
+    zero = counts(K)
+    res = fused()
+    torch.cuda.synchronize()
+    total = counts(K)
+    check_launches({"pnp": delta(zero, total)}, {"pnp": {"w4_pnp_gemv": L, "w4_planar_gemv": 0}})
+    ref = two_launch()
+    e_hn = max(float((a[0] - b[0]).abs().max() / b[0].abs().max()) for a, b in zip(res, ref))
+    e_y2 = max(float((a[1].float() - b[1].float()).abs().max() / b[1].float().abs().max()) for a, b in zip(res, ref))
+    finite = all(bool(torch.isfinite(a[1].float()).all()) for a in res)
+    times = {}
+    for name, fn in (("pnp", fused), ("two_launch", two_launch), ("pnp_again", fused)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times[name] = start.elapsed_time(end) / L
+    out = {"config": f"Llama-2-7B shape, {L} layers, o_proj {o.in_features}->{o.out_features}, gate|up "
+           f"{gu.in_features}->{gu.out_features}, M={M}", "hn_rel_err": e_hn, "y2_rel_err": e_y2,
+           "pnp_ms_per_layer": times["pnp"], "pnp_ms_per_layer_again": times["pnp_again"],
+           "two_launch_ms_per_layer": times["two_launch"], "launches": delta(zero, total)}
+    log(f"[pnp] {json.dumps(out)}")
+    if not finite or e_hn > PNP["HN_REL"] or e_y2 > PNP["Y2_REL"]:
+        raise AssertionError(f"pnp: hn rel err {e_hn}, y2 rel err {e_y2}, finite {finite}")
+    del res, ref
+    torch.cuda.empty_cache()
+    return total
+
+
+def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: bool = False, moe_fused: bool = False):
     """Device busy share of a few warm decode steps (torch.profiler, CUDA
     kernel time over host wall time) and the kernels that take it."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
 
-    return profile_run(torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV, w4a8=w4a8),
-                       steps)
+    return profile_run(
+        torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV, w4a8=w4a8, moe_fused=moe_fused),
+        steps,
+    )
 
 
 def profile_run(torch, run, steps: int):
@@ -1084,7 +1293,8 @@ def delta(a, b):
 
 def load_moe(torch, K, name, shape):
     """Random W4 g128 MoE params drawn on the card (raw [E]-stacked
-    experts, one draw per leaf), hybrid-stacked for serving with the
+    experts, one draw per leaf), hybrid-stacked for serving with bf16
+    scales (the layout K8 and K19 take, as the JAX engine stacks), the
     sources consumed as the stacks land."""
     from qllm_tpu_torch.models.llama import ModelConfig
     from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params_hybrid
@@ -1099,7 +1309,7 @@ def load_moe(torch, K, name, shape):
     torch.cuda.synchronize()
     drawn_s = time.time() - t0
     t0 = time.time()
-    sp = stack_layer_params_hybrid(params, consume=True)
+    sp = stack_layer_params_hybrid(params, scale_store_dtype=torch.bfloat16, consume=True)
     sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
     del params
     torch.cuda.synchronize()
@@ -1219,16 +1429,18 @@ def moe_expected(cfg, steps, B, ring):
     }
 
 
-def check_no_sync(torch, tag, cfg, sp, B):
-    """One sparse MoE block (router, sort, K8 twice, unsort, combine)
-    under set_sync_debug_mode("error"): any wait on the host raises."""
+def check_no_sync(torch, tag, cfg, sp, B, moe_fused=False):
+    """One sparse MoE block (router, sort, K8 twice, unsort, combine; K19
+    once with ``moe_fused`` at batch 1; the per-selection matmuls on stacks
+    K8 does not take) under set_sync_debug_mode("error"): any wait on the
+    host raises."""
     from qllm_tpu_torch.models.llama import _moe_sparse
     from qllm_tpu_torch.models.stacked import StackedLayerView
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(12)
     x = torch.randn((B, 1, cfg.hidden_size), device=DEV, generator=gen).to(torch.bfloat16)
-    pv = StackedLayerView(sp["layers"], cfg.num_hidden_layers - 1, cfg)
+    pv = StackedLayerView(sp["layers"], cfg.num_hidden_layers - 1, cfg, moe_fused=moe_fused)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1341,15 +1553,76 @@ def phase_long(torch, K, model):
     return total
 
 
+def _clone_cache(cache):
+    return dataclasses.replace(
+        cache, **{f: getattr(cache, f).clone() for f in ("k", "v", "k_scale", "v_scale", "ring_k", "ring_v")
+                  if getattr(cache, f) is not None}
+    )
+
+
+def qwen3_fused_leg(torch, K, cfg, sp):
+    """Batch 1 with the fused expert MLP (moe_fused=True, K19) against the
+    two-launch leg (K8 twice a layer), both decoding FUSED["STEPS"] ring
+    steps from one prefilled cache state (each from its own copy): the
+    first step's logits within JAX's fused-vs-two-launch bound, launches
+    counted, step and device time, greedy agreement (reported: the two
+    round differently)."""
+    from qllm_tpu_torch.models.decode_loop import decode_loop
+    from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+
+    T, MAX, STEPS, L = MOE["T1"], MOE["MAX1"], FUSED["STEPS"], cfg.num_hidden_layers
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), dtype=torch.int32, device=DEV, generator=gen)
+    logits, cache = prefill(sp, cfg, prompt, make_cache(cfg, 1, MAX, ring=True, device=DEV), device=DEV)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    la, _ = decode_step(sp, cfg, first, _clone_cache(cache), T, device=DEV)
+    lb, _ = decode_step(sp, cfg, first, _clone_cache(cache), T, device=DEV, moe_fused=True)
+    rel = float((lb - la).abs().max() / la.abs().max())
+    legs = {}
+    for name, fused in (("two_launch", False), ("fused", True), ("fused_warm", True)):
+        c = _clone_cache(cache)
+        torch.cuda.synchronize()
+        for fn in K.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        toks, c = decode_loop(sp, cfg, first, c, T, STEPS, device=DEV, moe_fused=fused)
+        torch.cuda.synchronize()
+        legs[name] = (toks, (time.perf_counter() - t0) / STEPS * 1e3, counts(K), c)
+    want = {"fused": {"w4_grouped_fused_mlp": L * STEPS, "w4_grouped_gemv": 0},
+            "two_launch": {"w4_grouped_fused_mlp": 0, "w4_grouped_gemv": 2 * L * STEPS}}
+    check_launches({k: legs[k][2] for k in want}, want)
+    toks_f, c = legs["fused_warm"][0], legs["fused_warm"][3]
+    busy = profile_decode(torch, sp, cfg, toks_f[:, -1:].contiguous(), c, T + STEPS, steps=8, moe_fused=True)
+    agree = float((legs["fused"][0] == legs["two_launch"][0]).float().mean())
+    out = {"config": f"Qwen3-30B-A3B, {L} layers, B=1, T={T} ring prefill, {STEPS} steps each way from its cache",
+           "first_step_logits_rel_err": rel, "rel_bound": FUSED["REL"],
+           "two_launch_ms_per_step": legs["two_launch"][1], "fused_ms_per_step": legs["fused"][1],
+           "fused_ms_per_step_warm": legs["fused_warm"][1], "greedy_agreement": agree,
+           "fused_repeat_same_ids": bool(torch.equal(legs["fused"][0], toks_f)),
+           "fused_launches_per_step": {k: v / STEPS for k, v in legs["fused"][2].items() if v}, **busy}
+    log(f"[moe_qwen3 fused] {json.dumps(out)}")
+    if not rel <= FUSED["REL"] or not out["fused_repeat_same_ids"]:
+        raise AssertionError(f"moe_qwen3 fused: first-step logits rel err {rel}, "
+                             f"repeat ids {out['fused_repeat_same_ids']}")
+    total = {k: sum(leg[2][k] for leg in legs.values()) for k in K}
+    del legs, cache, c
+    torch.cuda.empty_cache()
+    check_no_sync(torch, "moe_qwen3 fused b1", cfg, sp, 1, moe_fused=True)
+    return total
+
+
 def phase_moe_qwen3(torch, K):
     """Qwen3-30B-A3B: batch 1 (flash prefill at n_rep 8, ring steps, K8
-    shared row, 8 selections) and batch 8 (64 sorted selections)."""
+    shared row, 8 selections), the same with the fused expert MLP (K19),
+    and batch 8 (64 sorted selections)."""
     cfg, sp, load = load_moe(torch, K, "Qwen3-30B-A3B", QWEN3)
     model = (cfg, sp)
     runs = {"qwen3_load": load}
     runs["qwen3_b1"] = drive(torch, K, "moe_qwen3 b1", cfg, sp, 1, MOE["T1"], MOE["STEPS1"], MOE["MAX1"], True,
                              moe_expected(cfg, MOE["STEPS1"], 1, True), profile_steps=8)
     check_no_sync(torch, "moe_qwen3 b1", cfg, sp, 1)
+    runs["qwen3_fused"] = qwen3_fused_leg(torch, K, cfg, sp)
     runs["qwen3_b8"] = drive(torch, K, "moe_qwen3 b8", cfg, sp, MOE["B"], MOE["T"], MOE["STEPS"], MOE["MAX_SEQ"],
                              False, moe_expected(cfg, MOE["STEPS"], MOE["B"], False))
     check_no_sync(torch, "moe_qwen3 b8", cfg, sp, MOE["B"])
@@ -1358,53 +1631,80 @@ def phase_moe_qwen3(torch, K):
     return runs
 
 
-def cross_moe(torch):
+def cross_moe(torch, K):
     """2 layers at Mixtral and at Qwen3 width on the card and on the CPU:
-    a short prompt (the dense expert loop), then sparse greedy steps."""
-    from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+    a short prompt (the dense expert loop), then sparse greedy steps, for
+    each leg of CROSS_MOE: bf16 4-bit stacks through K8 (K19 with
+    moe_fused), f32-scale and 2-bit stacks per selection (K8 never
+    launches). Launches are counted on the card's steps."""
     from qllm_tpu_torch.models.llama import ModelConfig
     from qllm_tpu_torch.models.stacked import prepare_lm_head, stack_layer_params_hybrid
     from qllm_tpu_torch.utils.testing import random_quantized_params
 
     out = {}
-    for name, shape, B, T, steps in CROSS_MOE:
+    for name, shape, batches, T, steps, sd, bits, fused in CROSS_MOE:
         cfg = ModelConfig(**dict(shape, num_hidden_layers=CROSS["LAYERS"]))
-        if B * cfg.num_experts_per_tok >= cfg.num_local_experts:
-            raise AssertionError(f"cross {name}: B={B} would not take the sparse path")
-        gpu = random_quantized_params(cfg, 2, quantize_lm_head=True, experts_prestacked=True, device=DEV)
+        if max(batches) * cfg.num_experts_per_tok >= cfg.num_local_experts:
+            raise AssertionError(f"cross {name}: B={max(batches)} would not take the sparse path")
+        dtype = torch.bfloat16 if sd == "bf16" else torch.float32
+        gpu = random_quantized_params(cfg, 2, bits=bits, quantize_lm_head=True, experts_prestacked=True, device=DEV)
         cpu = _to_cpu(gpu)
         sides = {}
         for side, params, dev in (("cuda", gpu, DEV), ("cpu", cpu, "cpu")):
-            sp = stack_layer_params_hybrid(params)
+            sp = stack_layer_params_hybrid(params, scale_store_dtype=dtype)
             sp["lm_head"] = prepare_lm_head(sp["lm_head"], scale_store_dtype=torch.bfloat16)
             sides[side] = (sp, dev)
         del gpu, cpu
-        gen = torch.Generator()
-        gen.manual_seed(14)
-        prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, generator=gen)
-        logits, caches = {}, {}
-        for side, (sp, dev) in sides.items():
-            lg, caches[side] = prefill(sp, cfg, prompts, make_cache(cfg, B, T + steps, device=dev), device=dev)
-            logits[side] = [lg.float().cpu()]
-        tok = torch.argmax(logits["cuda"][0], dim=-1).to(torch.int32)[:, None]
-        agree = [bool(torch.equal(tok, torch.argmax(logits["cpu"][0], -1).to(torch.int32)[:, None]))]
-        for i in range(steps):
-            for side, (sp, dev) in sides.items():
-                lg, caches[side] = decode_step(sp, cfg, tok, caches[side], T + i, device=dev)
-                logits[side].append(lg.float().cpu())
-            nxt = torch.argmax(logits["cuda"][-1], dim=-1).to(torch.int32)[:, None]
-            agree.append(bool(torch.equal(nxt, torch.argmax(logits["cpu"][-1], -1).to(torch.int32)[:, None])))
-            tok = nxt
-        errs = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
-        oks = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits["cuda"], logits["cpu"])]
-        out[name] = {"B": B, "T": T, "steps": steps, "prefill_max_abs_err": errs[0],
-                     "decode_max_abs_err": max(errs[1:]), "greedy_agreement": sum(agree) / len(agree),
-                     "within_tol": all(oks)}
-        if not all(oks) or not all(agree):
-            raise AssertionError(f"cross {name}: card vs CPU logits {errs}, greedy agreement {agree}")
-        del sides, caches
+        for B in batches:
+            tag = f"{name} B={B}"
+            out[tag] = cross_moe_leg(torch, K, tag, cfg, sides, B, T, steps, fused, sd == "bf16" and bits == 4)
+        del sides
         torch.cuda.empty_cache()
     return out
+
+
+def cross_moe_leg(torch, K, tag, cfg, sides, B, T, steps, fused, k8):
+    """One batch of a cross_moe leg: the prompt and the steps on both
+    sides, launches counted on the card's steps (K8 twice a layer a step
+    where it takes the stacks, K19 once with ``fused``)."""
+    from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+
+    gen = torch.Generator()
+    gen.manual_seed(14)
+    prompts = torch.randint(0, cfg.vocab_size, (B, T), dtype=torch.int32, generator=gen)
+    logits, caches = {}, {}
+    for side, (sp, dev) in sides.items():
+        lg, caches[side] = prefill(sp, cfg, prompts, make_cache(cfg, B, T + steps, device=dev), device=dev)
+        logits[side] = [lg.float().cpu()]
+    tok = torch.argmax(logits["cuda"][0], dim=-1).to(torch.int32)[:, None]
+    agree = [bool(torch.equal(tok, torch.argmax(logits["cpu"][0], -1).to(torch.int32)[:, None]))]
+    torch.cuda.synchronize()
+    for fn in K.values():
+        fn.launches = 0
+    for i in range(steps):
+        for side, (sp, dev) in sides.items():
+            lg, caches[side] = decode_step(sp, cfg, tok, caches[side], T + i, device=dev, moe_fused=fused)
+            logits[side].append(lg.float().cpu())
+        nxt = torch.argmax(logits["cuda"][-1], dim=-1).to(torch.int32)[:, None]
+        agree.append(bool(torch.equal(nxt, torch.argmax(logits["cpu"][-1], -1).to(torch.int32)[:, None])))
+        tok = nxt
+    n = counts(K)
+    L = cfg.num_hidden_layers
+    launched = {"w4_grouped_gemv": n["w4_grouped_gemv"], "w4_grouped_fused_mlp": n["w4_grouped_fused_mlp"]}
+    want = {"w4_grouped_gemv": 2 * L * steps if k8 and not fused else 0,
+            "w4_grouped_fused_mlp": L * steps if fused else 0}
+    if launched != want:
+        raise AssertionError(f"cross {tag}: launches {launched}, expected {want}")
+    if not k8:
+        check_no_sync(torch, f"cross {tag}", cfg, sides["cuda"][0], B)
+    errs = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
+    oks = [bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL)) for a, b in zip(logits["cuda"], logits["cpu"])]
+    res = {"B": B, "T": T, "steps": steps, "moe_fused": fused, "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "greedy_agreement": sum(agree) / len(agree), "within_tol": all(oks),
+           "launches": launched}
+    if not all(oks) or not all(agree):
+        raise AssertionError(f"cross {tag}: card vs CPU logits {errs}, greedy agreement {agree}")
+    return res
 
 
 def _to_cpu(node):
@@ -2666,6 +2966,8 @@ KERNEL_META = {
     "bitplane_stacked_gemv": ("qllm_tpu_torch/csrc/bitplane.cu", "qllm_tpu/ops/pallas_qmm.py:676"),
     "w4_planar_f32s_gemv": ("qllm_tpu_torch/csrc/planar_f32.cu", "qllm_tpu/ops/pallas_qmm.py:999"),
     "w4_planar_f32s_gemm": ("qllm_tpu_torch/csrc/planar_f32.cu", "qllm_tpu/ops/pallas_qmm.py:999"),
+    "w4_grouped_fused_mlp": ("qllm_tpu_torch/csrc/fused_mlp.cu", "qllm_tpu/ops/pallas_qmm.py:2239"),
+    "w4_pnp_gemv": ("qllm_tpu_torch/csrc/fused_mlp.cu", "qllm_tpu/ops/pallas_qmm.py:1950"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
@@ -2675,7 +2977,8 @@ HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefi
             "gptq_stacked_gemv": "gateup K=4096 N=22016 M=8 2-bit f32",
             "gptq_stacked_w4a8_gemv": "gateup K=4096 N=22016 M=32 2-bit",
             "bitplane_stacked_gemv": "gateup K=4096 N=22016 M=1 3-bit f32",
-            "w4_planar_f32s_gemv": "gateup K=4096 N=22016 M=8", "w4_planar_f32s_gemm": "gateup K=4096 N=22016 M=1024"}
+            "w4_planar_f32s_gemv": "gateup K=4096 N=22016 M=8", "w4_planar_f32s_gemm": "gateup K=4096 N=22016 M=1024",
+            "w4_pnp_gemv": "M=8"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
 # launches on the long path
@@ -2701,15 +3004,18 @@ def summary_entry(name, replaces, launches, mine, headline=""):
     }
     if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
                                   "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv",
-                                  "w4_planar_f32s_gemv", "w4_planar_f32s_gemm"):
+                                  "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
+    if "yardstick_ms" in head:
+        entry["yardstick"] = head["yardstick"]
+        entry["yardstick_ms"] = head["yardstick_ms"]
     return entry
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,w4a8,serve,widths,f32s,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,pnp,w4a8,serve,widths,f32s,moe,long,moe_qwen3,cross",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2752,6 +3058,8 @@ def main() -> int:
         "bitplane_stacked_gemv": qmm_stacked.bitplane_stacked_gemv,
         "w4_planar_f32s_gemv": qmm_planar.w4_planar_f32s_gemv,
         "w4_planar_f32s_gemm": qmm_planar.w4_planar_f32s_gemm,
+        "w4_grouped_fused_mlp": qmm.w4_grouped_fused_mlp,
+        "w4_pnp_gemv": qmm.w4_pnp_gemv,
     }
     t_start = time.time()
     t0 = time.time()
@@ -2777,6 +3085,10 @@ def main() -> int:
     if "main1" in phases:
         runs["main1"] = phase_main1(torch, K, model)
     log(f"[time] main, main1 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "pnp" in phases:
+        runs["pnp"] = phase_pnp(torch, K, model)
+    log(f"[time] pnp {time.time() - t0:.1f} s")
     t0 = time.time()
     if "w4a8" in phases:
         runs.update(phase_w4a8(torch, K, card, model))
@@ -2815,7 +3127,7 @@ def main() -> int:
     if "cross" in phases:
         phase_cross(torch)
         log(f"[time] cross, 7B legs {time.time() - t0:.1f} s")
-        log(f"[cross] MoE legs {json.dumps(cross_moe(torch))}")
+        log(f"[cross] MoE legs {json.dumps(cross_moe(torch, K))}")
     log(f"[time] cross {time.time() - t0:.1f} s")
 
     def launches(name, keep=lambda path: True):

@@ -36,10 +36,12 @@ def decode_loop(
     steps: int,
     device: Union[str, torch.device] = "cuda",
     w4a8: bool = False,
+    moe_fused: bool = False,
 ) -> Tuple[torch.Tensor, QuantizedKVCache]:
     """Decode ``steps`` greedy tokens. Returns ([B, steps] int32, cache);
     the cache is updated in place. ``w4a8``: int8 activations in every
-    step's matmuls (``models.llama.forward``). A ring-fused cache needs ``steps`` and
+    step's matmuls (``models.llama.forward``); ``moe_fused``: a batch-1
+    sparse MoE block in one K19 launch (the same). A ring-fused cache needs ``steps`` and
     ``pos0`` to be multiples of 8: the flush writes whole rings, and a
     start off the 8-row grid would leave earlier tokens unflushed (the
     JAX package drops them silently; here that raises)."""
@@ -62,7 +64,7 @@ def decode_loop(
     token = token.to(cache.device)
     toks = []
     for i in range(steps):
-        logits, cache = forward(params, cfg, token, cache, pos=pos0 + i, w4a8=w4a8)
+        logits, cache = forward(params, cfg, token, cache, pos=pos0 + i, w4a8=w4a8, moe_fused=moe_fused)
         token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         toks.append(token)
         if ring and (pos0 + i + 1) % RING == 0:

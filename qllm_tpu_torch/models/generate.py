@@ -7,7 +7,9 @@ CPU) and raises when the card is asked for and absent; the tokens are
 moved there and the params and cache must already live there. ``w4a8``
 asks for per-token int8 activations wherever the JAX package's W4A8
 takes them (the decode-size matmuls; a prefill of more than 32 rows keeps
-bf16 activations, as there).
+bf16 activations, as there). ``moe_fused`` runs a single token's sparse
+MoE block as one K19 launch where the expert stacks qualify (the JAX
+package's ``QLLM_TPU_MOE_FUSED``).
 """
 
 from __future__ import annotations
@@ -63,11 +65,12 @@ def prefill(
     cache: QuantizedKVCache,
     device: Device = "cuda",
     w4a8: bool = False,
+    moe_fused: bool = False,
 ) -> Tuple[torch.Tensor, QuantizedKVCache]:
     """Run the prompt through the model, filling cache[0:T) in place.
     Returns (last-token logits [B, V], cache)."""
     tokens = _on(cache, tokens, device)
-    logits, cache = forward(params, cfg, tokens, cache, pos=0, w4a8=w4a8)
+    logits, cache = forward(params, cfg, tokens, cache, pos=0, w4a8=w4a8, moe_fused=moe_fused)
     return logits[:, -1, :], cache
 
 
@@ -80,9 +83,10 @@ def decode_step(
     pos: Union[int, torch.Tensor],  # index where this token is written
     device: Device = "cuda",
     w4a8: bool = False,
+    moe_fused: bool = False,
 ) -> Tuple[torch.Tensor, QuantizedKVCache]:
     token = _on(cache, token, device)
-    logits, cache = forward(params, cfg, token, cache, pos=pos, w4a8=w4a8)
+    logits, cache = forward(params, cfg, token, cache, pos=pos, w4a8=w4a8, moe_fused=moe_fused)
     return logits[:, -1, :], cache
 
 
@@ -97,6 +101,7 @@ def greedy_generate(
     eos_token_id: Optional[int] = None,
     device: Device = "cuda",
     w4a8: bool = False,
+    moe_fused: bool = False,
 ) -> torch.Tensor:
     """Greedy decode. Returns [B, T + max_new_tokens] token ids (fewer
     when every row has emitted ``eos_token_id``)."""
@@ -104,7 +109,7 @@ def greedy_generate(
     max_seq = max_seq or (T + max_new_tokens)
     cache = make_cache(cfg, B, max_seq, quantized_kv, device=device)
     prompt = prompt.to(cache.device)
-    logits, cache = prefill(params, cfg, prompt, cache, device=device, w4a8=w4a8)
+    logits, cache = prefill(params, cfg, prompt, cache, device=device, w4a8=w4a8, moe_fused=moe_fused)
     out = [prompt]
     token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     finished = torch.zeros((B,), dtype=torch.bool, device=cache.device)
@@ -116,6 +121,6 @@ def greedy_generate(
                 break
         if i == max_new_tokens - 1:
             break
-        logits, cache = decode_step(params, cfg, token, cache, T + i, device=device, w4a8=w4a8)
+        logits, cache = decode_step(params, cfg, token, cache, T + i, device=device, w4a8=w4a8, moe_fused=moe_fused)
         token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     return torch.cat([t.to(torch.int32) for t in out], dim=1)

@@ -307,11 +307,13 @@ def _check_ring_cfg(cfg: ModelConfig) -> None:
 class LayerView:
     """Accessor for one layer's params in a per-layer dict; ``w4a8`` rides
     on the view to every quantized matmul of the layer (the grouped
-    expert launches stay a16, as in the JAX package)."""
+    expert launches stay a16, as in the JAX package), ``moe_fused`` to the
+    batch-1 sparse MoE block."""
 
-    def __init__(self, lp: Dict[str, Any], w4a8: bool = False):
+    def __init__(self, lp: Dict[str, Any], w4a8: bool = False, moe_fused: bool = False):
         self.lp = lp
         self.w4a8 = w4a8
+        self.moe_fused = moe_fused
 
     def get(self, name):
         return self.lp.get(name)
@@ -332,6 +334,15 @@ class LayerView:
         from .moe import grouped_expert_linear
 
         return grouped_expert_linear(self.lp["experts_stacked"][name], ids, x_rows, x_shared)
+
+    def fused_expert_mlp(self, ids, x_row, cfg):
+        """One token's whole expert MLP for each of its selections in one K19
+        launch where it takes the stacks, else None (the per-projection
+        grouped path)."""
+        from .moe import fused_expert_mlp
+
+        est = self.lp.get("experts_stacked") or {}
+        return fused_expert_mlp(est.get("gateup_proj"), est.get("down_proj"), ids, x_row, cfg.hidden_act)
 
 
 def _pos_vector(pos: Union[int, torch.Tensor], B: int, device) -> torch.Tensor:
@@ -587,7 +598,10 @@ def _moe_sparse(pv, cfg: ModelConfig, x: torch.Tensor, k: int) -> torch.Tensor:
     With more than one token the selections are sorted by expert id
     (stable: ties keep selection order) so that equal ids sit together,
     and the outputs are put back through an inverse permutation built by
-    one scatter. A single token's k selections share its row (x_shared)."""
+    one scatter. A single token's k selections share its row (x_shared);
+    with the view's ``moe_fused`` they run the whole expert MLP in one K19
+    launch where it takes the stacks (JAX: llama.py:1313-1320, under
+    ``QLLM_TPU_MOE_FUSED``), else the two grouped launches."""
     B, T, D = x.shape
     S = B * T
     top_w, top_ids = _router_topk(pv, cfg, x)
@@ -602,7 +616,11 @@ def _moe_sparse(pv, cfg: ModelConfig, x: torch.Tensor, k: int) -> torch.Tensor:
         order = None
         ids = ids_u
         x_rows = xf
-    ye_s = _grouped_expert_mlp(pv, cfg, ids, x_rows, order is None)
+    ye_s = None
+    if order is None and getattr(pv, "moe_fused", False):
+        ye_s = pv.fused_expert_mlp(ids, x_rows, cfg)
+    if ye_s is None:
+        ye_s = _grouped_expert_mlp(pv, cfg, ids, x_rows, order is None)
     if order is not None:
         inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=order.device))
         ye = ye_s.index_select(0, inv)
@@ -644,6 +662,7 @@ def forward(
     cache: Optional[QuantizedKVCache] = None,
     pos: Union[None, int, torch.Tensor] = None,  # write offset into the cache
     w4a8: bool = False,
+    moe_fused: bool = False,
 ) -> Tuple[torch.Tensor, Optional[QuantizedKVCache]]:
     """Full forward -> (logits [B, T, V] float32, cache).
 
@@ -655,7 +674,9 @@ def forward(
     take the stacked loop. ``w4a8``: per-token int8 activations into
     every quantized matmul where the JAX package's W4A8 (its
     ``QLLM_TPU_W4A8`` switch) takes them; an explicit argument here, read
-    by nothing global."""
+    by nothing global. ``moe_fused``: a single token's sparse MoE block
+    runs its whole expert MLP in one K19 launch where the stacks qualify
+    (the JAX package's ``QLLM_TPU_MOE_FUSED``, off by default there too)."""
     check_llama_family(cfg)
     if not isinstance(params["layers"], list):
         if cache is None:
@@ -665,7 +686,7 @@ def forward(
             )
         from .stacked import forward_stacked
 
-        return forward_stacked(params, cfg, token_ids, cache, pos, w4a8=w4a8)
+        return forward_stacked(params, cfg, token_ids, cache, pos, w4a8=w4a8, moe_fused=moe_fused)
     B, T = token_ids.shape
     device = token_ids.device
     kv_len = None
@@ -680,5 +701,5 @@ def forward(
     h = embed_tokens_forward(params, cfg, token_ids)
     cos, sin = _rope_cos_sin(positions, cfg.rot_dim, cfg.rope_theta)
     for i, lp in enumerate(params["layers"]):
-        h, cache = _block_attn_mlp(LayerView(lp, w4a8), cfg, h, cos, sin, mask, cache, i, pos, slots)
+        h, cache = _block_attn_mlp(LayerView(lp, w4a8, moe_fused), cfg, h, cos, sin, mask, cache, i, pos, slots)
     return final_logits(params, cfg, h, w4a8), cache

@@ -345,13 +345,15 @@ class StackedLayerView:
     """llama.LayerView equivalent over [L]-stacked params + layer index;
     fused q/k/v and gate/up outputs are computed once per input and
     sliced per consumer. ``w4a8`` rides on the view to every stacked
-    matmul (K11 where the JAX package's W4A8 takes int8 activations)."""
+    matmul (K11 where the JAX package's W4A8 takes int8 activations);
+    ``moe_fused`` to the batch-1 sparse MoE block (K19)."""
 
-    def __init__(self, slp: Dict[str, Any], l: int, cfg: ModelConfig, w4a8: bool = False):
+    def __init__(self, slp: Dict[str, Any], l: int, cfg: ModelConfig, w4a8: bool = False, moe_fused: bool = False):
         self.lp = slp
         self.l = l
         self.cfg = cfg
         self.w4a8 = w4a8
+        self.moe_fused = moe_fused
         self._fused_memo = {}
 
     def get(self, name):
@@ -405,6 +407,21 @@ class StackedLayerView:
         w, bias = self._expert_stack(name)
         return grouped_expert_linear(w, ids + bias if bias else ids, x_rows, x_shared)
 
+    def fused_expert_mlp(self, ids, x_row, cfg):
+        """One token's whole expert MLP for each of its selections in one K19
+        launch where it takes this layer's stacks (ids biased by l *
+        _moe_stride on the full [L*E] stack, JAX's stacked.py:556-562), else
+        None."""
+        from .moe import fused_expert_mlp
+
+        est = self.lp.get("experts_stacked")
+        est_l = est if isinstance(est, dict) else est[self.l]
+        if "gateup_proj" not in est_l or "down_proj" not in est_l:
+            return None
+        gu, bias = self._expert_stack("gateup_proj")
+        dn, _ = self._expert_stack("down_proj")
+        return fused_expert_mlp(gu, dn, ids + bias if bias else ids, x_row, cfg.hidden_act)
+
     def _apply_name(self, name, x):
         w = self.lp[name]
         if isinstance(w, list):
@@ -436,9 +453,11 @@ def forward_stacked(
     cache,
     pos,
     w4a8: bool = False,
+    moe_fused: bool = False,
 ):
     """Decode/prefill forward over stacked params, layer by layer; the
-    semantics of models.llama.forward with a cache (``w4a8`` as there)."""
+    semantics of models.llama.forward with a cache (``w4a8`` and
+    ``moe_fused`` as there)."""
     check_llama_family(cfg)
     B, T = token_ids.shape
     pos = 0 if pos is None else pos
@@ -454,7 +473,7 @@ def forward_stacked(
     slp = params["layers"]
     for layer in range(cfg.num_hidden_layers):
         h, cache = _block_attn_mlp(
-            StackedLayerView(slp, layer, cfg, w4a8), cfg, h, cos, sin, mask, cache, layer, pos, slots
+            StackedLayerView(slp, layer, cfg, w4a8, moe_fused), cfg, h, cos, sin, mask, cache, layer, pos, slots
         )
     return final_logits(params, cfg, h, w4a8), cache
 
@@ -513,26 +532,25 @@ def _concat_expert_stacks(ests, name: str, consume: bool) -> QuantizedTensor:
     return out
 
 
-def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> Dict[str, Any]:
+def stack_layer_params_hybrid(
+    params: Dict[str, Any], scale_store_dtype: torch.dtype = torch.float32, consume: bool = False
+) -> Dict[str, Any]:
     """Serving prep for MoE models (per-layer list in, hybrid layers dict
     out). Homogeneous entries stack to [L] leaves with the serving prep of
     ``stack_layer_params``; experts stack per layer (models.moe.stack_experts)
     and, when every layer's stacks match and nothing else stayed per layer,
     concatenate into one [L*E] stack per name with ``_moe_stride = E``;
     heterogeneous entries stay per-layer lists. ``forward`` serves the
-    result through ``forward_hybrid``.
+    result through ``forward_hybrid``. Every stack stores its scales and
+    zs in ``scale_store_dtype``: f32 by default, as in the JAX package
+    (served per selection, ``models.moe.grouped_expert_linear``), bf16 for
+    the serving layout K8 and K19 take.
 
     ``consume``: the caller passes ownership. Each of the caller's layer
     dicts is emptied once its experts are stacked and its projections
     fused, and each entry of the working copies is dropped as its stacked
     copy lands, so the sources free progressively instead of doubling
-    resident memory (the [L*E] concat included).
-
-    Every stack stores its scales bf16, the experts' included: K8, the
-    grouped expert kernel, takes bf16 scales only, and the JAX package
-    serves its default f32 expert stacks by per-selection calls
-    (grouped_experts_ok, pallas_qmm.py:1820-1823), a path the port does
-    not have."""
+    resident memory (the [L*E] concat included)."""
     from .moe import _stack_layer_experts
 
     src = params.get("layers")
@@ -540,7 +558,7 @@ def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> 
         raise ValueError("hybrid stacking expects per-layer (list) params")
     layers = []
     for lp in src:
-        layers.append(_fuse_layer_projections(_stack_layer_experts(lp)))  # always a new dict
+        layers.append(_fuse_layer_projections(_stack_layer_experts(lp, scale_store_dtype)))  # always a new dict
         if consume:
             lp.clear()
 
@@ -560,7 +578,7 @@ def stack_layer_params_hybrid(params: Dict[str, Any], consume: bool = False) -> 
             slp[k] = vals  # per-layer (possibly sparse-only) entry
         elif isinstance(vals[0], QuantizedTensor):
             if _qt_stackable_across(vals):
-                slp[k] = prepare_stacked_tensor(_stack_qt(vals), scale_store_dtype=torch.bfloat16)
+                slp[k] = prepare_stacked_tensor(_stack_qt(vals), scale_store_dtype=scale_store_dtype)
                 consume_key(k)
             else:
                 slp[k] = vals

@@ -62,6 +62,8 @@ _SIGNATURES = {
     "qllm_bitplane_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "qllm_w4_planar_f32s_gemv": [_P] * 4 + [_I] * 7 + [_P],
     "qllm_w4_planar_f32s_gemm": [_P] * 4 + [_I] * 5 + [_P],
+    "qllm_w4_grouped_fused_mlp": [_P] * 11 + [_I] * 9 + [_P],
+    "qllm_w4_pnp_gemv": [_P] * 3 + [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -38,6 +38,13 @@ expert) selection in one launch of K8 ``w4_grouped_gemv``: K1's inner
 loop, one block per (column tile, selection), with the expert ids read
 on the device.
 
+Two products with a serial dependency run as one cooperative launch
+each (``csrc/fused_mlp.cu``): ``qmatmul_grouped_experts_fused`` (K19
+``w4_grouped_fused_mlp``, JAX's ``_qmm_kernel_grouped_fused``) computes
+a selection's whole expert MLP, gate|up, the activation and down, and
+``qmatmul_pnp_stacked`` (K20 ``w4_pnp_gemv``, JAX's ``_qmm_kernel_pnp``)
+o_proj, the residual, RMSNorm and gate|up.
+
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor. The TPU autotuner does not
 carry over: launch shapes are picked here in code.
@@ -68,6 +75,14 @@ __all__ = [
     "grouped_experts_ok",
     "w4_grouped_gemv",
     "w4_grouped_gemv_plain",
+    "qmatmul_grouped_experts_fused",
+    "grouped_fused_ok",
+    "w4_grouped_fused_mlp",
+    "w4_grouped_fused_mlp_plain",
+    "qmatmul_pnp_stacked",
+    "pnp_stacked_ok",
+    "w4_pnp_gemv",
+    "w4_pnp_gemv_plain",
     "w4_planar_gemv",
     "w4_planar_gemv_plain",
     "w4_planar_gemm",
@@ -225,6 +240,20 @@ def _planar_values(qw: torch.Tensor, K: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _fullk_f32(xf: torch.Tensor, qw: torch.Tensor, sc: torch.Tensor, zs: torch.Tensor) -> torch.Tensor:
+    """The full-K per-group product of the JAX package's planar kernels
+    (``fullk`` in pallas_qmm.py:1976-2006, :2259-2284): y[m, n] = sum_g
+    (x_g . q_g[:, n]) * s_g[n] - (sum x_g) * zs_g[n] in f32. xf f32 [M, K];
+    one layer's (or expert's) words qw [K/8, Np] and scales / zs [G, Np]."""
+    M, K = xf.shape
+    G = sc.shape[0]
+    v = _planar_values(qw, K).reshape(G, K // G, -1)
+    xg = xf.reshape(M, G, K // G)
+    d = torch.einsum("mgk,gkn->mgn", xg, v)
+    xsum = xg.sum(dim=2)
+    return (d * sc.to(torch.float32)[None] - xsum[:, :, None] * zs.to(torch.float32)[None]).sum(dim=1)
+
+
 def w4_planar_gemv_plain(
     x: torch.Tensor,
     qweight: torch.Tensor,
@@ -237,21 +266,12 @@ def w4_planar_gemv_plain(
     """The plain version of K1: y[m, n] = sum_g (x_g . q_g[:, n]) * s_g[n]
     - (sum x_g) * zs_g[n] in f32, rounded to bf16. x [M, K] bf16,
     qweight [L, K/8, Np], scales / zs [L, G, Np], norm_w [L, K] or None."""
-    M, K = x.shape
-    G = scales.shape[1]
-    g = K // G
+    K = x.shape[1]
     xf = x.to(torch.float32)
     if norm_w is not None:
         var = torch.sum(xf * xf, dim=1, keepdim=True) * (1.0 / K)
         xf = xf * torch.rsqrt(var + eps) * norm_w[layer].to(torch.float32)
-    v = _planar_values(qweight[layer], K).reshape(G, g, -1)
-    xg = xf.reshape(M, G, g)
-    d = torch.einsum("mgk,gkn->mgn", xg, v)
-    xsum = xg.sum(dim=2)
-    sc = scales[layer].to(torch.float32)
-    zz = zs[layer].to(torch.float32)
-    y = (d * sc[None] - xsum[:, :, None] * zz[None]).sum(dim=1)
-    return y.to(torch.bfloat16)
+    return _fullk_f32(xf, qweight[layer], scales[layer], zs[layer]).to(torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -865,3 +885,290 @@ def qmatmul_grouped_experts(
     )
     N = qt_stacked.out_features
     return y[:, :N] if y.shape[1] != N else y
+
+
+# ---------------------------------------------------------------------------
+# K19 w4_grouped_fused_mlp: a selection's whole expert MLP in one launch
+# ---------------------------------------------------------------------------
+
+_FUSED_ACTS = ("silu", "gelu")
+_grid_barriers = {}
+
+
+def _grid_barrier(dev: torch.device) -> torch.Tensor:
+    """The [count, generation] words of K19's / K20's grid barrier on
+    ``dev``, zeroed once: each barrier leaves the count at 0 and moves the
+    generation on, so launches on one stream share them without a reset."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    t = _grid_barriers.get(key)
+    if t is None:
+        t = _grid_barriers[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return t
+
+
+def grouped_fused_ok(gu: QuantizedTensor, dn: QuantizedTensor, n: int, act: str) -> bool:
+    """Whether K19 serves this (gate|up, down) expert-stack pair for n
+    selections: the JAX package's chip gate (``grouped_fused_ok``,
+    pallas_qmm.py:2322-2353): a silu / gelu gate, n <= 16, gate|up of
+    width 2 * K2 with K2 <= 1024 and a buffer that K2 tiles, one group
+    size, both stacks 4-bit planar, prefolded, without act-order, in the
+    full-K geometry, with bf16 scales (the chip's rule, taken on every
+    device). As for K8, groups of a multiple of 16 (``_kernel_geometry_ok``).
+    JAX's switch ``QLLM_TPU_MOE_FUSED`` is the caller's ``moe_fused``."""
+    K1, K2 = gu.in_features, dn.in_features
+    if act not in _FUSED_ACTS or n > 16 or gu.out_features != 2 * K2 or K2 > 1024:
+        return False
+    if gu.qweight.shape[-1] % K2:
+        return False
+    g = gu.effective_group_size
+    if g != dn.effective_group_size:
+        return False
+    return all(
+        qt.bits == 4
+        and qt.planar
+        and qt.zeros_prefolded
+        and qt.perm is None
+        and qt.scales.dtype == torch.bfloat16
+        and planar_full_ok(K, g)
+        and _kernel_geometry_ok(K, g)
+        for qt, K in ((gu, K1), (dn, K2))
+    )
+
+
+def _fused_act(name: str, gt: torch.Tensor) -> torch.Tensor:
+    """The gate activation of ``_qmm_kernel_grouped_fused`` (pallas_qmm.py:
+    2297-2308), in f32: silu, or gelu in its tanh form (the JAX package's
+    ``act_fn("gelu")`` is the erf form; its fused kernel is not)."""
+    if name == "gelu":
+        return 0.5 * gt * (1.0 + torch.tanh(0.7978845608 * (gt + 0.044715 * gt * gt * gt)))
+    return gt * torch.sigmoid(gt)
+
+
+def w4_grouped_fused_mlp_plain(
+    x_rows: torch.Tensor,
+    gu_qw: torch.Tensor,
+    gu_sc: torch.Tensor,
+    gu_zs: torch.Tensor,
+    dn_qw: torch.Tensor,
+    dn_sc: torch.Tensor,
+    dn_zs: torch.Tensor,
+    ids: torch.Tensor,
+    K2: int,
+    act: str = "silu",
+    x_shared: bool = False,
+) -> torch.Tensor:
+    """The plain version of K19: for each selection i with e = ids[i], x =
+    bf16(x_rows[0 if x_shared else i]) in f32, gu = fullk(x, GU[e]) (f32),
+    a = act(gu[:, :K2]) * gu[:, K2:2K2] (f32, not rounded), y = fullk(a,
+    DN[e]) -> bf16 [n, Np2]. The experts are gathered with index_select:
+    the ids are never read on the host."""
+    ids = ids.to(torch.int64)
+    out = []
+    for i in range(ids.shape[0]):
+        e = ids[i : i + 1]
+        x = (x_rows[:1] if x_shared else x_rows[i : i + 1]).to(torch.bfloat16).to(torch.float32)
+        gu = _fullk_f32(x, gu_qw.index_select(0, e)[0], gu_sc.index_select(0, e)[0], gu_zs.index_select(0, e)[0])
+        a = _fused_act(act, gu[:, :K2]) * gu[:, K2 : 2 * K2]
+        out.append(_fullk_f32(a, dn_qw.index_select(0, e)[0], dn_sc.index_select(0, e)[0], dn_zs.index_select(0, e)[0]))
+    return torch.cat(out).to(torch.bfloat16)
+
+
+def w4_grouped_fused_mlp(
+    x_rows: torch.Tensor,
+    gu_qw: torch.Tensor,
+    gu_sc: torch.Tensor,
+    gu_zs: torch.Tensor,
+    dn_qw: torch.Tensor,
+    dn_sc: torch.Tensor,
+    dn_zs: torch.Tensor,
+    ids: torch.Tensor,
+    K2: int,
+    act: str = "silu",
+    x_shared: bool = False,
+) -> torch.Tensor:
+    """K19: x_rows [n, K1] bf16 (or [>= 1, K1] when ``x_shared``), the
+    gate|up stack [E, K1/8, Np1] / [E, G1, Np1] (gate in columns [0, K2),
+    up in [K2, 2K2)), the down stack [E, K2/8, Np2] / [E, G2, Np2], ids [n]
+    int on the device -> bf16 [n, Np2] in one cooperative launch (see the
+    plain version). An id outside [0, E) gives a row of NaN."""
+    if not _build.use_kernel(x_rows, "w4_grouped_fused_mlp"):
+        return w4_grouped_fused_mlp_plain(x_rows, gu_qw, gu_sc, gu_zs, dn_qw, dn_sc, dn_zs, ids, K2, act, x_shared)
+    name = "w4_grouped_fused_mlp"
+    if x_rows.dtype != torch.bfloat16 or x_rows.dim() != 2:
+        raise ValueError(f"{name}: x_rows must be bf16 [n, K1]")
+    K1 = x_rows.shape[1]
+    E, Np1, G1 = _check_stack(name, x_rows, gu_qw, gu_sc, gu_zs, 0, K1)
+    E2, Np2, G2 = _check_stack(name, x_rows, dn_qw, dn_sc, dn_zs, 0, K2)
+    if E2 != E or K1 // G1 != K2 // G2 or Np1 < 2 * K2 or Np2 % 4 or act not in _FUSED_ACTS:
+        raise ValueError(f"{name}: stacks E={E}/{E2}, g={K1 // G1}/{K2 // G2}, Np1={Np1} < 2*K2={2 * K2}, "
+                         f"Np2={Np2} or act {act!r} not taken")
+    if ids.dim() != 1 or ids.device != x_rows.device or ids.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: ids must be an int [n] tensor on the rows' device")
+    n = ids.shape[0]
+    if not x_shared and x_rows.shape[0] != n:
+        raise ValueError(f"{name}: {x_rows.shape[0]} rows for {n} selections")
+    if not 1 <= n <= 65535:
+        raise ValueError(f"{name}: 1 <= n <= 65535 selections")
+    x_rows = _aligned(x_rows.contiguous())
+    ids = ids.to(torch.int32).contiguous()
+    gu = torch.empty((n, 2 * K2), dtype=torch.float32, device=x_rows.device)
+    out = torch.empty((n, Np2), dtype=torch.bfloat16, device=x_rows.device)
+    code = _build.load_library().qllm_w4_grouped_fused_mlp(
+        x_rows.data_ptr(), gu_qw.data_ptr(), gu_sc.data_ptr(), gu_zs.data_ptr(), dn_qw.data_ptr(), dn_sc.data_ptr(),
+        dn_zs.data_ptr(), ids.data_ptr(), gu.data_ptr(), _grid_barrier(x_rows.device).data_ptr(), out.data_ptr(),
+        n, E, int(bool(x_shared)), K1, K2, Np1, Np2, K1 // G1, _FUSED_ACTS.index(act), _build.stream(x_rows),
+    )
+    _build.check(name, code)
+    w4_grouped_fused_mlp.launches += 1
+    return out
+
+
+w4_grouped_fused_mlp.launches = 0
+
+
+def qmatmul_grouped_experts_fused(
+    x_rows: torch.Tensor,  # [n, K1], or [>= 1, K1] with x_shared
+    gu_stacked: QuantizedTensor,  # [E]-stacked fused gate|up serving prep
+    dn_stacked: QuantizedTensor,  # [E]-stacked down serving prep
+    expert_ids: torch.Tensor,  # [n] int, on the device
+    act: str = "silu",
+    x_shared: bool = False,  # every selection reads x_rows[0] (one token's k experts)
+) -> torch.Tensor:
+    """y[i] = act(x[i] @ GU[ids[i]])[:, :K2] * (x[i] @ GU[ids[i]])[:, K2:]
+    @ DN[ids[i]] for every selection in one K19 launch -> bf16 [n, N2] (the
+    counterpart of ``qmatmul_grouped_experts_fused``, pallas_qmm.py:2363)."""
+    if not grouped_fused_ok(gu_stacked, dn_stacked, expert_ids.shape[0], act):
+        raise NotImplementedError("qmatmul_grouped_experts_fused: the stacks are not K19's (grouped_fused_ok)")
+    y = w4_grouped_fused_mlp(
+        x_rows.to(torch.bfloat16), gu_stacked.qweight, gu_stacked.scales, gu_stacked.zeros, dn_stacked.qweight,
+        dn_stacked.scales, dn_stacked.zeros, expert_ids, dn_stacked.in_features, act, x_shared,
+    )
+    N2 = dn_stacked.out_features
+    return y[:, :N2] if y.shape[1] != N2 else y
+
+
+# ---------------------------------------------------------------------------
+# K20 w4_pnp_gemv: o_proj -> residual + RMSNorm -> gate|up in one launch
+# ---------------------------------------------------------------------------
+
+
+def pnp_stacked_ok(qt1: QuantizedTensor, qt2: QuantizedTensor) -> bool:
+    """Whether K20 serves this (proj1, proj2) stack pair: the JAX package's
+    chip gate (``pnp_stacked_ok``, pallas_qmm.py:2077-2106): both stacks
+    4-bit planar, prefolded, without act-order, in the full-K geometry,
+    with bf16 scales (the chip's rule, taken on every device); proj1
+    unpadded and as wide as proj2 is deep; each (K/8) x bn word block
+    within the 4 MiB full-K cap (bn = 512 at most). As for K1, groups of a
+    multiple of 16 (``_kernel_geometry_ok``)."""
+    for qt in (qt1, qt2):
+        K, g = qt.in_features, qt.effective_group_size
+        if not (
+            qt.bits == 4
+            and qt.planar
+            and qt.zeros_prefolded
+            and qt.perm is None
+            and qt.scales.dtype == torch.bfloat16
+            and planar_full_ok(K, g)
+            and _kernel_geometry_ok(K, g)
+        ):
+            return False
+    if qt1.qweight.shape[-1] != qt1.out_features or qt1.out_features != qt2.in_features:
+        return False
+    return (qt1.in_features // 8) * min(512, qt1.out_features) * 4 <= _FULLK_MAX_BYTES and (
+        qt2.in_features // 8
+    ) * min(512, qt2.qweight.shape[-1]) * 4 <= _FULLK_MAX_BYTES
+
+
+def w4_pnp_gemv_plain(
+    x1: torch.Tensor,
+    h: torch.Tensor,
+    qw1: torch.Tensor,
+    s1: torch.Tensor,
+    z1: torch.Tensor,
+    qw2: torch.Tensor,
+    s2: torch.Tensor,
+    z2: torch.Tensor,
+    norm_w: torch.Tensor,
+    layer: int,
+    eps: float,
+):
+    """The plain version of K20 (``_qmm_kernel_pnp``, pallas_qmm.py:1950):
+    hn = h + fullk(bf16(x1), W1[layer]) in f32; xn = hn * rsqrt(mean(hn^2)
+    + eps) * norm_w[layer] in f32, not rounded; y2 = fullk(xn, W2[layer])
+    -> (hn f32 [M, D], y2 bf16 [M, Np2])."""
+    x1f = x1.to(torch.bfloat16).to(torch.float32)
+    hn = _fullk_f32(x1f, qw1[layer], s1[layer], z1[layer]) + h.to(torch.float32)
+    var = torch.sum(hn * hn, dim=1, keepdim=True) * (1.0 / hn.shape[1])
+    xn = hn * torch.rsqrt(var + eps) * norm_w[layer].to(torch.float32)
+    return hn, _fullk_f32(xn, qw2[layer], s2[layer], z2[layer]).to(torch.bfloat16)
+
+
+def w4_pnp_gemv(
+    x1: torch.Tensor,
+    h: torch.Tensor,
+    qw1: torch.Tensor,
+    s1: torch.Tensor,
+    z1: torch.Tensor,
+    qw2: torch.Tensor,
+    s2: torch.Tensor,
+    z2: torch.Tensor,
+    norm_w: torch.Tensor,
+    layer: int,
+    eps: float,
+):
+    """K20: x1 [M, K1] bf16, h [M, D] f32, proj1 [L, K1/8, D] / [L, G1, D],
+    proj2 [L, D/8, Np2] / [L, G2, Np2], norm_w [L, D] bf16 / f32 -> (hn f32
+    [M, D], y2 bf16 [M, Np2]) in one cooperative launch (see the plain
+    version)."""
+    if not _build.use_kernel(x1, "w4_pnp_gemv"):
+        return w4_pnp_gemv_plain(x1, h, qw1, s1, z1, qw2, s2, z2, norm_w, layer, eps)
+    name = "w4_pnp_gemv"
+    if x1.dtype != torch.bfloat16 or x1.dim() != 2 or x1.shape[0] < 1:
+        raise ValueError(f"{name}: x1 must be bf16 [M, K1]")
+    M, K1 = x1.shape
+    L, D, G1 = _check_stack(name, x1, qw1, s1, z1, layer, K1)
+    L2, Np2, G2 = _check_stack(name, x1, qw2, s2, z2, layer, D)
+    if L2 != L or Np2 % 4 or tuple(h.shape) != (M, D) or h.dtype != torch.float32 or h.device != x1.device:
+        raise ValueError(f"{name}: stacks L={L}/{L2}, Np2={Np2}, h {tuple(h.shape)} {h.dtype} not taken")
+    if tuple(norm_w.shape) != (L, D) or norm_w.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: norm_w must be bf16/f32 [L, D]")
+    x1 = _aligned(x1.contiguous())
+    h = _aligned(h.contiguous())
+    norm_w = _aligned(norm_w.contiguous())
+    hn = torch.empty((M, D), dtype=torch.float32, device=x1.device)
+    y2 = torch.empty((M, Np2), dtype=torch.bfloat16, device=x1.device)
+    code = _build.load_library().qllm_w4_pnp_gemv(
+        x1.data_ptr(), h.data_ptr(), norm_w.data_ptr(), int(norm_w.dtype == torch.float32), qw1.data_ptr(),
+        s1.data_ptr(), z1.data_ptr(), qw2.data_ptr(), s2.data_ptr(), z2.data_ptr(), hn.data_ptr(),
+        _grid_barrier(x1.device).data_ptr(), y2.data_ptr(), layer, M, K1, D, Np2, K1 // G1, D // G2, float(eps),
+        _build.stream(x1),
+    )
+    _build.check(name, code)
+    w4_pnp_gemv.launches += 1
+    return hn, y2
+
+
+w4_pnp_gemv.launches = 0
+
+
+def qmatmul_pnp_stacked(
+    x1: torch.Tensor,  # [M, K1] (the attention context)
+    h: torch.Tensor,  # [M, D] residual stream
+    qt1: QuantizedTensor,  # [L]-stacked proj1 (o_proj)
+    qt2: QuantizedTensor,  # [L]-stacked proj2 (gate|up)
+    norm_w: torch.Tensor,  # [L, D] RMSNorm weights
+    layer: int,
+    eps: float,
+):
+    """(h + x1 @ W1[layer], rmsnorm(h + x1 @ W1) @ W2[layer]) in one K20
+    launch -> (hn f32 [M, D], y2 bf16 [M, N2]): the counterpart of
+    ``qmatmul_pnp_stacked`` (pallas_qmm.py:2109-2230), whose kernel writes
+    f32 and which returns y2 as bf16."""
+    if not pnp_stacked_ok(qt1, qt2):
+        raise NotImplementedError("qmatmul_pnp_stacked: the stacks are not K20's (pnp_stacked_ok)")
+    hn, y2 = w4_pnp_gemv(
+        x1.to(torch.bfloat16), h.to(torch.float32), qt1.qweight, qt1.scales, qt1.zeros, qt2.qweight, qt2.scales,
+        qt2.zeros, norm_w, layer, eps,
+    )
+    N2 = qt2.out_features
+    return hn, (y2[:, :N2] if y2.shape[1] != N2 else y2)

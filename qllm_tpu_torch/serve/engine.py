@@ -276,8 +276,12 @@ class ContinuousBatchingEngine:
             raise ValueError(f"the params live on {pdev}, not on {self.device}")
         if has_stackable_experts(params):
             # MoE serving: [L]-stacked attention with per-layer [E]-stacked
-            # experts (bf16 scales), so decode reads only the top-k experts
-            params = stack_layer_params_hybrid({**params, "layers": [dict(lp) for lp in params["layers"]]})
+            # experts, bf16 scales as the JAX engine stacks them (its
+            # QLLM_TPU_SCALES_BF16 default), so decode reads only the top-k
+            # experts through K8
+            params = stack_layer_params_hybrid(
+                {**params, "layers": [dict(lp) for lp in params["layers"]]}, scale_store_dtype=torch.bfloat16
+            )
         self.params = params
         self.cfg = cfg
         self.scfg = serve_cfg

@@ -462,3 +462,55 @@ def test_w4a8_g16_full_k_stack_launches_k11(gen):
     y = qmm.qmatmul_stacked(x, st, 1, w4a8=True)
     assert qmm.w4a8_planar_gemv.launches == before + 1
     _a8_close(y, qmm.w4a8_planar_gemv_plain(x, st.qweight, st.scales, st.zeros, 1)[:, :N])
+
+
+def _bf16_ulp(ref):
+    """One bf16 ulp at the output's magnitude."""
+    return float(2.0 ** (torch.floor(torch.log2(ref.abs().max())) - 7))
+
+
+@pytest.mark.parametrize(
+    "E,K1,K2,Np2,n,shared,act",
+    [(8, 512, 256, 512, 4, False, "silu"), (16, 2048, 768, 2048, 8, True, "silu"), (4, 512, 256, 384, 3, True, "gelu")],
+)
+def test_k19_grouped_fused_mlp_matches_plain(gen, E, K1, K2, Np2, n, shared, act):
+    """K19 against its plain version within one bf16 ulp of max|plain| (both
+    sum f32 products, in another order); a repeated (row, expert) pair gives
+    the same bits, an id outside the stack a row of NaN."""
+    gq, gs, gz = _stack(gen, K1, 2 * K2, L=E)
+    dq, ds, dz = _stack(gen, K2, Np2, L=E)
+    ids = torch.randperm(E, generator=gen, device="cuda")[:n].to(torch.int32)
+    ids[-1] = ids[0]
+    x = torch.randn((1 if shared else n, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    if not shared:
+        x[-1] = x[0]
+    args = (x, gq, gs, gz, dq, ds, dz, ids, K2, act, shared)
+    before = qmm.w4_grouped_fused_mlp.launches
+    y = qmm.w4_grouped_fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert qmm.w4_grouped_fused_mlp.launches == before + 1
+    ref = qmm.w4_grouped_fused_mlp_plain(*args).float()
+    torch.testing.assert_close(y.float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    assert torch.equal(y[0], y[-1])
+    bad = ids.clone()
+    bad[1] = E
+    yb = qmm.w4_grouped_fused_mlp(x, gq, gs, gz, dq, ds, dz, bad, K2, act, shared)
+    assert bool(torch.isnan(yb[1].float()).all()) and torch.equal(yb[0], y[0])
+
+
+@pytest.mark.parametrize("L,M,K1,D,Np2", [(2, 1, 512, 512, 1024), (3, 8, 1024, 512, 640), (2, 11, 512, 256, 512)])
+def test_k20_pnp_gemv_matches_plain(gen, L, M, K1, D, Np2):
+    """K20 against its plain version: hn within 1e-5 * max|hn| (an f32 sum
+    of K1 products in another order), y2 within one bf16 ulp of max|y2|;
+    M = 11 takes two 8-row chunks."""
+    q1, s1, z1 = _stack(gen, K1, D, L=L)
+    q2, s2, z2 = _stack(gen, D, Np2, L=L)
+    nw = (torch.rand((L, D), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    x1 = torch.randn((M, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    h = torch.randn((M, D), device="cuda", generator=gen) * 4.0
+    args = (x1, h, q1, s1, z1, q2, s2, z2, nw, L - 1, 1e-6)
+    hn, y2 = qmm.w4_pnp_gemv(*args)
+    torch.cuda.synchronize()
+    hn_ref, y2_ref = qmm.w4_pnp_gemv_plain(*args)
+    torch.testing.assert_close(hn, hn_ref, atol=1e-5 * float(hn_ref.abs().max()), rtol=0)
+    torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)

@@ -112,7 +112,7 @@ def _hybrid_both(npp, consume=False):
     js = jstacked.stack_layer_params_hybrid(jax.tree_util.tree_map(jnp.asarray, npp), scale_store_dtype=jnp.bfloat16)
     js["lm_head"] = jstacked.prepare_lm_head(js["lm_head"], scale_store_dtype=jnp.bfloat16)
     tp = params_from_numpy(npp, device="cpu")
-    ts = tstacked.stack_layer_params_hybrid(tp, consume=consume)
+    ts = tstacked.stack_layer_params_hybrid(tp, scale_store_dtype=torch.bfloat16, consume=consume)
     if consume:  # the caller's layer dicts are handed over and emptied
         assert all(lp == {} for lp in tp["layers"])
     ts["lm_head"] = tstacked.prepare_lm_head(ts["lm_head"], scale_store_dtype=torch.bfloat16)
@@ -255,7 +255,7 @@ def test_moe_sparse_matches_dense_and_jax(monkeypatch, name, E, k, B):
 
     tp = params_from_numpy(npp, device="cpu")
     assert tmoe.has_stackable_experts(tp)
-    tlp = tmoe.stack_experts(tp)["layers"][0]
+    tlp = tmoe.stack_experts(tp, scale_store_dtype=torch.bfloat16)["layers"][0]
     assert not tmoe.has_stackable_experts({"layers": [tlp]})
     _assert_identical(
         {"e": jlp["experts_stacked"], "router": jlp["router"]}, {"e": tlp["experts_stacked"], "router": tlp["router"]}
@@ -296,7 +296,7 @@ def test_hybrid_stacks_match_jax(monkeypatch, name, prestacked, consume):
     _assert_identical({"lm_head": js["lm_head"]}, {"lm_head": ts["lm_head"]})
     # per-layer stacking alone matches too
     jl = jmoe.stack_experts(jax.tree_util.tree_map(jnp.asarray, npp), scale_store_dtype=jnp.bfloat16)["layers"]
-    tl = tmoe.stack_experts(params_from_numpy(npp, device="cpu"))["layers"]
+    tl = tmoe.stack_experts(params_from_numpy(npp, device="cpu"), scale_store_dtype=torch.bfloat16)["layers"]
     for a, b in zip(jl, tl):
         _assert_identical(a["experts_stacked"], b["experts_stacked"])
 

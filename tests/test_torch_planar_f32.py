@@ -366,10 +366,9 @@ def test_non_prefolded_planar_stacks_take_k17_k18(jax_env, sd):
 
 
 def test_stacking_defaults_are_jax_defaults():
-    """stack_layer_params, prepare_stacked_tensor and prepare_lm_head with
-    no options build JAX's default stacks (f32 scales, planar where it
-    fits) bit for bit; the hybrid prep stores bf16 (the only storage K8
-    takes), as JAX's does when given bf16."""
+    """stack_layer_params, prepare_stacked_tensor, prepare_lm_head and the
+    hybrid (MoE) prep with no options build JAX's default stacks (f32
+    scales, planar where it fits) bit for bit."""
     _, _, npp, _, ts = _slice_stacks()  # both packages' defaults, asserted bit-identical
     for v in list(ts["layers"].values()) + [ts["lm_head"]]:
         if hasattr(v, "qweight"):
@@ -379,10 +378,10 @@ def test_stacking_defaults_are_jax_defaults():
     tw = tstacked.prepare_stacked_tensor(params_from_numpy(jax.tree_util.tree_map(lambda a: np.asarray(a)[None], raw),
                                                            device="cpu"))
     _assert_stacks_identical({"o": jw}, {"o": tw})
-    jh = jstacked.stack_layer_params_hybrid(jax.tree_util.tree_map(jnp.asarray, npp), scale_store_dtype=jnp.bfloat16)
+    jh = jstacked.stack_layer_params_hybrid(jax.tree_util.tree_map(jnp.asarray, npp))
     th = tstacked.stack_layer_params_hybrid(params_from_numpy(npp, device="cpu"))
     _assert_stacks_identical(jh["layers"], th["layers"])
-    assert all(v.scales.dtype == torch.bfloat16 for v in th["layers"].values() if hasattr(v, "qweight"))
+    assert all(v.scales.dtype == torch.float32 for v in th["layers"].values() if hasattr(v, "qweight"))
 
 
 # ---------------------------------------------------------------------------
