@@ -93,6 +93,16 @@ Phases, each of which fails the run on any error or disagreement:
      tok/s, device busy share, prefill ms, peak GiB; the plain-cache legs'
      streams against teacher-forced prefills and their first steps on the
      card against the CPU's plain versions on the first 2 layers.
+ 13. sp: the last two entry points of the JAX package's attention, at
+     full width: sequence-parallel decode attention
+     (``parallel.sp_decode_attention``, K21) over every layer of a
+     Mixtral-geometry int8 cache of 32768 rows (17.2 GB, batch 8) through
+     a one-rank NCCL group, against K3b over the whole cache; one layer
+     split into 4 shards on the card and merged as the group merges, the
+     empty shards exactly m = -1e30, acc = 0, den = 0; the per-layer 4-D
+     cache (K22) at the Llama-2-7B, Gemma-2-9B (softcap 50, window 4096)
+     and Bloom-7b1 (ALiBi) geometries; K3b with softcap and window at
+     S = 16384 and with ALiBi at S = 4096.
 
 Each model path runs with every kernel's launch count set to 0 just
 before it and read just after; the peak device memory of each is
@@ -108,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -253,6 +264,33 @@ FUSED = dict(STEPS=32, REL=0.02)
 PNP = dict(M=8, HN_REL=2e-2, Y2_REL=3e-2)
 # K3b past the one-shot limit: layers, batch, kv heads, rows, head width, n_rep
 LONG_ATTN_SHAPE = dict(L=1, B=8, Hkv=8, S=16384, D=128, n_rep=4)
+# the sp phase. K21: sequence-parallel decode attention at
+# Mixtral-8x7B's attention geometry (32 layers, 8 kv heads, n_rep 4, head
+# 128) over its max_position_embeddings of 32768 rows at batch 8, lengths
+# that stop mid-shard, on a shard boundary, in the last shard and at the
+# full cache; WORLD shards for the one-card merge check, LAYER the layer
+# held against the plain version
+SP = dict(L=32, B=8, Hkv=8, n_rep=4, D=128, S=32768, WORLD=4, LAYER=17,
+          LENGTHS=(100, 8192, 16421, 24576, 30000, 32767, 32768, 5000))
+# K21 against its plain version: acc and den within 1e-2 * max|plain|, m
+# within 1e-5 relative (one max of f32 dot products summed in another order)
+PARTIAL_TOL = (1e-2, 1e-5)
+SP_TOL = 2e-2  # the merged attention against K3b's: atol / rtol (tests/test_parallel.py:190)
+# K22: one layer's 4-D cache at each model's published attention geometry
+# and context (config.json): (model, B, H, Hkv, D, S, least length,
+# options); Gemma-2's softcap and local-layer window, Bloom's ALiBi
+ATTN_4D = (
+    ("Llama-2-7B", 8, 32, 32, 128, 4096, 2048, {}),
+    ("Gemma-2-9B", 8, 16, 8, 256, 8192, 4097, dict(softcap=50.0, window=4096)),
+    ("Bloom-7b1", 8, 32, 32, 128, 2048, 1024, dict(alibi="bloom")),
+)
+# K3b with the options on a one-layer stack at Mixtral's geometry: (case,
+# S, least length, options); S = 16384 is the JAX package's key-chunked
+# path (#15), which takes the softcap and the window but no ALiBi
+OPT_5D = (
+    ("softcap+window", 16384, 8193, dict(softcap=50.0, window=4096)),
+    ("alibi", 4096, 2048, dict(alibi="bloom")),
+)
 DEV = "cuda"
 QMM_TOL = 2e-2  # atol 2e-2 * max|y|, rtol 2e-2 (tests/test_pallas_qmm.py)
 K8_TOL = (2e-2, 1e-3)  # |y - plain| <= 2e-2 * max|plain| + 1e-3 (tests/test_moe_sparse.py:174)
@@ -664,6 +702,7 @@ def phase_kernels(torch, timer):
     rows.append(stream_row(torch, timer, gen))
     rows.extend(stacked_rows(torch, timer, gen))
     rows.extend(f32s_rows(torch, timer, gen))
+    rows.extend(sp_rows(torch, timer, gen))
     return rows
 
 
@@ -2942,6 +2981,350 @@ def phase_f32s(torch, K):
     return runs
 
 
+def attn_options(torch, opts, H):
+    """decode_attention's keywords for an ATTN_4D / OPT_5D options dict:
+    the ALiBi slopes and the window as tensors on the card."""
+    from qllm_tpu_torch.models.llama import alibi_slopes
+
+    kw = {}
+    if "softcap" in opts:
+        kw["softcap"] = opts["softcap"]
+    if "alibi" in opts:
+        kw["alibi_slopes"] = alibi_slopes(H, opts["alibi"], device=DEV)
+    if "window" in opts:
+        kw["window"] = torch.full((1,), opts["window"], dtype=torch.int32, device=DEV)
+    return kw
+
+
+def key_scales(torch, shape, gen, opts):
+    """The key scales of an options case, f32 ``shape`` on the card. An int8
+    draw has RMS 127 / sqrt(3) and q ~ N(0, 1) is pre-scaled by D**-0.5, so
+    the scores' RMS is about 73.3 * ks: with a softcap the scales give RMS
+    0.5-1.5 x the cap, where cap * tanh(s / cap) bends far from s (the
+    control in softcap_control); else U(0.005, 0.02), as everywhere here."""
+    u = torch.rand(shape, device=DEV, generator=gen)
+    if "softcap" in opts:
+        return (u + 0.5) * (opts["softcap"] * 3**0.5 / 127)
+    return u * 0.015 + 0.005
+
+
+def softcap_control(out, tol, plain, kw) -> float | None:
+    """With a softcap, max|out - plain without it|, which must exceed ten
+    times the one-ulp limit ``tol`` (a kernel that dropped the cap, or
+    whose tanh is far off, would then fail); None without a softcap."""
+    if "softcap" not in kw:
+        return None
+    miss = float((out - plain(**{k: v for k, v in kw.items() if k != "softcap"})).abs().max())
+    if miss <= 10 * tol:
+        raise AssertionError(f"the softcap moves the output by only {miss} (limit {tol}): the check cannot see it")
+    return miss
+
+
+def attn_rows_needed(lengths, window) -> int:
+    """The cache rows a decode step reads: min(length, window) per sequence."""
+    return int(lengths.clamp(max=window).sum()) if window else int(lengths.sum())
+
+
+def sp_rows(torch, timer, gen):
+    """K22 at the Llama-2-7B shape (one layer's 4-D cache, B=8, S=4096,
+    every row valid) and K21 over one Mixtral layer's 32768 rows (B=8),
+    each against its plain version. The library call for K22 is SDPA on
+    the dequantized cache; no single PyTorch call computes K21's partial
+    statistics, so its yardstick is K3b over the same rows."""
+    from qllm_tpu_torch.ops import attention as att
+
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    name, B, H, Hkv, D, S, _, _ = ATTN_4D[0]
+    kc = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    vc = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    ks = torch.rand((B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    vs = torch.rand((B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    q = torch.randn((B, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    args = (q, kc, vc, ks, vs, lengths)
+    out = att.decode_attn_int8_4d(*args)
+    torch.cuda.synchronize()
+    ref = att.decode_attn_int8_4d_plain(*args)
+    err, tol = float((out - ref).abs().max()), bf16_ulp(ref)
+    kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
+    vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+    lib_ms = timer(lambda: sdpa(q[:, :, None, :], kd, vd))
+    del kd, vd
+    ms = timer(lambda: att.decode_attn_int8_4d(*args))
+    plain_ms = timer(lambda: att.decode_attn_int8_4d_plain(*args), reps=5, warmup=1)
+    n_rows = B * Hkv * S
+    nbytes = n_rows * (2 * D + 8) + q.numel() * 2 + q.numel() * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * n_rows * D * (H // Hkv))
+    rows.append(dict(kernel="decode_attn_int8_4d", case=f"{name} B={B} H=Hkv={Hkv} D={D} S={S} lengths {S}",
+                     max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol, ms=ms,
+                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if err > tol:
+        raise AssertionError(f"decode_attn_int8_4d: max_abs_err {err} > {tol}")
+    del kc, vc, ks, vs, args, out, ref
+    rows.append(options_row(torch, timer, gen, "decode_attn_int8_4d", ATTN_4D[1]))
+    case, S5, lo, opts = OPT_5D[0]
+    B, Hkv, n_rep, D = (SP[k] for k in ("B", "Hkv", "n_rep", "D"))
+    shape = (f"Mixtral layer {case}", B, Hkv * n_rep, Hkv, D, S5, lo, opts)
+    rows.append(options_row(torch, timer, gen, "decode_attn_int8", shape))
+
+    B, Hkv, n_rep, D, S = (SP[k] for k in ("B", "Hkv", "n_rep", "D", "S"))
+    kc = torch.randint(-127, 128, (1, B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    vc = torch.randint(-127, 128, (1, B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    ks = torch.rand((1, B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    vs = torch.rand((1, B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    q = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    args = (q, kc, vc, ks, vs, lengths, 0)
+    got = att.decode_attn_int8_partial(*args)
+    torch.cuda.synchronize()
+    fields, ok = partial_check(got, att.decode_attn_int8_partial_plain(*args))
+    yard_ms = timer(lambda: att.decode_attn_int8(*args))
+    ms = timer(lambda: att.decode_attn_int8_partial(*args))
+    plain_ms = timer(lambda: att.decode_attn_int8_partial_plain(*args), reps=5, warmup=1)
+    n_rows = B * Hkv * S
+    nbytes = n_rows * (2 * D + 8) + q.numel() * 2 + q.numel() * 4 + 2 * B * q.shape[1] * 4 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * n_rows * D * n_rep)
+    rows.append(dict(kernel="decode_attn_int8_partial", case=f"Mixtral layer B={B} Hkv={Hkv} n_rep={n_rep} D={D} "
+                     f"S={S} lengths {S}", **fields, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
+                     yardstick="K3b decode_attn_int8 over the same rows", yardstick_ms=yard_ms, bound_ms=b_ms,
+                     bound_by=b_by, bytes=nbytes))
+    log(f"[kernel] {json.dumps(rows[-1])}")
+    if not ok:
+        raise AssertionError(f"decode_attn_int8_partial: {fields}")
+    del kc, vc, ks, vs, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def options_row(torch, timer, gen, kernel, shape):
+    """One kernel-phase row of K22 (4-D cache) or K3b (one-layer stack)
+    with the options of ``shape`` (an ATTN_4D-style tuple), lengths drawn
+    in [least, S], against its plain version within one bf16 ulp, and K3b
+    without the options on the same rows. No single PyTorch call applies a
+    logit softcap (library_ms null)."""
+    from qllm_tpu_torch.ops import attention as att
+
+    name, B, H, Hkv, D, S, lo, opts = shape
+    lead = () if kernel == "decode_attn_int8_4d" else (1,)
+    kc = torch.randint(-127, 128, lead + (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    vc = torch.randint(-127, 128, lead + (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    ks = key_scales(torch, lead + (B, Hkv, S), gen, opts)
+    vs = torch.rand(lead + (B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    q = torch.randn((B, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.randint(lo, S + 1, (B,), dtype=torch.int32, device=DEV, generator=gen)
+    kw = attn_options(torch, opts, H)
+    if kernel == "decode_attn_int8_4d":
+        fn, plain = att.decode_attn_int8_4d, att.decode_attn_int8_4d_plain
+        args = (q, kc, vc, ks, vs, lengths)
+        bare = (q, kc[None], vc[None], ks[None], vs[None], lengths, 0)
+    else:
+        fn, plain = att.decode_attn_int8, att.decode_attn_int8_plain
+        args = bare = (q, kc, vc, ks, vs, lengths, 0)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    err, tol = float((out - ref).abs().max()), bf16_ulp(ref)
+    if err > tol:
+        raise AssertionError(f"{kernel} {name} {opts}: max_abs_err {err} > {tol}")
+    miss = softcap_control(out, tol, functools.partial(plain, *args), kw)
+    ms = timer(lambda: fn(*args, **kw))
+    no_opt_ms = timer(lambda: att.decode_attn_int8(*bare))
+    plain_ms = timer(lambda: plain(*args, **kw), reps=5, warmup=1)
+    n_rows = attn_rows_needed(lengths, opts.get("window", 0)) * Hkv
+    nbytes = n_rows * (2 * D + 8) + q.numel() * 2 + q.numel() * 4 + B * 4 + (H * 4 if "alibi" in opts else 0)
+    b_ms, b_by = bound(nbytes, 4.0 * n_rows * D * (H // Hkv))
+    row = dict(kernel=kernel, case=f"{name} B={B} H={H} Hkv={Hkv} D={D} S={S} lengths {int(lengths.min())}-"
+               f"{int(lengths.max())} {opts}", options=True, chunked=S > 8192 and kernel == "decode_attn_int8",
+               max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol,
+               without_softcap_max_abs_err=miss, ms=ms, plain_ms=plain_ms, library_ms=None,
+               k3b_without_options_ms=no_opt_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    log(f"[kernel] {json.dumps(row)}")
+    return row
+
+
+def partial_check(got, ref):
+    """K21's (acc, m, den) against its plain version within PARTIAL_TOL;
+    -> (fields to log, whether it held)."""
+    (acc, m, den), (r_acc, r_m, r_den) = got, ref
+    err_acc, err_den = float((acc - r_acc).abs().max()), float((den - r_den).abs().max())
+    lim_acc, lim_den = PARTIAL_TOL[0] * float(r_acc.abs().max()), PARTIAL_TOL[0] * float(r_den.abs().max())
+    rel_m = float(((m - r_m).abs() / r_m.abs()).max())
+    tol = f"acc {lim_acc:.4g}, den {lim_den:.4g} ({PARTIAL_TOL[0]} * max|plain|), m {PARTIAL_TOL[1]} relative"
+    fields = dict(max_abs_err=err_acc, den_max_abs_err=err_den, m_max_rel_err=rel_m, tol=tol)
+    return fields, err_acc <= lim_acc and err_den <= lim_den and rel_m <= PARTIAL_TOL[1]
+
+
+def merge_check(torch, out, ref):
+    """A merged output against K3b's: finite, within SP_TOL (atol / rtol,
+    JAX's bound) and within the scaled LONG_ATTN_TOL, which a lost key tile
+    would miss at these lengths. -> (max |out - ref|, whether both held)."""
+    err = float((out - ref).abs().max())
+    limit = LONG_ATTN_TOL[0] * float(ref.abs().max()) + LONG_ATTN_TOL[1]
+    ok = bool(torch.isfinite(out).all()) and torch.allclose(out, ref, atol=SP_TOL, rtol=SP_TOL) and err <= limit
+    return err, ok
+
+
+def phase_sp(torch, K):
+    """The last two attention entry points at full width, each with the launch counts
+    set to 0 just before it and read just after:
+    (a) ``parallel.sp_decode_attention`` over every layer of a Mixtral-
+        geometry int8 cache of 32768 rows through a one-rank NCCL group
+        (K21 on the rank's shard, the all-reduce MAX and SUMs), held
+        against K3b over the whole cache; K21 against its plain version on
+        one layer; the same layer split into WORLD shards (copied by
+        ``sp_cache_shard``), K21 on each and the partials merged by
+        ``lse_merge``, the group path's merge, against K3b; every empty
+        (row, shard) pair exactly m = -1e30, acc = 0, den = 0;
+    (b) ``decode_attention`` on one layer's 4-D cache (K22) at the
+        Llama-2-7B, Gemma-2-9B (softcap, window) and Bloom-7b1 (ALiBi)
+        geometries, each against its plain version;
+    (c) ``decode_attention`` on a layer-stacked cache with the options
+        (K3b): softcap and window at S = 16384, ALiBi at S = 4096."""
+    import os
+
+    import torch.distributed as dist
+
+    from qllm_tpu_torch.ops import attention as att
+    from qllm_tpu_torch.parallel import lse_merge, sp_cache_shard, sp_decode_attention
+
+    runs = {}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(90)
+    L, B, Hkv, n_rep, D, S, n, layer = (SP[k] for k in ("L", "B", "Hkv", "n_rep", "D", "S", "WORLD", "LAYER"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    vs = torch.rand((L, B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+    q = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor(SP["LENGTHS"], dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[sp] int8 K/V {2 * kc.numel() / 1e9:.2f} GB and scales {2 * ks.numel() * 4 / 1e9:.2f} GB "
+        f"drawn on the card in {time.time() - t0:.2f} s")
+
+    # (a) one rank: the whole cache is its shard
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one process on one host
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        shard = [sp_cache_shard(t, dist.get_rank(group), dist.get_world_size(group)) for t in (kc, vc, ks, vs)]
+        for fn in K.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [sp_decode_attention(q, *shard, lengths, l, group) for l in range(L)]
+        torch.cuda.synchronize()
+        sp_ms = (time.perf_counter() - t0) * 1e3  # the first all-reduce makes the communicator
+        runs["sp"] = counts(K)
+        t0 = time.perf_counter()
+        again = [sp_decode_attention(q, *shard, lengths, l, group) for l in range(L)]
+        torch.cuda.synchronize()
+        sp_warm_ms = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(a, b) for a, b in zip(outs, again))
+        del again
+    finally:
+        dist.destroy_process_group()
+    del shard
+    check_launches({"sp": runs["sp"]}, {"sp": {"decode_attn_int8_partial": L, "decode_attn_int8": 0}})
+    err_1, ok_1 = 0.0, True
+    for l in range(L):
+        e, ok = merge_check(torch, outs[l], att.decode_attn_int8(q, kc, vc, ks, vs, lengths, l))
+        err_1, ok_1 = max(err_1, e), ok_1 and ok
+    ref = att.decode_attn_int8(q, kc, vc, ks, vs, lengths, layer)
+    args = (q, kc, vc, ks, vs, lengths, layer)
+    p_fields, p_ok = partial_check(att.decode_attn_int8_partial(*args), att.decode_attn_int8_partial_plain(*args))
+
+    # WORLD shards of one layer on this card, merged as the group merges
+    one = [t[layer : layer + 1] for t in (kc, vc, ks, vs)]
+    s_loc = S // n
+    locs, parts = [], []
+    for r in range(n):
+        loc = (lengths - r * s_loc).clamp(0, s_loc).to(torch.int32)
+        locs.append(loc)
+        parts.append(att.decode_attn_int8_partial(q, *[sp_cache_shard(t, r, n) for t in one], loc, 0))
+    acc, m, den = (torch.stack(t) for t in zip(*parts))
+    err_n, ok_n = merge_check(torch, lse_merge(acc, m, den, lambda t: t.amax(0), lambda t: t.sum(0)), ref)
+    empty = torch.stack(locs) == 0  # [WORLD, B]
+    n_empty = int(empty.sum())
+    e = empty[:, :, None, None]
+    exact = bool(((m == -1e30) | ~e).all()) and bool(((acc == 0) | ~e).all()) and bool(((den == 0) | ~e).all())
+    res = {
+        "config": f"Mixtral-8x7B attention, {L} layers, B={B}, Hkv={Hkv}, n_rep={n_rep}, D={D}, S={S}, "
+        f"lengths {list(SP['LENGTHS'])}",
+        "one_rank_nccl_ms_all_layers": sp_ms,
+        "one_rank_nccl_ms_all_layers_warm": sp_warm_ms,
+        "warm_run_bit_equal": same,
+        "launches": {k: v for k, v in runs["sp"].items() if v},
+        "one_rank_vs_k3b_max_abs_err": err_1,
+        f"{n}_shards_vs_k3b_max_abs_err": err_n,
+        "tol": f"atol/rtol {SP_TOL} and {LONG_ATTN_TOL[0]} * max|K3b| + {LONG_ATTN_TOL[1]}",
+        "partial_vs_plain": p_fields,
+        "empty_row_shards": n_empty,
+        "empty_exact": exact,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"[sp] {json.dumps(res)}")
+    if not (ok_1 and p_ok and ok_n and exact and n_empty > 0 and same):
+        raise AssertionError(f"sp: one rank {ok_1}, partial {p_ok}, {n} shards {ok_n}, empty shards exact {exact}, "
+                             f"warm run equal {same}")
+    del kc, vc, ks, vs, one, parts, acc, m, den, outs, ref
+    torch.cuda.empty_cache()
+
+    # (b) K22 and (c) K3b with the options: every call of a path, then the comparisons
+    def drive_attention(tag, cases, expected):
+        for fn in K.values():
+            fn.launches = 0
+        outs = [att.decode_attention(*a, **kw) for _, a, kw in cases]
+        torch.cuda.synchronize()
+        runs[tag] = counts(K)
+        check_launches({tag: runs[tag]}, {tag: expected})
+        for (case, a, kw), out in zip(cases, outs):
+            if a[1].dim() == 4:
+                plain = functools.partial(att.decode_attn_int8_4d_plain, *a[:6])
+            else:
+                plain = functools.partial(att.decode_attn_int8_plain, *a)
+            ref = plain(**kw)
+            err, tol = float((out - ref).abs().max()), bf16_ulp(ref)
+            finite = bool(torch.isfinite(out).all())
+            if not (err <= tol and finite):
+                raise AssertionError(f"{tag} {case}: max_abs_err {err} > {tol}")
+            miss = softcap_control(out, tol, plain, kw)
+            window = int(kw["window"][0]) if "window" in kw else 0
+            log(f"[sp] " + json.dumps(dict(path=tag, case=case, max_abs_err=err, tol=f"one bf16 ulp of max|plain| "
+                                           f"({tol:.4g})", without_softcap_max_abs_err=miss,
+                                           rows_read=attn_rows_needed(a[5], window), finite=finite)))
+
+    cases = []
+    for name, B4, H, Hkv4, D4, S4, lo, opts in ATTN_4D:
+        kc4 = torch.randint(-127, 128, (B4, Hkv4, S4, D4), dtype=torch.int8, device=DEV, generator=gen)
+        vc4 = torch.randint(-127, 128, (B4, Hkv4, S4, D4), dtype=torch.int8, device=DEV, generator=gen)
+        ks4 = key_scales(torch, (B4, Hkv4, S4), gen, opts)
+        vs4 = torch.rand((B4, Hkv4, S4), device=DEV, generator=gen) * 0.015 + 0.005
+        q4 = torch.randn((B4, H, D4), device=DEV, generator=gen).to(torch.bfloat16)
+        len4 = torch.randint(lo, S4 + 1, (B4,), dtype=torch.int32, device=DEV, generator=gen)
+        case = f"{name} B={B4} H={H} Hkv={Hkv4} D={D4} S={S4} {opts or 'no option'}"
+        cases.append((case, (q4, kc4, vc4, ks4, vs4, len4, None), attn_options(torch, opts, H)))
+    drive_attention("attn_4d", cases, {"decode_attn_int8_4d": len(ATTN_4D), "decode_attn_int8": 0})
+    del cases
+    for case, S5, lo, opts in OPT_5D:
+        kc5 = torch.randint(-127, 128, (1, B, Hkv, S5, D), dtype=torch.int8, device=DEV, generator=gen)
+        vc5 = torch.randint(-127, 128, (1, B, Hkv, S5, D), dtype=torch.int8, device=DEV, generator=gen)
+        ks5 = key_scales(torch, (1, B, Hkv, S5), gen, opts)
+        vs5 = torch.rand((1, B, Hkv, S5), device=DEV, generator=gen) * 0.015 + 0.005
+        q5 = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+        len5 = torch.randint(lo, S5 + 1, (B,), dtype=torch.int32, device=DEV, generator=gen)
+        tag = "options_long" if S5 > 8192 else "options"
+        label = f"Mixtral layer B={B} Hkv={Hkv} n_rep={n_rep} D={D} S={S5} {case} {opts}"
+        drive_attention(tag, [(label, (q5, kc5, vc5, ks5, vs5, len5, 0), attn_options(torch, opts, Hkv * n_rep))],
+                        {"decode_attn_int8": 1, "decode_attn_int8_4d": 0})
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNEL_META = {
     "w4_planar_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
     "w4_planar_gemm": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:751"),
@@ -2968,6 +3351,8 @@ KERNEL_META = {
     "w4_planar_f32s_gemm": ("qllm_tpu_torch/csrc/planar_f32.cu", "qllm_tpu/ops/pallas_qmm.py:999"),
     "w4_grouped_fused_mlp": ("qllm_tpu_torch/csrc/fused_mlp.cu", "qllm_tpu/ops/pallas_qmm.py:2239"),
     "w4_pnp_gemv": ("qllm_tpu_torch/csrc/fused_mlp.cu", "qllm_tpu/ops/pallas_qmm.py:1950"),
+    "decode_attn_int8_4d": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:39"),
+    "decode_attn_int8_partial": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1053"),
 }
 # the shape each kernel's summary entry reports (the largest of the path)
 HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefill": "T=2048 S=2048",
@@ -2981,8 +3366,8 @@ HEADLINE = {"w4_planar_gemv": "gateup", "w4_planar_gemm": "gateup", "flash_prefi
             "w4_pnp_gemv": "M=8"}
 # K3b stands in the line twice: as the TPU's one-shot kernel (#13) and as
 # its key-chunked kernel (#15), with its LONG_ATTN_SHAPE reading and its
-# launches on the long path
-CHUNKED = dict(replaces="qllm_tpu/ops/pallas_attention.py:284", path="long")
+# launches on the paths past 8192 rows (long, and the sp phase's options_long)
+CHUNKED = dict(replaces="qllm_tpu/ops/pallas_attention.py:284", paths=("long", "options_long"))
 
 
 def summary_entry(name, replaces, launches, mine, headline=""):
@@ -3004,7 +3389,8 @@ def summary_entry(name, replaces, launches, mine, headline=""):
     }
     if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
                                   "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv",
-                                  "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv"):
+                                  "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv",
+                                  "decode_attn_int8_4d"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
                              for r in mine]
     if "yardstick_ms" in head:
@@ -3015,7 +3401,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,main,main1,pnp,w4a8,serve,widths,f32s,moe,long,moe_qwen3,cross",
+    ap.add_argument("--phases", default="kernels,main,main1,pnp,w4a8,serve,widths,f32s,moe,long,moe_qwen3,cross,sp",
                     help="comma-separated subset")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -3060,6 +3446,8 @@ def main() -> int:
         "w4_planar_f32s_gemm": qmm_planar.w4_planar_f32s_gemm,
         "w4_grouped_fused_mlp": qmm.w4_grouped_fused_mlp,
         "w4_pnp_gemv": qmm.w4_pnp_gemv,
+        "decode_attn_int8_4d": attention.decode_attn_int8_4d,
+        "decode_attn_int8_partial": attention.decode_attn_int8_partial,
     }
     t_start = time.time()
     t0 = time.time()
@@ -3129,6 +3517,10 @@ def main() -> int:
         log(f"[time] cross, 7B legs {time.time() - t0:.1f} s")
         log(f"[cross] MoE legs {json.dumps(cross_moe(torch, K))}")
     log(f"[time] cross {time.time() - t0:.1f} s")
+    t0 = time.time()
+    if "sp" in phases:
+        runs.update(phase_sp(torch, K))
+    log(f"[time] sp {time.time() - t0:.1f} s")
 
     def launches(name, keep=lambda path: True):
         return sum(r[name] for p, r in runs.items() if keep(p)) if runs else None
@@ -3138,12 +3530,12 @@ def main() -> int:
         mine = [r for r in rows if r["kernel"] == name]
         if name == "decode_attn_int8":
             mine = [r for r in mine if not r.get("chunked")]
-            n = launches(name, lambda path: path != CHUNKED["path"])
+            n = launches(name, lambda path: path not in CHUNKED["paths"])
         else:
             n = launches(name)
         summary.append(summary_entry(name, replaces, n, mine, HEADLINE.get(name, "")))
     mine = [r for r in rows if r["kernel"] == "decode_attn_int8" and r.get("chunked")]
-    n = launches("decode_attn_int8", lambda path: path == CHUNKED["path"])
+    n = launches("decode_attn_int8", lambda path: path in CHUNKED["paths"])
     summary.append(summary_entry("decode_attn_int8", CHUNKED["replaces"], n, mine))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,7 +1,9 @@
-// K3a kv_write_int8, K3b decode_attn_int8, K6 decode_attention_ring and
-// K7 kv_ring_flush: the decode step's KV write and single-query
-// attention over the int8 KV cache (k/v [L, B, Hkv, S, D] int8, scales
-// [L, B, Hkv, S] f32) and its bf16 rings ([L, B, Hkv, 8, D]).
+// K3a kv_write_int8, K3b decode_attn_int8, K22 decode_attn_int8_4d, K21
+// decode_attn_int8_partial, K6 decode_attention_ring and K7
+// kv_ring_flush: the decode step's KV write and single-query attention
+// over the int8 KV cache (k/v [L, B, Hkv, S, D] int8, scales
+// [L, B, Hkv, S] f32; K22 one layer's [B, Hkv, S, D]), a sequence shard's
+// partial statistics, and the bf16 rings ([L, B, Hkv, 8, D]).
 
 #include "common.cuh"
 
@@ -79,18 +81,39 @@ QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_ca
 }
 
 // ---------------------------------------------------------------------------
-// K3b decode_attn_int8.
+// K3b decode_attn_int8, K22 decode_attn_int8_4d, K21
+// decode_attn_int8_partial and K6 decode_attention_ring: one device body.
 //
-// Replaces _attn_kernel_stacked / _decode_attention_stacked
+// K3b replaces _attn_kernel_stacked / _decode_attention_stacked
 // (pallas_attention.py:97, :457) behind decode_attention_pallas (:574),
 // S <= 8192, and _attn_kernel_stacked_chunked /
 // _decode_attention_stacked_chunked (:284, :371), the key-chunked online
 // softmax the TPU takes at S > 8192: one query token per sequence
-// attends over its first lengths[b] cache rows. q is scaled by D^-0.5 in f32 and rounded to
-// bf16; scores = (q . k_int8) * ks, positions >= lengths[b] are masked,
-// softmax in f32; the probabilities times vs are rounded to bf16 before
-// the product with v_int8 (the v scale folds into the probabilities);
-// output f32 [B, H, D].
+// attends over its first lengths[b] cache rows. q is scaled by D^-0.5 in
+// f32 and rounded to bf16; scores = (q . k_int8) * ks, then the options
+// in _attn_kernel's order (:57-83): the logit softcap cap * tanh(s / cap)
+// (exact tanhf), the ALiBi bias slopes[h] * s (JAX adds a precomputed f32
+// bias array, _alibi_bias_block :561, so the product is rounded before
+// the add: every product and sum of the score is an explicit _rn
+// intrinsic, which nvcc cannot contract into an FMA), then the mask
+// len - win <= s < len (win = S + 1 when no window is given; it is an
+// int32 in device memory, as JAX's is traced). Softmax in f32; the
+// probabilities times vs are rounded to bf16 before the product with
+// v_int8 (the v scale folds into the probabilities); output f32
+// [B, H, D].
+//
+// K22 replaces _attn_kernel (:39), the 4-D branch of
+// decode_attention_pallas (call :671): the same function over one
+// layer's [B, Hkv, S, D] cache, i.e. this body with layer 0 of a one-layer
+// stack.
+//
+// K21 replaces _attn_kernel_stacked_partial / decode_attention_partial
+// (:1053, :1098), the sequence-parallel building block: no options, and
+// the UNNORMALISED statistics of the local shard: acc = sum of
+// bf16(p * vs) * v, m = the shard's largest score, den = the sum of the
+// unrounded p, with p = exp(s - m) over the valid rows only. The running
+// max starts at JAX's _NEG = -1e30 (not -inf), so a zero-length shard
+// walks no tile and writes m = -1e30, acc = 0, den = 0, never NaN.
 //
 // Bound on the H100: bytes (every int8 K and V row of the sequence is
 // read once, ~2 flops per byte per query head). Design: one block per
@@ -99,14 +122,18 @@ QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_ca
 // [S, D] block in VMEM, which 227 KB of shared memory cannot at S = 8192,
 // so the block walks S in tiles of 128 keys with an online softmax
 // (running max and denominator, accumulators rescaled per tile): the
-// chunked kernel's function at any S. Offsets are 64-bit (a 16384-row
-// cache passes 2^31 bytes). At long S one block walks every tile of its
-// (b, kv-head) in turn: B * Hkv blocks, S / 128 tiles each, so the time
-// follows S, not the card's width (splitting S over blocks is the fix). Scores: one key
-// per thread, 16-byte loads of its K row; P.V: one head dimension per
-// thread, a warp reading one 128-byte V row per key.
+// chunked kernel's function at any S. Under a window the walk starts at
+// the tile holding len - win, as the chunked kernel skips whole chunks
+// (:284-370): a fully masked first tile would rescale by
+// exp(-inf - -inf) = NaN, and the skipped rows are never read. Offsets
+// are 64-bit (a 16384-row cache passes 2^31 bytes). At long S one block
+// walks every tile of its (b, kv-head) in turn: B * Hkv blocks, S / 128
+// tiles each, so the time follows S, not the card's width (splitting S
+// over blocks, with K21's partials as the split phase, is the fix).
+// Scores: one key per thread, 16-byte loads of its K row; P.V: one head
+// dimension per thread, a warp reading one 128-byte V row per key.
 //
-// K6 decode_attention_ring is the same kernel with kRing set.
+// K6 decode_attention_ring is the same body in ring mode.
 //
 // Replaces _attn_kernel_stacked_ring / decode_attention_ring
 // (pallas_attention.py:1212, :1309): lengths[b] = pos counts the past
@@ -130,21 +157,38 @@ constexpr int kAttnThreads = 128;  // = keys per tile
 constexpr int kMaxRep = 8;
 constexpr int kMaxD = 256;
 constexpr int kRingRows = 8;
+constexpr float kNeg = -1e30f;  // JAX's _NEG (pallas_attention.py:281)
 
-template <bool kRing>
+enum AttnMode { kOneShot = 0, kRingMode = 1, kPartial = 2 };
+
+// the operands only some modes read
+struct AttnExtra {
+  // kOneShot options
+  float cap, inv_cap;     // logit softcap (kSoftcap)
+  const float* slopes;    // [H] ALiBi slopes (kAlibi)
+  const int* window;      // [1] sliding window, or nullptr (S + 1)
+  // kRingMode: this step's k / v [B, Hkv, D] and the rings
+  const __nv_bfloat16* k_new;
+  const __nv_bfloat16* v_new;
+  __nv_bfloat16* rk;
+  __nv_bfloat16* rv;
+  // kPartial: m and den [B, H]
+  float* m_out;
+  float* den_out;
+};
+
+template <int kMode, bool kSoftcap, bool kAlibi>
 __global__ void __launch_bounds__(kAttnThreads)
     decode_attn_kernel(const __nv_bfloat16* __restrict__ q,  // [B, H, D]
                        const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
                        const float* __restrict__ ks, const float* __restrict__ vs,
                        const int* __restrict__ lengths, float* __restrict__ out,  // [B, H, D]
-                       int layer, int B, int Hkv, int S, int D, int n_rep, float qscale,
-                       // kRing only: this step's k / v [B, Hkv, D] and the rings
-                       const __nv_bfloat16* __restrict__ k_new, const __nv_bfloat16* __restrict__ v_new,
-                       __nv_bfloat16* __restrict__ rk, __nv_bfloat16* __restrict__ rv) {
+                       int layer, int B, int Hkv, int S, int D, int n_rep, float qscale, AttnExtra x) {
+  constexpr bool kRing = kMode == kRingMode;
   __shared__ float qs[kMaxRep][kMaxD];
   __shared__ float pt[kMaxRep][kAttnThreads];  // scores, then bf16(p * vs)
   __shared__ float red[kMaxRep][kAttnThreads / 32];
-  __shared__ float m_run[kMaxRep], l_run[kMaxRep], alpha[kMaxRep];
+  __shared__ float m_run[kMaxRep], l_run[kMaxRep], alpha[kMaxRep], slope[kMaxRep];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -153,6 +197,8 @@ __global__ void __launch_bounds__(kAttnThreads)
   const int H = Hkv * n_rep;
   // K3b: the first lengths[b] rows; the ring kernel: the flushed rows
   const int len = kRing ? min(lengths[b] / kRingRows * kRingRows, S) : min(lengths[b], S);
+  // the first row the window keeps: len - win <= s
+  const int lo = (kMode == kOneShot && x.window != nullptr) ? max(lengths[b] - *x.window, 0) : 0;
   const size_t base = ((static_cast<size_t>(layer) * B + b) * Hkv + hk) * S;  // cache row 0
 
   for (int i = tid; i < n_rep * D; i += kAttnThreads) {
@@ -160,8 +206,9 @@ __global__ void __launch_bounds__(kAttnThreads)
     qs[r][d] = round_bf16(bf2f(q[(static_cast<size_t>(b) * H + hk * n_rep + r) * D + d]) * qscale);
   }
   if (tid < n_rep) {
-    m_run[tid] = neg_inf();
+    m_run[tid] = kMode == kPartial ? kNeg : neg_inf();
     l_run[tid] = 0.f;
+    if constexpr (kAlibi) slope[tid] = x.slopes[hk * n_rep + tid];
   }
   float acc[kMaxRep][kMaxD / kAttnThreads];
 #pragma unroll
@@ -192,9 +239,10 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
   };
 
-  for (int s0 = 0; s0 < len; s0 += kAttnThreads) {
+  // from the tile holding row lo: every tile walked keeps a row
+  for (int s0 = lo / kAttnThreads * kAttnThreads; s0 < len; s0 += kAttnThreads) {
     const int s = s0 + tid;
-    const bool valid = s < len;
+    const bool valid = s >= lo && s < len;
     // scores for this thread's key, every head of the group
     for (int r = 0; r < n_rep; ++r) {
       float score = neg_inf();
@@ -207,7 +255,9 @@ __global__ void __launch_bounds__(kAttnThreads)
 #pragma unroll
           for (int i = 0; i < 16; ++i) dot = fmaf(qs[r][d0 + i], static_cast<float>(kb[i]), dot);
         }
-        score = dot * ks[base + s];
+        score = __fmul_rn(dot, ks[base + s]);
+        if constexpr (kSoftcap) score = __fmul_rn(x.cap, tanhf(__fmul_rn(score, x.inv_cap)));
+        if constexpr (kAlibi) score = __fadd_rn(score, __fmul_rn(slope[r], static_cast<float>(s)));
       }
       pt[r][tid] = score;
       const float wmax = warp_max(score);
@@ -225,6 +275,7 @@ __global__ void __launch_bounds__(kAttnThreads)
       if (lane == 0) red[r][warp] = wsum;
     }
     update_sum();
+    // P.V over the tile's rows [s0, s0 + nk); rows below lo carry p = 0
     const int nk = min(kAttnThreads, len - s0);
     // head loops run to the compile-time bound so acc stays in registers
 #pragma unroll
@@ -254,7 +305,7 @@ __global__ void __launch_bounds__(kAttnThreads)
     const size_t nbase = static_cast<size_t>(bh) * D;
     for (int i = tid; i < (nring + 1) * D; i += kAttnThreads) {
       const int j = i / D, d = i % D;
-      vt[j][d] = bf2f(j < nring ? rv[rbase + static_cast<size_t>(j) * D + d] : v_new[nbase + d]);
+      vt[j][d] = bf2f(j < nring ? x.rv[rbase + static_cast<size_t>(j) * D + d] : x.v_new[nbase + d]);
     }
     const bool valid = tid <= nring;
     for (int r = 0; r < n_rep; ++r) {
@@ -262,10 +313,10 @@ __global__ void __launch_bounds__(kAttnThreads)
       if (valid) {
         float dot = 0.f;
         if (tid < nring) {
-          const __nv_bfloat16* krow = rk + rbase + static_cast<size_t>(tid) * D;
+          const __nv_bfloat16* krow = x.rk + rbase + static_cast<size_t>(tid) * D;
           for (int d = 0; d < D; ++d) dot = fmaf(qs[r][d], bf2f(krow[d]), dot);
         } else {
-          for (int d = 0; d < D; ++d) dot = fmaf(qs[r][d], bf2f(k_new[nbase + d]), dot);
+          for (int d = 0; d < D; ++d) dot = fmaf(qs[r][d], bf2f(x.k_new[nbase + d]), dot);
         }
         score = dot;
       }
@@ -299,21 +350,64 @@ __global__ void __launch_bounds__(kAttnThreads)
     }
     // append this token to ring slot nring (never read above)
     for (int d = tid; d < D; d += kAttnThreads) {
-      rk[rbase + static_cast<size_t>(nring) * D + d] = k_new[nbase + d];
-      rv[rbase + static_cast<size_t>(nring) * D + d] = v_new[nbase + d];
+      x.rk[rbase + static_cast<size_t>(nring) * D + d] = x.k_new[nbase + d];
+      x.rv[rbase + static_cast<size_t>(nring) * D + d] = x.v_new[nbase + d];
     }
     __syncthreads();  // l_run is final
   }
 
+  const size_t row0 = static_cast<size_t>(b) * H + hk * n_rep;  // this group's first head
+  if constexpr (kMode == kPartial) {
+    if (tid < n_rep) {
+      x.m_out[row0 + tid] = m_run[tid];
+      x.den_out[row0 + tid] = l_run[tid];
+    }
+  }
 #pragma unroll
   for (int i = 0; i < kMaxD / kAttnThreads; ++i) {
     const int d = tid + i * kAttnThreads;
     if (d < D) {
 #pragma unroll
       for (int r = 0; r < kMaxRep; ++r)
-        if (r < n_rep) out[(static_cast<size_t>(b) * H + hk * n_rep + r) * D + d] = acc[r][i] / l_run[r];
+        if (r < n_rep) out[(row0 + r) * D + d] = kMode == kPartial ? acc[r][i] : acc[r][i] / l_run[r];
     }
   }
+}
+
+bool attn_shape_ok(int B, int Hkv, int D, int n_rep) {
+  return n_rep >= 1 && n_rep <= kMaxRep && D <= kMaxD && D % 16 == 0 && B >= 1 && Hkv >= 1;
+}
+
+template <int kMode, bool kSoftcap, bool kAlibi>
+int launch_attn(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+                const void* v_scale, const void* lengths, void* out, int layer, int B, int Hkv, int S,
+                int D, int n_rep, float qscale, const AttnExtra& x, void* stream) {
+  decode_attn_kernel<kMode, kSoftcap, kAlibi><<<B * Hkv, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_cache),
+      static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(lengths), static_cast<float*>(out),
+      layer, B, Hkv, S, D, n_rep, qscale, x);
+  return qllm_launch_status();
+}
+
+// K3b / K22: the options pick the instance
+int launch_one_shot(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+                    const void* v_scale, const void* lengths, void* out, int layer, int B, int Hkv,
+                    int S, int D, int n_rep, float qscale, float softcap, float inv_softcap,
+                    const void* slopes, const void* window, void* stream) {
+  if (!attn_shape_ok(B, Hkv, D, n_rep)) return static_cast<int>(cudaErrorInvalidValue);
+  AttnExtra x{};
+  x.cap = softcap;
+  x.inv_cap = inv_softcap;
+  x.slopes = static_cast<const float*>(slopes);
+  x.window = static_cast<const int*>(window);
+  const bool cap = softcap != 0.f, alibi = slopes != nullptr;
+#define QLLM_ONE_SHOT(C, A)                                                                         \
+  launch_attn<kOneShot, C, A>(q, k_cache, v_cache, k_scale, v_scale, lengths, out, layer, B, Hkv, S, D, \
+                              n_rep, qscale, x, stream)
+  if (cap) return alibi ? QLLM_ONE_SHOT(true, true) : QLLM_ONE_SHOT(true, false);
+  return alibi ? QLLM_ONE_SHOT(false, true) : QLLM_ONE_SHOT(false, false);
+#undef QLLM_ONE_SHOT
 }
 
 }  // namespace
@@ -321,15 +415,32 @@ __global__ void __launch_bounds__(kAttnThreads)
 QLLM_API int qllm_decode_attn_int8(const void* q, const void* k_cache, const void* v_cache,
                                    const void* k_scale, const void* v_scale, const void* lengths,
                                    void* out, int layer, int B, int Hkv, int S, int D, int n_rep,
-                                   float qscale, void* stream) {
-  if (n_rep < 1 || n_rep > kMaxRep || D > kMaxD || D % 16 != 0 || B < 1 || Hkv < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  decode_attn_kernel<false><<<B * Hkv, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_cache),
-      static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
-      static_cast<float*>(out), layer, B, Hkv, S, D, n_rep, qscale, nullptr, nullptr, nullptr, nullptr);
-  return qllm_launch_status();
+                                   float qscale, float softcap, float inv_softcap, const void* slopes,
+                                   const void* window, void* stream) {
+  return launch_one_shot(q, k_cache, v_cache, k_scale, v_scale, lengths, out, layer, B, Hkv, S, D, n_rep,
+                         qscale, softcap, inv_softcap, slopes, window, stream);
+}
+
+// K22: a per-layer [B, Hkv, S, D] cache is a one-layer stack
+QLLM_API int qllm_decode_attn_int8_4d(const void* q, const void* k_cache, const void* v_cache,
+                                      const void* k_scale, const void* v_scale, const void* lengths,
+                                      void* out, int B, int Hkv, int S, int D, int n_rep, float qscale,
+                                      float softcap, float inv_softcap, const void* slopes,
+                                      const void* window, void* stream) {
+  return launch_one_shot(q, k_cache, v_cache, k_scale, v_scale, lengths, out, 0, B, Hkv, S, D, n_rep,
+                         qscale, softcap, inv_softcap, slopes, window, stream);
+}
+
+QLLM_API int qllm_decode_attn_int8_partial(const void* q, const void* k_cache, const void* v_cache,
+                                           const void* k_scale, const void* v_scale, const void* lengths,
+                                           void* acc, void* m, void* den, int layer, int B, int Hkv,
+                                           int S, int D, int n_rep, float qscale, void* stream) {
+  if (!attn_shape_ok(B, Hkv, D, n_rep)) return static_cast<int>(cudaErrorInvalidValue);
+  AttnExtra x{};
+  x.m_out = static_cast<float*>(m);
+  x.den_out = static_cast<float*>(den);
+  return launch_attn<kPartial, false, false>(q, k_cache, v_cache, k_scale, v_scale, lengths, acc, layer, B,
+                                             Hkv, S, D, n_rep, qscale, x, stream);
 }
 
 QLLM_API int qllm_decode_attn_ring(const void* q, const void* k_new, const void* v_new,
@@ -337,16 +448,14 @@ QLLM_API int qllm_decode_attn_ring(const void* q, const void* k_new, const void*
                                    const void* v_scale, void* ring_k, void* ring_v,
                                    const void* lengths, void* out, int layer, int B, int Hkv, int S,
                                    int D, int n_rep, float qscale, void* stream) {
-  if (n_rep < 1 || n_rep > kMaxRep || D > kMaxD || D % 16 != 0 || B < 1 || Hkv < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  decode_attn_kernel<true><<<B * Hkv, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k_cache),
-      static_cast<const int8_t*>(v_cache), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
-      static_cast<float*>(out), layer, B, Hkv, S, D, n_rep, qscale,
-      static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<__nv_bfloat16*>(ring_k), static_cast<__nv_bfloat16*>(ring_v));
-  return qllm_launch_status();
+  if (!attn_shape_ok(B, Hkv, D, n_rep)) return static_cast<int>(cudaErrorInvalidValue);
+  AttnExtra x{};
+  x.k_new = static_cast<const __nv_bfloat16*>(k_new);
+  x.v_new = static_cast<const __nv_bfloat16*>(v_new);
+  x.rk = static_cast<__nv_bfloat16*>(ring_k);
+  x.rv = static_cast<__nv_bfloat16*>(ring_v);
+  return launch_attn<kRingMode, false, false>(q, k_cache, v_cache, k_scale, v_scale, lengths, out, layer, B,
+                                              Hkv, S, D, n_rep, qscale, x, stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ across unchanged; switches of other families raise NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -27,10 +28,12 @@ from ..ops.kv_cache import QuantizedKVCache
 from ..ops.qmm import _mean_sq
 from ..ops.ref_matmul import qmatmul
 from ..quant.qtensor import QuantizedTensor
+from ..utils.device import resolve_device
 
 __all__ = [
     "ModelConfig",
     "forward",
+    "alibi_slopes",
     "apply_linear",
     "rms_norm",
 ]
@@ -247,6 +250,36 @@ def apply_rope(q, k, cos, sin):
         return (xf * c + _rotate_half(xf) * s).to(x.dtype)
 
     return rope1(q), rope1(k)
+
+
+def alibi_slopes(n_heads: int, style: str = "bloom", device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """ALiBi head slopes, f32 [n_heads]. For power-of-two head counts both
+    dialects give 2^(-8(i+1)/n); they order the extra slopes differently
+    for other counts:
+
+    bloom: closest (lower) pow2 slopes + even-indexed slopes of 2x
+           (HF modeling_bloom.build_alibi_tensor)
+    mpt:   slopes for the CEILING pow2, reordered odd-first
+           (HF modeling_mpt.build_mpt_alibi_tensor, alibi_bias_max=8)
+    """
+    dev = resolve_device(device)
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start**i) for i in range(n)]
+
+    if style == "mpt":
+        n_ceil = 2 ** math.ceil(math.log2(n_heads))
+        sl = [2.0 ** (-8.0 * (i + 1) / n_ceil) for i in range(n_ceil)]
+        if n_ceil != n_heads:
+            sl = (sl[1::2] + sl[0::2])[:n_heads]
+    elif math.log2(n_heads).is_integer():
+        sl = pow2_slopes(n_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(n_heads))
+        sl = pow2_slopes(closest)
+        sl += pow2_slopes(2 * closest)[0::2][: n_heads - closest]
+    return torch.tensor(sl, dtype=torch.float32, device=dev)
 
 
 def build_mask(

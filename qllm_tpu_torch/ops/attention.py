@@ -7,9 +7,15 @@ cache (the counterpart of the 5-D one-shot decode path of
     (the JAX kernel returns buffer-aliased arrays instead).
   * K3b ``decode_attn_int8``: GQA attention of one query token over the
     first ``lengths[b]`` cache rows; the k scale folds into the scores
-    and the v scale into the probabilities. It walks the rows in 128-key
-    tiles with an online softmax, so it serves every S: both the JAX
-    package's one-shot kernel (S <= 8192) and its key-chunked one.
+    and the v scale into the probabilities; optional logit softcap, ALiBi
+    bias and sliding window. It walks the rows in 128-key tiles with an
+    online softmax, so it serves every S: both the JAX package's one-shot
+    kernel (S <= 8192) and its key-chunked one.
+  * K22 ``decode_attn_int8_4d``: K3b over one layer's [B, Hkv, S, D]
+    cache (the 4-D branch of ``decode_attention_pallas``).
+  * K21 ``decode_attn_int8_partial`` (``decode_attention_partial``): the
+    unnormalised (acc, m, den) of one sequence shard, which
+    ``parallel.sp_decode_attention`` merges across ranks.
   * K6 ``decode_attention_ring``: the ring-fused decode step: one query over the int8 rows
     [0, flushed), the bf16 ring rows [flushed, pos) and the current
     token, whose k/v it appends IN PLACE to ring slot pos - flushed
@@ -31,8 +37,8 @@ from . import _build
 from .kv_cache import _quantize_kv
 
 __all__ = [
+    "ONESHOT_S",
     "RING",
-    "decode_attention_ring",
     "decode_attention_ring",
     "decode_attention_ring_plain",
     "kv_ring_flush",
@@ -41,7 +47,12 @@ __all__ = [
     "kv_write_int8_plain",
     "decode_attn_int8",
     "decode_attn_int8_plain",
+    "decode_attn_int8_4d",
+    "decode_attn_int8_4d_plain",
+    "decode_attn_int8_partial",
+    "decode_attn_int8_partial_plain",
     "decode_attention",
+    "decode_attention_partial",
 ]
 
 RING = 8  # ring depth == the rows one flush writes
@@ -126,29 +137,154 @@ kv_write_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3b decode_attn_int8
+# K3b decode_attn_int8, K22 decode_attn_int8_4d, K21 decode_attn_int8_partial
 # ---------------------------------------------------------------------------
 
+ONESHOT_S = 8192  # decode_attention_pallas's one-shot limit (QLLM_TPU_ATTN_ONESHOT_S default)
+_NEG = -1e30  # the partial kernel's mask value (pallas_attention.py:281)
 
-def decode_attn_int8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, layer) -> torch.Tensor:
-    """The plain version of K3b (the JAX kernel's one-shot softmax):
-    q [B, H, D] -> f32 [B, H, D]."""
+
+def _group_scores(q, k_cache, k_scale, layer) -> torch.Tensor:
+    """bf16(q * d**-0.5) . k_int8 times the k scale: f32 [B, Hkv, n_rep, S]."""
+    B, H, d = q.shape
+    Hkv = k_cache.shape[2]
+    qg = (q.to(torch.float32) * (d**-0.5)).reshape(B, Hkv, H // Hkv, d)
+    qg = qg.to(torch.bfloat16).to(torch.float32)
+    scores = qg @ k_cache[layer].to(torch.float32).transpose(-1, -2)
+    return scores * k_scale[layer][:, :, None, :]
+
+
+def _pv(p, v_cache, v_scale, layer) -> torch.Tensor:
+    """bf16(p * vs) . v_int8: f32 [B, Hkv, n_rep, D]."""
+    pv = (p * v_scale[layer][:, :, None, :]).to(torch.bfloat16).to(torch.float32)
+    return pv @ v_cache[layer].to(torch.float32)
+
+
+def decode_attn_int8_plain(
+    q, k_cache, v_cache, k_scale, v_scale, lengths, layer, softcap=0.0, alibi_slopes=None, window=None
+) -> torch.Tensor:
+    """The plain version of K3b (the JAX kernel's one-shot softmax,
+    ``_attn_kernel``): q [B, H, D] -> f32 [B, H, D]. The options apply in
+    the kernel's order: softcap, the ALiBi bias slopes[h] * s, then the
+    mask len - window <= s < len; masked scores are -inf."""
     B, H, d = q.shape
     Hkv, S = k_cache.shape[2], k_cache.shape[3]
-    n_rep = H // Hkv
-    qg = (q.to(torch.float32) * (d**-0.5)).reshape(B, Hkv, n_rep, d)
-    qg = qg.to(torch.bfloat16).to(torch.float32)
-    scores = qg @ k_cache[layer].to(torch.float32).transpose(-1, -2)  # [B, Hkv, n_rep, S]
-    scores = scores * k_scale[layer][:, :, None, :]
-    col = torch.arange(S, device=q.device)
-    ok = (col[None, :] < lengths.to(torch.int64)[:, None])[:, None, None, :]
-    scores = torch.where(ok, scores, torch.tensor(float("-inf"), device=q.device))
+    dev = q.device
+    _check_window(window, dev)
+    scores = _group_scores(q, k_cache, k_scale, layer)
+    if softcap:
+        scores = softcap * torch.tanh(scores * (1.0 / softcap))
+    if alibi_slopes is not None:
+        pos = torch.arange(S, dtype=torch.float32, device=dev)
+        scores = scores + alibi_slopes.to(torch.float32).reshape(Hkv, H // Hkv, 1) * pos
+    col = torch.arange(S, device=dev)
+    length = lengths.to(torch.int64)[:, None]
+    ok = col[None, :] < length
+    if window is not None:
+        ok = ok & (col[None, :] >= length - window.to(torch.int64).reshape(1, 1))
+    scores = torch.where(ok[:, None, None, :], scores, torch.tensor(float("-inf"), device=dev))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     denom = p.sum(dim=-1, keepdim=True)
-    pv = (p * v_scale[layer][:, :, None, :]).to(torch.bfloat16).to(torch.float32)
-    out = (pv @ v_cache[layer].to(torch.float32)) / denom
-    return out.reshape(B, H, d)
+    return (_pv(p, v_cache, v_scale, layer) / denom).reshape(B, H, d)
+
+
+def decode_attn_int8_4d_plain(
+    q, k_cache, v_cache, k_scale, v_scale, lengths, softcap=0.0, alibi_slopes=None, window=None
+) -> torch.Tensor:
+    """The plain version of K22: K3b's over one layer's [B, Hkv, S, D] cache."""
+    caches = (k_cache[None], v_cache[None], k_scale[None], v_scale[None])
+    return decode_attn_int8_plain(q, *caches, lengths, 0, softcap, alibi_slopes, window)
+
+
+def decode_attn_int8_partial_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, layer):
+    """The plain version of K21 (``_attn_kernel_stacked_partial``):
+    q [B, H, D] over a shard's first lengths[b] rows (lengths may be 0) ->
+    (acc f32 [B, H, D] = sum of bf16(p * vs) . v, m f32 [B, H, 1] the
+    largest score, den f32 [B, H, 1] = sum of p), p = exp(s - m) on the
+    valid rows, masked scores _NEG."""
+    B, H, d = q.shape
+    S = k_cache.shape[3]
+    dev = q.device
+    scores = _group_scores(q, k_cache, k_scale, layer)
+    valid = (torch.arange(S, device=dev)[None, :] < lengths.to(torch.int64)[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, torch.tensor(_NEG, device=dev))
+    m = scores.amax(dim=-1, keepdim=True)  # _NEG when the length is 0
+    p = torch.exp(scores - m) * valid.to(torch.float32)  # exp(0) = 1 on an empty shard
+    den = p.sum(dim=-1, keepdim=True)
+    acc = _pv(p, v_cache, v_scale, layer)
+    return acc.reshape(B, H, d), m.reshape(B, H, 1), den.reshape(B, H, 1)
+
+
+def _check_cache_4d(name, k_cache, v_cache, k_scale, v_scale):
+    if k_cache.dtype != torch.int8 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: caches must be int8 [B, Hkv, S, D]")
+    if k_scale.dtype != torch.float32 or k_scale.shape != k_cache.shape[:3] or v_scale.shape != k_scale.shape:
+        raise ValueError(f"{name}: scales must be f32 [B, Hkv, S]")
+    for t in (k_cache, v_cache, k_scale, v_scale):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: caches must be contiguous")
+
+
+def _query_operands(name, q, lengths, B, Hkv, D):
+    """Check q [B, H, D] bf16 and lengths [B]; -> (q, lengths int32, n_rep)."""
+    if q.dim() != 3 or q.shape[0] != B or q.shape[2] != D or q.shape[1] % Hkv:
+        raise ValueError(f"{name}: q must be [B, H, D] with H a multiple of Hkv")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: q must be bf16, got {q.dtype}")
+    n_rep = q.shape[1] // Hkv
+    if n_rep > _MAX_REP or D > _MAX_D or D % 16:
+        raise ValueError(f"{name}: n_rep <= {_MAX_REP}, D <= {_MAX_D}, D % 16 == 0")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"{name}: lengths must be [B]")
+    return q.contiguous(), lengths.to(torch.int32).contiguous(), n_rep
+
+
+def _check_window(window, device) -> None:
+    """The window must be None or one integer in a tensor on ``device``
+    (the JAX package traces it; a Python int would be read on the host)."""
+    if window is None:
+        return
+    if not isinstance(window, torch.Tensor) or window.numel() != 1 or window.device != device:
+        raise ValueError(f"window must be a tensor holding one int32 on {device}, not {window!r}")
+
+
+def _window_tensor(window, device) -> Optional[torch.Tensor]:
+    """The window as an int32 [1] on the device, never read on the host."""
+    _check_window(window, device)
+    return None if window is None else window.reshape(1).to(torch.int32).contiguous()
+
+
+def _launch_one_shot(name, entry, q, caches, lengths, layer_args, B, Hkv, S, D, softcap, alibi_slopes, window):
+    """K3b / K22: one launch of the options' instance -> f32 [B, H, D]."""
+    q, lengths, n_rep = _query_operands(name, q, lengths, B, Hkv, D)
+    slopes = None
+    if alibi_slopes is not None:
+        if tuple(alibi_slopes.shape) != (q.shape[1],) or alibi_slopes.device != q.device:
+            raise ValueError(f"{name}: alibi_slopes must be [H] on {q.device}")
+        slopes = alibi_slopes.to(torch.float32).contiguous()
+    win = _window_tensor(window, q.device)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    code = entry(
+        q.data_ptr(),
+        *(t.data_ptr() for t in caches),
+        lengths.data_ptr(),
+        out.data_ptr(),
+        *layer_args,
+        B,
+        Hkv,
+        S,
+        D,
+        n_rep,
+        float(D**-0.5),
+        float(softcap),
+        float(1.0 / softcap) if softcap else 0.0,
+        _build.ptr(slopes),
+        _build.ptr(win),
+        _build.stream(q),
+    )
+    _build.check(name, code)
+    return out
 
 
 def decode_attn_int8(
@@ -159,33 +295,94 @@ def decode_attn_int8(
     v_scale: torch.Tensor,
     lengths: torch.Tensor,  # [B] int32: attend to cache[:length]
     layer: int,
+    softcap: float = 0.0,  # gemma2 logit soft-capping
+    alibi_slopes: Optional[torch.Tensor] = None,  # [H] f32 (bloom / mpt position bias)
+    window: Optional[torch.Tensor] = None,  # one int32 on q's device: the sliding window (None = off)
 ) -> torch.Tensor:
-    """K3b: -> f32 [B, H, D]."""
+    """K3b: -> f32 [B, H, D]. ALiBi past ONESHOT_S rows raises, as the
+    JAX package's key-chunked kernel takes no bias."""
+    if alibi_slopes is not None and k_cache.shape[3] > ONESHOT_S:
+        raise NotImplementedError(
+            f"alibi is not served past {ONESHOT_S} cache rows (the JAX package's key-chunked "
+            "long-context decode kernel takes no bias)"
+        )
+    options = (softcap, alibi_slopes, window)
     if not _build.use_kernel(q, "decode_attn_int8"):
-        return decode_attn_int8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, layer)
+        return decode_attn_int8_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, layer, *options)
     _check_cache("decode_attn_int8", k_cache, v_cache, k_scale, v_scale, layer)
     L, B, Hkv, S, D = k_cache.shape
-    if q.dim() != 3 or q.shape[0] != B or q.shape[2] != D or q.shape[1] % Hkv:
-        raise ValueError("decode_attn_int8: q must be [B, H, D] with H a multiple of Hkv")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"decode_attn_int8: q must be bf16, got {q.dtype}")
-    n_rep = q.shape[1] // Hkv
-    if n_rep > _MAX_REP or D > _MAX_D or D % 16:
-        raise ValueError(f"decode_attn_int8: n_rep <= {_MAX_REP}, D <= {_MAX_D}, D % 16 == 0")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError("decode_attn_int8: lengths must be [B]")
-    q = q.contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lib = _build.load_library()
-    code = lib.qllm_decode_attn_int8(
+    out = _launch_one_shot(
+        "decode_attn_int8", _build.load_library().qllm_decode_attn_int8, q, (k_cache, v_cache, k_scale, v_scale),
+        lengths, (layer,), B, Hkv, S, D, *options,
+    )
+    decode_attn_int8.launches += 1
+    return out
+
+
+decode_attn_int8.launches = 0
+
+
+def decode_attn_int8_4d(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache: torch.Tensor,  # [B, Hkv, S, D] int8: one layer
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, Hkv, S] f32
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32
+    softcap: float = 0.0,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    window: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K22: K3b over a per-layer 4-D cache (the 4-D branch of
+    ``decode_attention_pallas``) -> f32 [B, H, D]."""
+    options = (softcap, alibi_slopes, window)
+    if not _build.use_kernel(q, "decode_attn_int8_4d"):
+        return decode_attn_int8_4d_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, *options)
+    _check_cache_4d("decode_attn_int8_4d", k_cache, v_cache, k_scale, v_scale)
+    B, Hkv, S, D = k_cache.shape
+    out = _launch_one_shot(
+        "decode_attn_int8_4d", _build.load_library().qllm_decode_attn_int8_4d, q,
+        (k_cache, v_cache, k_scale, v_scale), lengths, (), B, Hkv, S, D, *options,
+    )
+    decode_attn_int8_4d.launches += 1
+    return out
+
+
+decode_attn_int8_4d.launches = 0
+
+
+def decode_attn_int8_partial(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache: torch.Tensor,  # [L, B, Hkv, S, D] int8: this rank's shard of the sequence
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [L, B, Hkv, S] f32
+    v_scale: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32 LOCAL lengths into the shard (may be 0)
+    layer: int,
+):
+    """K21: the unnormalised statistics of decode attention over a KV
+    shard, (acc f32 [B, H, D], m f32 [B, H, 1], den f32 [B, H, 1]); the
+    exact merge over shards i, with m = max_i m_i, is
+    out = sum_i acc_i e^(m_i - m) / sum_i den_i e^(m_i - m). An empty
+    shard gives m = -1e30, acc = 0, den = 0."""
+    if not _build.use_kernel(q, "decode_attn_int8_partial"):
+        return decode_attn_int8_partial_plain(q, k_cache, v_cache, k_scale, v_scale, lengths, layer)
+    _check_cache("decode_attn_int8_partial", k_cache, v_cache, k_scale, v_scale, layer)
+    L, B, Hkv, S, D = k_cache.shape
+    q, lengths, n_rep = _query_operands("decode_attn_int8_partial", q, lengths, B, Hkv, D)
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, q.shape[1], 1), dtype=torch.float32, device=q.device)
+    den = torch.empty_like(m)
+    code = _build.load_library().qllm_decode_attn_int8_partial(
         q.data_ptr(),
         k_cache.data_ptr(),
         v_cache.data_ptr(),
         k_scale.data_ptr(),
         v_scale.data_ptr(),
         lengths.data_ptr(),
-        out.data_ptr(),
+        acc.data_ptr(),
+        m.data_ptr(),
+        den.data_ptr(),
         layer,
         B,
         Hkv,
@@ -195,12 +392,15 @@ def decode_attn_int8(
         float(D**-0.5),
         _build.stream(q),
     )
-    _build.check("decode_attn_int8", code)
-    decode_attn_int8.launches += 1
-    return out
+    _build.check("decode_attn_int8_partial", code)
+    decode_attn_int8_partial.launches += 1
+    return acc, m, den
 
 
-decode_attn_int8.launches = 0
+decode_attn_int8_partial.launches = 0
+
+# the JAX package's name for the partial-statistics entry point
+decode_attention_partial = decode_attn_int8_partial
 
 
 def decode_attention(
@@ -210,26 +410,24 @@ def decode_attention(
     k_scale: torch.Tensor,
     v_scale: torch.Tensor,
     lengths: torch.Tensor,
-    layer: int,
+    layer: Optional[int] = None,
     softcap: float = 0.0,
     alibi_slopes: Optional[torch.Tensor] = None,
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Decode attention over a layer-stacked int8 cache (the 5-D path of
-    ``decode_attention_pallas``): q [B, H, D] -> f32 [B, H, D]. K3b
-    serves every S: at S > 8192 the JAX package switches to its
-    key-chunked kernel (``_decode_attention_stacked_chunked``), whose
-    online softmax over key chunks K3b already is."""
-    if k_cache.dim() != 5:
-        raise NotImplementedError(
-            "the per-layer 4-D cache path (_attn_kernel, pallas_attention.py:671) is not ported yet"
-        )
-    if softcap or alibi_slopes is not None or window is not None:
-        raise NotImplementedError(
-            "logit softcap, ALiBi and sliding-window masking are not wired into "
-            "decode_attn_int8 yet"
-        )
-    return decode_attn_int8(q, k_cache, v_cache, k_scale, v_scale, lengths, layer)
+    """Decode attention over the int8 cache, the counterpart of
+    ``decode_attention_pallas``: q [B, H, D] -> f32 [B, H, D]. A
+    layer-stacked [L, B, Hkv, S, D] cache runs K3b on ``layer`` at every S
+    (at S > 8192 the JAX package switches to its key-chunked kernel, whose
+    online softmax over key chunks K3b already is); a per-layer
+    [B, Hkv, S, D] cache runs K22. Both take the logit softcap, ALiBi
+    slopes [H] and a sliding window (one int32 on q's device)."""
+    args = (q, k_cache, v_cache, k_scale, v_scale, lengths)
+    if k_cache.dim() == 5:
+        if layer is None:
+            raise ValueError("decode_attention: a layer-stacked cache needs the layer")
+        return decode_attn_int8(*args, layer, softcap, alibi_slopes, window)
+    return decode_attn_int8_4d(*args, softcap, alibi_slopes, window)
 
 
 # ---------------------------------------------------------------------------
@@ -310,21 +508,12 @@ def decode_attention_ring(
     _check_cache("decode_attention_ring", k_cache, v_cache, k_scale, v_scale, layer)
     _check_rings("decode_attention_ring", k_cache, ring_k, ring_v)
     L, B, Hkv, S, D = k_cache.shape
-    if q.dim() != 3 or q.shape[0] != B or q.shape[2] != D or q.shape[1] % Hkv:
-        raise ValueError("decode_attention_ring: q must be [B, H, D] with H a multiple of Hkv")
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"decode_attention_ring: q must be bf16, got {q.dtype}")
+    q, lengths, n_rep = _query_operands("decode_attention_ring", q, lengths, B, Hkv, D)
     if tuple(k_new.shape) != (B, Hkv, D) or v_new.shape != k_new.shape:
         raise ValueError("decode_attention_ring: k_new/v_new must be [B, Hkv, D]")
     if k_new.dtype != torch.bfloat16 or v_new.dtype != torch.bfloat16:
         raise ValueError("decode_attention_ring: k_new/v_new must be bf16")
-    n_rep = q.shape[1] // Hkv
-    if n_rep > _MAX_REP or D > _MAX_D or D % 16:
-        raise ValueError(f"decode_attention_ring: n_rep <= {_MAX_REP}, D <= {_MAX_D}, D % 16 == 0")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError("decode_attention_ring: lengths must be [B]")
-    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     code = lib.qllm_decode_attn_ring(

@@ -79,17 +79,22 @@ def test_cache_update_matches_write_kernel_semantics():
 
 
 def test_decode_attention_refuses_what_is_not_ported():
+    """Only ALiBi past 8192 cache rows raises, as in the JAX package (its
+    key-chunked kernel takes no bias); the softcap and a window are served,
+    and so is a cache past 8192 rows (the JAX package's chunked path)."""
     L, B, Hkv, d = 1, 1, 1, 16
     q = torch.zeros((B, Hkv, d), dtype=torch.bfloat16)
     lengths = torch.ones((B,), dtype=torch.int32)
     for S, kw in ((64, {"softcap": 30.0}), (64, {"window": torch.tensor(4)})):
         kc = torch.zeros((L, B, Hkv, S, d), dtype=torch.int8)
         ksc = torch.ones((L, B, Hkv, S))
-        with pytest.raises(NotImplementedError):
-            tat.decode_attention(q, kc, kc, ksc, ksc, lengths, 0, **kw)
-    # a cache past 8192 rows is served (the JAX package's chunked path)
+        out = tat.decode_attention(q, kc, kc, ksc, ksc, lengths, 0, **kw)
+        assert torch.equal(out, torch.zeros((B, Hkv, d)))
     S = 8200
     kc = torch.zeros((L, B, Hkv, S, d), dtype=torch.int8)
     ksc = torch.ones((L, B, Hkv, S))
-    out = tat.decode_attention(q, kc, kc, ksc, ksc, torch.full((B,), S, dtype=torch.int32), 0)
+    full = torch.full((B,), S, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="alibi"):
+        tat.decode_attention(q, kc, kc, ksc, ksc, full, 0, alibi_slopes=torch.ones(Hkv))
+    out = tat.decode_attention(q, kc, kc, ksc, ksc, full, 0)
     assert torch.equal(out, torch.zeros((B, Hkv, d)))

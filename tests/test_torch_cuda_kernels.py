@@ -514,3 +514,139 @@ def test_k20_pnp_gemv_matches_plain(gen, L, M, K1, D, Np2):
     hn_ref, y2_ref = qmm.w4_pnp_gemv_plain(*args)
     torch.testing.assert_close(hn, hn_ref, atol=1e-5 * float(hn_ref.abs().max()), rtol=0)
     torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)
+
+
+_SOFTCAP = 30.0
+
+
+def _int8_cache(gen, shape, softcap=0.0):
+    """An int8 cache of ``shape`` and its f32 scales, on the card. With a
+    softcap the key scales give scores of RMS 0.5-1.5 x the cap (an int8
+    draw has RMS 127 / sqrt(3), q ~ N(0, 1) is pre-scaled by D**-0.5), where
+    cap * tanh(s / cap) bends far from s."""
+    kc = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+    vc = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+    u = torch.rand(shape[:-1], device="cuda", generator=gen)
+    ks = (u + 0.5) * (softcap * 3**0.5 / 127) if softcap else u * 0.01 + 0.005
+    vs = torch.rand(shape[:-1], device="cuda", generator=gen) * 0.01 + 0.005
+    return kc, vc, ks, vs
+
+
+def _softcap_control(out, ref, plain, kw):
+    """With a softcap, the plain version without it must miss the one-ulp
+    limit ten times over: a kernel that dropped the cap cannot pass."""
+    if "softcap" in kw:
+        bare = plain(**{k: v for k, v in kw.items() if k != "softcap"})
+        assert (out - bare).abs().max() > 10 * _bf16_ulp(ref)
+
+
+def _options(opts, H):
+    from qllm_tpu_torch.models.llama import alibi_slopes
+
+    kw = {}
+    if "softcap" in opts:
+        kw["softcap"] = _SOFTCAP
+    if "alibi" in opts:
+        kw["alibi_slopes"] = alibi_slopes(H, "mpt", device="cuda")
+    if "window" in opts:
+        kw["window"] = torch.tensor([130], dtype=torch.int32, device="cuda")
+    return kw
+
+
+_OPTS = ["none", "softcap", "alibi", "window", "softcap+alibi+window"]
+
+
+@pytest.mark.parametrize("opts", _OPTS)
+@pytest.mark.parametrize("n_rep,D", [(1, 128), (3, 256)])
+def test_k3b_options_match_plain(gen, opts, n_rep, D):
+    """K3b with the logit softcap, ALiBi (6 or 2 heads: mpt's non-power-of-
+    two order) and a window that starts mid-tile, against its plain version
+    within one bf16 ulp of max|plain|; lengths 1, mid-tile and full. The
+    softcap cases put the scores in the cap's range, with a control."""
+    L, B, Hkv, S = 2, 3, 2, 600
+    cache = _int8_cache(gen, (L, B, Hkv, S, D), _SOFTCAP if "softcap" in opts else 0.0)
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([1, 300, 600], dtype=torch.int32, device="cuda")
+    kw = _options(opts, Hkv * n_rep)
+    out = att.decode_attention(q, *cache, lengths, 1, **kw)
+    torch.cuda.synchronize()
+    ref = att.decode_attn_int8_plain(q, *cache, lengths, 1, **kw)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    _softcap_control(out, ref, lambda **k: att.decode_attn_int8_plain(q, *cache, lengths, 1, **k), kw)
+
+
+@pytest.mark.parametrize("opts", _OPTS)
+def test_k22_4d_cache_matches_plain_and_k3b(gen, opts):
+    """K22 on a per-layer 4-D cache against its plain version (one bf16
+    ulp of max|plain|), and bit-equal to K3b on the same cache as a
+    one-layer stack; its own launch counter moves, K3b's does not. The
+    softcap cases put the scores in the cap's range, with a control."""
+    B, Hkv, S, D, n_rep = 3, 2, 700, 128, 4
+    cache = _int8_cache(gen, (B, Hkv, S, D), _SOFTCAP if "softcap" in opts else 0.0)
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([5, 333, 700], dtype=torch.int32, device="cuda")
+    kw = _options(opts, Hkv * n_rep)
+    k22, k3b = att.decode_attn_int8_4d.launches, att.decode_attn_int8.launches
+    out = att.decode_attention(q, *cache, lengths, **kw)
+    torch.cuda.synchronize()
+    assert (att.decode_attn_int8_4d.launches, att.decode_attn_int8.launches) == (k22 + 1, k3b)
+    ref = att.decode_attn_int8_4d_plain(q, *cache, lengths, **kw)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    _softcap_control(out, ref, lambda **k: att.decode_attn_int8_4d_plain(q, *cache, lengths, **k), kw)
+    stacked = att.decode_attn_int8(q, *[t[None] for t in cache], lengths, 0, **kw)
+    assert torch.equal(out, stacked)
+
+
+def test_window_and_options_need_no_host_sync(gen):
+    """The window, the softcap and the ALiBi slopes reach K3b and K22
+    without a host sync (the window is read on the device)."""
+    cache = _int8_cache(gen, (1, 2, 2, 512, 128))
+    q = torch.randn((2, 4, 128), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([400, 512], dtype=torch.int32, device="cuda")
+    kw = _options("softcap+alibi+window", 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = att.decode_attention(q, *cache, lengths, 0, **kw)
+        b = att.decode_attention(q, *[t[0] for t in cache], lengths, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_rep,D", [(4, 128), (2, 256)])
+def test_k21_partial_matches_plain(gen, n_rep, D):
+    """K21 against its plain version: acc and den within 1e-2 of
+    max|plain|, m within 1e-5 relative; a zero-length row gives exactly
+    m = -1e30, acc = 0, den = 0."""
+    L, B, Hkv, S = 2, 4, 2, 384
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([0, 1, 200, 384], dtype=torch.int32, device="cuda")
+    acc, m, den = att.decode_attention_partial(q, *cache, lengths, 1)
+    torch.cuda.synchronize()
+    r_acc, r_m, r_den = att.decode_attn_int8_partial_plain(q, *cache, lengths, 1)
+    assert (acc - r_acc).abs().max() <= 1e-2 * r_acc.abs().max()
+    assert (den - r_den).abs().max() <= 1e-2 * r_den.abs().max()
+    torch.testing.assert_close(m, r_m, rtol=1e-5, atol=0)
+    assert bool((m[0] == -1e30).all()) and bool((acc[0] == 0).all()) and bool((den[0] == 0).all())
+
+
+def test_k21_shards_merge_to_k3b(gen):
+    """Four shards' K21 partials merged by ``lse_merge`` equal K3b over the
+    whole cache within 2e-2 * max|K3b| + 1e-4 (lengths stop mid-shard, on a
+    boundary, and leave shards empty)."""
+    from qllm_tpu_torch.parallel import lse_merge, sp_cache_shard
+
+    L, B, Hkv, S, D, n_rep, n = 1, 4, 2, 2048, 128, 4, 4
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([37, 512, 1500, 2048], dtype=torch.int32, device="cuda")
+    parts = []
+    for r in range(n):
+        loc = (lengths - r * (S // n)).clamp(0, S // n).to(torch.int32)
+        parts.append(att.decode_attention_partial(q, *[sp_cache_shard(t, r, n) for t in cache], loc, 0))
+    acc, m, den = (torch.stack(t) for t in zip(*parts))
+    out = lse_merge(acc, m, den, lambda t: t.amax(0), lambda t: t.sum(0))
+    ref = att.decode_attn_int8(q, *cache, lengths, 0)
+    assert (out - ref).abs().max() <= 2e-2 * ref.abs().max() + 1e-4
