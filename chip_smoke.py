@@ -11,7 +11,13 @@ Phases, each of which fails the run on any error or disagreement:
      main path against its plain PyTorch version on the same inputs,
      with the kernel's, the plain version's and (where one exists) a
      single PyTorch library call's time (CUDA events, median of 20 runs
-     after warm-up, L2 flushed before each run);
+     after warm-up, L2 flushed before each run); the decode attention
+     body (K3b, K22, K21, K6) also at Falcon-7B's (71 heads on one kv
+     head, head 64) and StarCoder's (48 on one, head 128) geometries, each
+     row with the SM-microseconds a walked 128-key tile costs, a sequence's
+     K3b and K6 outputs bit-equal between a batch-8 and a batch-1 launch,
+     and an A/B of the body's split length (128, 256, 512 rows); K5 at
+     Gemma-2-9B's head width 256 with its softcap and a window;
   3. main: a Llama-2-7B-shape W4 g128 model (32 layers, random weights
      drawn on the card, quantized lm_head) is stacked for serving,
      prefills 8 prompts of 128 tokens into an int8 KV cache (max_seq
@@ -43,7 +49,8 @@ Phases, each of which fails the run on any error or disagreement:
      engine at max_batch 2 over 8 requests (K8 and K1);
   7. long: the same Mixtral at batch 8 on a 16384-row cache whose rows
      [0, 12288) are filled on the card, 16 steps from position 12288 (K3b
-     past S = 8192, the JAX package's key-chunked path);
+     past S = 8192, the JAX package's key-chunked path), then 4 steps
+     under the profiler;
   8. moe_qwen3: Qwen3-30B-A3B (48 layers, 128 experts, top-8, q/k RMS
      norm), batch 1 as (a); then from one prefilled batch-1 cache state
      32 steps through K8 and 32 with moe_fused=True, each token's whole
@@ -275,6 +282,15 @@ SP = dict(L=32, B=8, Hkv=8, n_rep=4, D=128, S=32768, WORLD=4, LAYER=17,
 # K21 against its plain version: acc and den within 1e-2 * max|plain|, m
 # within 1e-5 relative (one max of f32 dot products summed in another order)
 PARTIAL_TOL = (1e-2, 1e-5)
+# multi-query attention at published geometries (config.json): (model, B,
+# H, Hkv, D, S = the context); K3b, K22, K21 and K6 serve any n_rep
+MQA = (("Falcon-7B", 8, 71, 1, 64, 2048), ("StarCoder", 8, 48, 1, 128, 8192))
+# the decode body's split length, A/B'd at the kernel phase's long shapes
+SPLIT_AB = (128, 256, 512)
+# K5 at Gemma-2-9B's attention (16 heads, 8 kv heads, head 256, softcap 50,
+# local-layer window 4096) over a 2048-token prompt, and with a window that
+# masks (512): (T, S, window)
+GEMMA_FLASH = dict(H=16, Hkv=8, D=256, softcap=50.0, CASES=((2048, 2048, 4096), (2048, 2048, 512)))
 SP_TOL = 2e-2  # the merged attention against K3b's: atol / rtol (tests/test_parallel.py:190)
 # K22: one layer's 4-D cache at each model's published attention geometry
 # and context (config.json): (model, B, H, Hkv, D, S, least length,
@@ -475,8 +491,8 @@ def phase_kernels(torch, timer):
     out = att.decode_attn_int8(*args)
     torch.cuda.synchronize()
     ref = att.decode_attn_int8_plain(*args)
-    err = float((out - ref).abs().max())
-    ok = torch.allclose(out, ref, atol=ATTN_TOL, rtol=ATTN_TOL)
+    err, ulp = float((out - ref).abs().max()), bf16_ulp(ref)
+    ok = torch.allclose(out, ref, atol=ATTN_TOL, rtol=ATTN_TOL) and err <= ulp
     kd = (kc[1].float() * ks[1][..., None]).to(torch.bfloat16)
     vd = (vc[1].float() * vs[1][..., None]).to(torch.bfloat16)
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
@@ -488,8 +504,9 @@ def phase_kernels(torch, timer):
     b_ms, b_by = bound(n_rows * (2 * D + 8) + B * Hkv * D * 2 + B * Hkv * D * 4 + B * 4,
                        4.0 * n_rows * D)
     rows.append(dict(kernel="decode_attn_int8", case=f"B={B} H=Hkv={Hkv} D={D} S={S} lengths {int(lengths.min())}-{int(lengths.max())}",
-                     max_abs_err=err, tol=f"atol/rtol {ATTN_TOL}", ok=bool(ok), ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                     max_abs_err=err, tol=f"atol/rtol {ATTN_TOL} and one bf16 ulp of max|plain| ({ulp:.4g})",
+                     ok=bool(ok), ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     **tile_cost(ms, lengths, 1, Hkv, fn=lambda: att.decode_attn_int8(*args))))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"decode_attn_int8: max_abs_err {err}")
@@ -512,9 +529,9 @@ def phase_kernels(torch, timer):
     out = att.decode_attention_ring(q, k_new, v_new, *cache_args, *mine, lengths, 1)
     torch.cuda.synchronize()
     ref = att.decode_attention_ring_plain(q, k_new, v_new, *cache_args, *theirs, lengths, 1)
-    err = float((out - ref).abs().max())
+    err, ulp = float((out - ref).abs().max()), bf16_ulp(ref)
     rings_same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
-    ok = bool(torch.allclose(out, ref, atol=RING_TOL, rtol=RING_TOL)) and rings_same
+    ok = bool(torch.allclose(out, ref, atol=RING_TOL, rtol=RING_TOL)) and rings_same and err <= ulp
     flushed, nring = p // att.RING * att.RING, p % att.RING
     keys = torch.cat([(kc[1, :, :, :flushed].float() * ks[1, :, :, :flushed, None]).to(torch.bfloat16),
                       rk[1, :, :, :nring], k_new[:, :, None]], dim=2)
@@ -527,8 +544,11 @@ def phase_kernels(torch, timer):
               + B * Hkv * D * 4 + 2 * B * Hkv * D * 2 + B * 4)  # out, the ring slot, lengths
     b_ms, b_by = bound(nbytes, 4.0 * B * Hkv * D * (p + 1))
     rows.append(dict(kernel="decode_attention_ring", case=f"B={B} H=Hkv={Hkv} D={D} S={S} pos={p} ({nring} ring rows)",
-                     max_abs_err=err, tol=f"atol/rtol {RING_TOL}, rings bit-equal", rings_equal=rings_same, ok=ok,
-                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                     max_abs_err=err, tol=f"atol/rtol {RING_TOL} and one bf16 ulp of max|plain| ({ulp:.4g}), rings "
+                     "bit-equal", rings_equal=rings_same, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=b_ms, bound_by=b_by,
+                     **tile_cost(ms, lengths, 1, Hkv, ring=True, fn=lambda: att.decode_attention_ring(
+                         q, k_new, v_new, *cache_args, *mine, lengths, 1))))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"decode_attention_ring: max_abs_err {err}, rings equal {rings_same}")
@@ -605,6 +625,7 @@ def phase_kernels(torch, timer):
             raise AssertionError(f"flash_prefill T={T} S={S} {form}: max_abs_err {err}")
         del q, k, v, kd, vd, out
     torch.cuda.empty_cache()
+    rows.extend(gemma_flash_rows(torch, timer, gen))
 
     # K8 w4_grouped_gemv: the sparse MoE paths' selections, one launch each
     for cname, Kf, Np, E, n, mode in K8_CASES:
@@ -670,8 +691,8 @@ def phase_kernels(torch, timer):
     n_rows = int(lengths.sum()) * Hkv
     b_ms, b_by = bound(n_rows * (2 * D + 8) + q.numel() * 2 + q.numel() * 4 + B * 4, 4.0 * n_rows * D * n_rep)
     rows.append(dict(kernel="decode_attn_int8", case=f"S={S} B={B} Hkv={Hkv} n_rep={n_rep} D={D} lengths {S}",
-                     chunked=True, **fields, ok=ok, ms=ms,
-                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                     chunked=True, **fields, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                     bound_by=b_by, **tile_cost(ms, lengths, n_rep, Hkv, fn=lambda: att.decode_attention(*args))))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"decode_attn_int8 at S={S}: {fields}")
@@ -703,7 +724,250 @@ def phase_kernels(torch, timer):
     rows.extend(stacked_rows(torch, timer, gen))
     rows.extend(f32s_rows(torch, timer, gen))
     rows.extend(sp_rows(torch, timer, gen))
+    rows.extend(body_rows(torch, timer, gen))
     return rows
+
+
+def gemma_flash_rows(torch, timer, gen):
+    """K5 at Gemma-2-9B's attention with its logit softcap and a window,
+    int8 K/V in the cache's layout, batch 1 from position 0, against its
+    plain version within FLASH_TOL. The key scales draw scores of RMS
+    0.5-1.5 x the cap, and the plain version without the softcap must miss
+    ten times that limit. No single PyTorch call applies a logit softcap
+    (library_ms null)."""
+    from qllm_tpu_torch.ops import flash_prefill as fp
+
+    H, Hkv, D, cap = (GEMMA_FLASH[k] for k in ("H", "Hkv", "D", "softcap"))
+    rows = []
+    for T, S, window in GEMMA_FLASH["CASES"]:
+        B = 1
+        q = torch.randn((B, T, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+        pos = torch.zeros((B,), dtype=torch.int32, device=DEV)
+        k = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+        ksc = key_scales(torch, (B, Hkv, S), gen, {"softcap": cap})
+        vsc = torch.rand((B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+        win = torch.full((1,), window, dtype=torch.int32, device=DEV)
+        args = (q, k, v, ksc, vsc, pos, torch.bfloat16, cap, win)
+        out = fp.flash_prefill(*args)
+        torch.cuda.synchronize()
+        ref = fp.flash_prefill_plain(*args).float()
+        err = float((out.float() - ref).abs().max())
+        ok = bool(torch.allclose(out.float(), ref, atol=FLASH_TOL, rtol=FLASH_TOL))
+        bare = fp.flash_prefill_plain(q, k, v, ksc, vsc, pos, torch.bfloat16, 0.0, win).float()
+        miss = float((bare - ref).abs().max())
+        control = not torch.allclose(bare, ref, atol=10 * FLASH_TOL, rtol=10 * FLASH_TOL)
+        del ref, bare
+        ms = timer(lambda: fp.flash_prefill(*args))
+        plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
+        keys = min(S, T)  # pos 0: keys [0, T) are visible to some query
+        pairs = sum(min(t + 1, window) for t in range(T))  # (query, key) pairs the masks keep
+        nbytes = 2 * B * T * H * D * 2 + 2 * B * Hkv * keys * D + 2 * B * Hkv * keys * 4
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
+        rows.append(dict(kernel="flash_prefill", case=f"Gemma-2-9B T={T} S={S} B={B} H={H} Hkv={Hkv} D={D} int8 "
+                         f"K/V, pos 0, softcap {cap}, window {window}", max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}",
+                         without_softcap_max_abs_err=miss, ok=ok and control, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not (ok and control):
+            raise AssertionError(f"flash_prefill Gemma-2 window {window}: max_abs_err {err}, without the softcap "
+                                 f"{miss} (must miss {10 * FLASH_TOL} atol/rtol)")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_cache(torch, gen, shape):
+    """An int8 K/V cache of ``shape`` with U(0.005, 0.02) f32 scales, on the card."""
+    kc = torch.randint(-127, 128, shape, dtype=torch.int8, device=DEV, generator=gen)
+    vc = torch.randint(-127, 128, shape, dtype=torch.int8, device=DEV, generator=gen)
+    ks = torch.rand(shape[:-1], device=DEV, generator=gen) * 0.015 + 0.005
+    vs = torch.rand(shape[:-1], device=DEV, generator=gen) * 0.015 + 0.005
+    return kc, vc, ks, vs
+
+
+def body_rows(torch, timer, gen):
+    """The decode attention body (K3b, K22, K21, K6) at multi-query
+    geometries, the batch-invariance check and the split-length A/B."""
+    rows = []
+    for shape in MQA:
+        rows.extend(mqa_rows(torch, timer, gen, shape))
+        torch.cuda.empty_cache()
+    batch_invariance_check(torch, gen)
+    split_ab(torch, timer, gen)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mqa_rows(torch, timer, gen, shape):
+    """K3b, K22, K21 and K6 at one MQA shape (one kv head, lengths drawn in
+    [S / 2, S]), each against its plain version within one bf16 ulp of
+    max|plain| (K21 as partial_check). The library call is SDPA with
+    enable_gqa on the dequantized cache (K6: with the ring rows and the
+    current token appended, masked per sequence); none for K21."""
+    from qllm_tpu_torch.ops import attention as att
+
+    name, B, H, Hkv, D, S = shape
+    n_rep = H // Hkv
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kc, vc, ks, vs = int8_cache(torch, gen, (1, B, Hkv, S, D))
+    q = torch.randn((B, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.randint(S // 2, S + 1, (B,), dtype=torch.int32, device=DEV, generator=gen)
+    pos = lengths - 1  # the ring step's past tokens
+    rk = torch.randn((1, B, Hkv, att.RING, D), device=DEV, generator=gen).to(torch.bfloat16)
+    rv = torch.randn((1, B, Hkv, att.RING, D), device=DEV, generator=gen).to(torch.bfloat16)
+    k_new = torch.randn((B, Hkv, D), device=DEV, generator=gen).to(torch.bfloat16)
+    v_new = torch.randn((B, Hkv, D), device=DEV, generator=gen).to(torch.bfloat16)
+    kd = (kc[0].float() * ks[0][..., None]).to(torch.bfloat16)
+    vd = (vc[0].float() * vs[0][..., None]).to(torch.bfloat16)
+    col = torch.arange(S, device=DEV)[None, :]
+    mask = (col < lengths[:, None])[:, None, None, :]
+    flushed = pos // att.RING * att.RING
+    ring_mask = torch.cat([col < flushed[:, None], torch.arange(att.RING, device=DEV)[None, :] < (pos - flushed)[:, None],
+                           torch.ones((B, 1), dtype=torch.bool, device=DEV)], dim=1)[:, None, None, :]
+    ring_keys = torch.cat([kd, rk[0], k_new[:, :, None]], dim=2)
+    ring_vals = torch.cat([vd, rv[0], v_new[:, :, None]], dim=2)
+    qs = q[:, :, None, :]
+    mine, theirs = [rk.clone(), rv.clone()], [rk.clone(), rv.clone()]
+    kernels = {
+        "decode_attn_int8": (att.decode_attn_int8, att.decode_attn_int8_plain, (q, kc, vc, ks, vs, lengths, 0),
+                             lambda: sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True)),
+        "decode_attn_int8_4d": (att.decode_attn_int8_4d, att.decode_attn_int8_4d_plain,
+                                (q, kc[0], vc[0], ks[0], vs[0], lengths),
+                                lambda: sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True)),
+        "decode_attn_int8_partial": (att.decode_attn_int8_partial, att.decode_attn_int8_partial_plain,
+                                     (q, kc, vc, ks, vs, lengths, 0), None),
+        "decode_attention_ring": (lambda *a: att.decode_attention_ring(*a[:7], *mine, *a[7:]),
+                                  lambda *a: att.decode_attention_ring_plain(*a[:7], *theirs, *a[7:]),
+                                  (q, k_new, v_new, kc, vc, ks, vs, pos, 0),
+                                  lambda: sdpa(qs, ring_keys, ring_vals, attn_mask=ring_mask, enable_gqa=True)),
+    }
+    rows = []
+    for kernel, (fn, plain, args, lib) in kernels.items():
+        ring = kernel == "decode_attention_ring"
+        got = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        if kernel == "decode_attn_int8_partial":
+            fields, ok = partial_check(got, ref)
+        else:
+            err, tol = float((got - ref).abs().max()), bf16_ulp(ref)
+            ok = err <= tol and (not ring or all(torch.equal(a, b) for a, b in zip(mine, theirs)))
+            fields = dict(max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})" + (", rings bit-equal" if ring else ""))
+        del got, ref
+        ms = timer(lambda: fn(*args))
+        plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
+        lib_ms = timer(lib) if lib is not None else None
+        n_rows = int((flushed if ring else lengths).sum()) * Hkv
+        nbytes = n_rows * (2 * D + 8) + q.numel() * 2 + q.numel() * 4 + B * 4
+        if kernel == "decode_attn_int8_partial":
+            nbytes += 2 * B * H * 4
+        if ring:  # the ring rows, this step's k / v and the slot written
+            nbytes += int((pos - flushed).sum()) * Hkv * 4 * D + 2 * B * Hkv * D * 2 * 2
+        b_ms, b_by = bound(nbytes, 4.0 * (n_rows + (B * Hkv * att.RING if ring else 0)) * D * n_rep)
+        rows.append(dict(kernel=kernel, case=f"{name} B={B} H={H} Hkv={Hkv} D={D} S={S} lengths "
+                         f"{int(lengths.min())}-{int(lengths.max())}" + (" (pos = lengths - 1)" if ring else ""),
+                         **fields, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes, **tile_cost(ms, pos if ring else lengths, n_rep, Hkv, ring=ring,
+                                                   fn=lambda: fn(*args))))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"{kernel} at {name}: {fields}")
+    return rows
+
+
+def batch_invariance_check(torch, gen):
+    """A sequence's K3b and K6 outputs are bit-equal whether it is decoded
+    in a batch of 8 or alone: lengths around and past split edges at
+    Mixtral's attention geometry (8 kv heads, n_rep 4, head 128)."""
+    from qllm_tpu_torch.ops import attention as att
+
+    C, S, B, Hkv, n_rep, D = att.SPLIT_KEYS, 4096, 8, 8, 4, 128
+    cache = int8_cache(torch, gen, (1, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([min(n, S) for n in (1, C - 1, C, C + 1, 3 * C + 17, 5 * C, 16 * C, S)],
+                           dtype=torch.int32, device=DEV)
+    rk, rv = (torch.randn((1, B, Hkv, att.RING, D), device=DEV, generator=gen).to(torch.bfloat16) for _ in range(2))
+    k_new, v_new = (torch.randn((B, Hkv, D), device=DEV, generator=gen).to(torch.bfloat16) for _ in range(2))
+    pos = lengths - 1
+    full = att.decode_attn_int8(q, *cache, lengths, 0)
+    full_ring = att.decode_attention_ring(q, k_new, v_new, *cache, rk.clone(), rv.clone(), pos, 0)
+    same = same_ring = True
+    for b in range(B):
+        one = [t[:, b : b + 1].contiguous() for t in cache]
+        alone = att.decode_attn_int8(q[b : b + 1], *one, lengths[b : b + 1], 0)
+        same = same and bool(torch.equal(alone, full[b : b + 1]))
+        rings = [rk[:, b : b + 1].clone(), rv[:, b : b + 1].clone()]
+        alone = att.decode_attention_ring(q[b : b + 1], k_new[b : b + 1], v_new[b : b + 1], *one, *rings,
+                                          pos[b : b + 1], 0)
+        same_ring = same_ring and bool(torch.equal(alone, full_ring[b : b + 1]))
+    log(f"[kernel] " + json.dumps(dict(check="batch-8 against batch-1 launches, bit for bit", split_keys=C,
+                                        lengths=lengths.tolist(), decode_attn_int8=same,
+                                        decode_attention_ring=same_ring)))
+    if not (same and same_ring):
+        raise AssertionError(f"batch invariance: K3b {same}, K6 {same_ring}")
+
+
+def split_ab(torch, timer, gen):
+    """The split length C of the decode body, A/B'd in turns (each C, then
+    each again in reverse order) at K3b's S = 16384, K22's Llama-2-7B, K21's
+    32768-row and K6's pos-571 shapes, by event pairs and by the device
+    time of a launch; each C's output first held against the plain version
+    within one bf16 ulp (K21: partial_check)."""
+    from qllm_tpu_torch.ops import attention as att
+
+    shapes = []
+    L, B, Hkv, S, D, n_rep = (LONG_ATTN_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D", "n_rep"))
+    cache = int8_cache(torch, gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+    full = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    shapes.append(("decode_attn_int8", f"S={S} B={B} Hkv={Hkv} n_rep={n_rep}", att.decode_attn_int8,
+                   att.decode_attn_int8_plain, (q, *cache, full, 0), (full, n_rep, Hkv, False)))
+    _, B, H, Hkv, D, S, _, _ = ATTN_4D[0]
+    cache4 = int8_cache(torch, gen, (B, Hkv, S, D))
+    q4 = torch.randn((B, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+    full4 = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    shapes.append(("decode_attn_int8_4d", f"Llama-2-7B S={S} B={B} Hkv={Hkv}", att.decode_attn_int8_4d,
+                   att.decode_attn_int8_4d_plain, (q4, *cache4, full4), (full4, H // Hkv, Hkv, False)))
+    B, Hkv, n_rep, D, S = (SP[k] for k in ("B", "Hkv", "n_rep", "D", "S"))
+    cache21 = int8_cache(torch, gen, (1, B, Hkv, S, D))
+    q21 = torch.randn((B, Hkv * n_rep, D), device=DEV, generator=gen).to(torch.bfloat16)
+    full21 = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    shapes.append(("decode_attn_int8_partial", f"S={S} B={B} Hkv={Hkv} n_rep={n_rep}", att.decode_attn_int8_partial,
+                   att.decode_attn_int8_partial_plain, (q21, *cache21, full21, 0), (full21, n_rep, Hkv, False)))
+    L, B, Hkv, S, D, p = (RING_SHAPE[k] for k in ("L", "B", "Hkv", "S", "D", "pos"))
+    cache6 = int8_cache(torch, gen, (L, B, Hkv, S, D))
+    q6 = torch.randn((B, Hkv, D), device=DEV, generator=gen).to(torch.bfloat16)
+    kn, vn = (torch.randn((B, Hkv, D), device=DEV, generator=gen).to(torch.bfloat16) for _ in range(2))
+    rings = [torch.randn((L, B, Hkv, att.RING, D), device=DEV, generator=gen).to(torch.bfloat16) for _ in range(2)]
+    pos6 = torch.full((B,), p, dtype=torch.int32, device=DEV)
+    ring_fn = lambda *a: att.decode_attention_ring(*a[:7], *[r.clone() for r in rings], *a[7:])  # noqa: E731
+    ring_plain = lambda *a: att.decode_attention_ring_plain(*a[:7], *[r.clone() for r in rings], *a[7:])  # noqa: E731
+    shapes.append(("decode_attention_ring", f"B={B} Hkv={Hkv} S={S} pos={p}", ring_fn, ring_plain,
+                   (q6, kn, vn, *cache6, pos6, 1), (pos6, 1, Hkv, True)))
+    keep = att.SPLIT_KEYS
+    res = {}
+    try:
+        for C in SPLIT_AB + SPLIT_AB[::-1]:
+            att.SPLIT_KEYS = C
+            for kernel, case, fn, plain, args, (lens, n_rep, Hkv, ring) in shapes:
+                entry = res.setdefault(f"{kernel} {case}", {}).setdefault(C, dict(ms=[]))
+                if "ok" not in entry:
+                    got, ref = fn(*args), plain(*args)
+                    if kernel == "decode_attn_int8_partial":
+                        _, entry["ok"] = partial_check(got, ref)
+                    else:
+                        entry["ok"] = float((got - ref).abs().max()) <= bf16_ulp(ref)
+                    entry["tiles"] = walked_tiles(lens, n_rep, Hkv, ring=ring, split=C)
+                    del got, ref
+                entry["ms"].append(timer(lambda: fn(*args)))
+                entry.setdefault("device_us", []).append(launch_us(torch, lambda: fn(*args)))
+    finally:
+        att.SPLIT_KEYS = keep
+    log(f"[split-ab] " + json.dumps(res))
+    bad = [(k, C) for k, per in res.items() for C, e in per.items() if not e["ok"]]
+    if bad:
+        raise AssertionError(f"split A/B: outputs outside one bf16 ulp at {bad}")
 
 
 def gptq_rows(torch, timer, gen):
@@ -854,6 +1118,56 @@ def bf16_ulp(ref) -> float:
     return 2.0 ** (math.floor(math.log2(float(ref.float().abs().max()))) - 7)
 
 
+def walked_tiles(lengths, n_rep, Hkv, window=0, ring=False, split=None) -> int:
+    """The 128-key tiles the decode attention body walks for these lengths:
+    each split of SPLIT_KEYS rows from the tile holding its first valid row
+    (in ring mode the flushed rows, lengths // 8 * 8), for every kv head and
+    group of 8 query heads."""
+    from qllm_tpu_torch.ops import attention as att
+
+    C = split or att.SPLIT_KEYS
+    tiles = 0
+    for n in lengths.tolist():
+        end = n // att.RING * att.RING if ring else n
+        lo = max(n - window, 0) if window else 0
+        for j in range(lo // C, (end - 1) // C + 1) if lo < end else ():
+            tiles += -(-(min((j + 1) * C, end) - max(j * C, lo) // 128 * 128) // 128)
+    return tiles * Hkv * -(-n_rep // 8)
+
+
+def launch_us(torch, fn, reps: int = 20) -> float:
+    """The mean device time (us) of one launch of the decode attention
+    body over ``reps`` back-to-back calls of fn (torch.profiler): an event
+    pair around one call also holds the wrapper's host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    body = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "decode_attn_kernel" in e.key]
+    return sum(e.self_device_time_total for e in body) / reps
+
+
+def tile_cost(ms, lengths, n_rep, Hkv, window=0, ring=False, split=None, fn=None):
+    """A decode attention row's walked tiles and the SM-microseconds one
+    costs: ms x the card's SMs / tiles (the body's first version walked
+    each (b, kv head) in one block, at 34-40 us a tile); with ``fn``, also
+    a launch's device time and the tile cost from it."""
+    import torch
+
+    tiles = walked_tiles(lengths, n_rep, Hkv, window, ring, split)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = dict(tiles=tiles, sm_us_per_tile=ms * 1e3 * sms / max(tiles, 1))
+    if fn is not None:
+        us = launch_us(torch, fn)
+        out.update(device_us=us, device_sm_us_per_tile=us * sms / max(tiles, 1))
+    return out
+
+
 def fused_rows(torch, timer, gen, stack):
     """K19 at Qwen3-30B-A3B's batch-1 decode (8 experts of a 128-expert
     stack, one shared row) and K20 at the 7B's o_proj and gate|up (M = 1
@@ -970,12 +1284,12 @@ def k3b_long_check(att, args, lengths_at: int):
     out = att.decode_attention(*args)
     ref = att.decode_attn_int8_plain(*args)
     err = float((out - ref).abs().max())
-    limit = LONG_ATTN_TOL[0] * float(ref.abs().max()) + LONG_ATTN_TOL[1]
+    limit = min(LONG_ATTN_TOL[0] * float(ref.abs().max()) + LONG_ATTN_TOL[1], bf16_ulp(ref))
     cut = list(args)
     cut[lengths_at] = args[lengths_at] - 128
     control_err = float((att.decode_attention(*cut) - ref).abs().max())
-    fields = dict(max_abs_err=err, tol=f"{LONG_ATTN_TOL[0]}*max|plain| + {LONG_ATTN_TOL[1]} = {limit:.4g}",
-                  control_one_tile_short_err=control_err)
+    fields = dict(max_abs_err=err, tol=f"min({LONG_ATTN_TOL[0]}*max|plain| + {LONG_ATTN_TOL[1]}, one bf16 ulp of "
+                  f"max|plain|) = {limit:.4g}", control_one_tile_short_err=control_err)
     return fields, err <= limit < control_err
 
 
@@ -1568,6 +1882,8 @@ def phase_long(torch, K, model):
     if tuple(toks.shape) != (B, STEPS) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError("long: decoded ids out of range")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # four more steps under the profiler (after the counted run)
+    prof = profile_decode(torch, sp, cfg, toks[:, -1:].to(torch.int32).contiguous(), cache, P + STEPS)
     # K3b on the filled rows [0, P) (outside the counted run) against its
     # plain version. The rows the steps wrote hold the model's own K/V,
     # whose scores swamp the random rows' and whose values reach ~30, so a
@@ -1583,6 +1899,7 @@ def phase_long(torch, K, model):
         "decode_ms_per_step": dec_s / STEPS * 1e3,
         **{f"k3b_{k}": v for k, v in fields.items()},
         "peak_mem_gib": peak_gib,
+        **prof,
     }
     log(f"[long] {json.dumps(res)}")
     if not ok:
@@ -3058,12 +3375,14 @@ def sp_rows(torch, timer, gen):
     b_ms, b_by = bound(nbytes, 4.0 * n_rows * D * (H // Hkv))
     rows.append(dict(kernel="decode_attn_int8_4d", case=f"{name} B={B} H=Hkv={Hkv} D={D} S={S} lengths {S}",
                      max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol, ms=ms,
-                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                     **tile_cost(ms, lengths, H // Hkv, Hkv, fn=lambda: att.decode_attn_int8_4d(*args))))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if err > tol:
         raise AssertionError(f"decode_attn_int8_4d: max_abs_err {err} > {tol}")
     del kc, vc, ks, vs, args, out, ref
     rows.append(options_row(torch, timer, gen, "decode_attn_int8_4d", ATTN_4D[1]))
+    rows.append(options_row(torch, timer, gen, "decode_attn_int8_4d", ATTN_4D[2]))
     case, S5, lo, opts = OPT_5D[0]
     B, Hkv, n_rep, D = (SP[k] for k in ("B", "Hkv", "n_rep", "D"))
     shape = (f"Mixtral layer {case}", B, Hkv * n_rep, Hkv, D, S5, lo, opts)
@@ -3089,7 +3408,8 @@ def sp_rows(torch, timer, gen):
     rows.append(dict(kernel="decode_attn_int8_partial", case=f"Mixtral layer B={B} Hkv={Hkv} n_rep={n_rep} D={D} "
                      f"S={S} lengths {S}", **fields, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
                      yardstick="K3b decode_attn_int8 over the same rows", yardstick_ms=yard_ms, bound_ms=b_ms,
-                     bound_by=b_by, bytes=nbytes))
+                     bound_by=b_by, bytes=nbytes,
+                     **tile_cost(ms, lengths, n_rep, Hkv, fn=lambda: att.decode_attn_int8_partial(*args))))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"decode_attn_int8_partial: {fields}")
@@ -3139,19 +3459,23 @@ def options_row(torch, timer, gen, kernel, shape):
                f"{int(lengths.max())} {opts}", options=True, chunked=S > 8192 and kernel == "decode_attn_int8",
                max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol,
                without_softcap_max_abs_err=miss, ms=ms, plain_ms=plain_ms, library_ms=None,
-               k3b_without_options_ms=no_opt_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+               k3b_without_options_ms=no_opt_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               **tile_cost(ms, lengths, H // Hkv, Hkv, window=opts.get("window", 0), fn=lambda: fn(*args, **kw)))
     log(f"[kernel] {json.dumps(row)}")
     return row
 
 
 def partial_check(got, ref):
-    """K21's (acc, m, den) against its plain version within PARTIAL_TOL;
-    -> (fields to log, whether it held)."""
+    """K21's (acc, m, den) against its plain version: acc and den within
+    PARTIAL_TOL[0] * max|plain| and one bf16 ulp of it, m within
+    PARTIAL_TOL[1] relative; -> (fields to log, whether it held)."""
     (acc, m, den), (r_acc, r_m, r_den) = got, ref
     err_acc, err_den = float((acc - r_acc).abs().max()), float((den - r_den).abs().max())
-    lim_acc, lim_den = PARTIAL_TOL[0] * float(r_acc.abs().max()), PARTIAL_TOL[0] * float(r_den.abs().max())
+    lim_acc = min(PARTIAL_TOL[0] * float(r_acc.abs().max()), bf16_ulp(r_acc))
+    lim_den = min(PARTIAL_TOL[0] * float(r_den.abs().max()), bf16_ulp(r_den))
     rel_m = float(((m - r_m).abs() / r_m.abs()).max())
-    tol = f"acc {lim_acc:.4g}, den {lim_den:.4g} ({PARTIAL_TOL[0]} * max|plain|), m {PARTIAL_TOL[1]} relative"
+    tol = (f"acc {lim_acc:.4g}, den {lim_den:.4g} (min of {PARTIAL_TOL[0]} * max|plain| and one bf16 ulp), "
+           f"m {PARTIAL_TOL[1]} relative")
     fields = dict(max_abs_err=err_acc, den_max_abs_err=err_den, m_max_rel_err=rel_m, tol=tol)
     return fields, err_acc <= lim_acc and err_den <= lim_den and rel_m <= PARTIAL_TOL[1]
 

@@ -112,3 +112,29 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+constexpr int kMaxDevices = 64;
+
+// Let `kernel` launch with `bytes` of dynamic shared memory on the current
+// device (above 48 KB a kernel needs its limit raised): `allowed` is the
+// kernel's own zero-initialised table of the limits raised so far, per
+// device. Returns a cudaError_t.
+template <typename Kernel>
+inline int allow_dynamic_smem(Kernel kernel, int bytes, int (&allowed)[kMaxDevices]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (bytes > allowed[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = bytes;
+  }
+  return 0;
+}
+
+// 4 bytes global -> shared (zero-filled when !pred), through L1
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 4 : 0));
+}

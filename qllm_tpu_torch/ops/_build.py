@@ -46,13 +46,13 @@ _SIGNATURES = {
     "qllm_w4_planar_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "qllm_w4_grouped_gemv": [_P] * 6 + [_I] * 8 + [_P],
     "qllm_kv_write_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "qllm_decode_attn_int8": [_P] * 7 + [_I] * 6 + [_F, _F, _F, _P, _P, _P],
-    "qllm_decode_attn_int8_4d": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P, _P, _P],
-    "qllm_decode_attn_int8_partial": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "qllm_decode_attn_int8": [_P] * 7 + [_I] * 6 + [_F, _F, _F, _P, _P, _P, _P, _I, _P],
+    "qllm_decode_attn_int8_4d": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P, _P, _P, _P, _I, _P],
+    "qllm_decode_attn_int8_partial": [_P] * 9 + [_I] * 6 + [_F, _P, _P, _I, _P],
     "qllm_planarize_w4": [_P, _P, _I, _I, _I, _P],
-    "qllm_decode_attn_ring": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "qllm_decode_attn_ring": [_P] * 11 + [_I] * 6 + [_F, _P, _P, _I, _P],
     "qllm_kv_ring_flush": [_P] * 7 + [_I] * 5 + [_P],
-    "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _P],
+    "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _F, _F, _P, _P],
     "qllm_gptq_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "qllm_gptq_gemm": [_P, _P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
     "qllm_quantize_rows_int8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -6,11 +6,13 @@ cache (the counterpart of the 5-D one-shot decode path of
     kv-head) and write them and their scales IN PLACE at ``pos[b]``
     (the JAX kernel returns buffer-aliased arrays instead).
   * K3b ``decode_attn_int8``: GQA attention of one query token over the
-    first ``lengths[b]`` cache rows; the k scale folds into the scores
-    and the v scale into the probabilities; optional logit softcap, ALiBi
-    bias and sliding window. It walks the rows in 128-key tiles with an
-    online softmax, so it serves every S: both the JAX package's one-shot
-    kernel (S <= 8192) and its key-chunked one.
+    first ``lengths[b]`` cache rows, any number of query heads a kv head;
+    the k scale folds into the scores and the v scale into the
+    probabilities; optional logit softcap, ALiBi bias and sliding window.
+    Blocks take fixed splits of SPLIT_KEYS rows and the last of a
+    sequence's splits merges them in the same launch, so it serves every
+    S: both the JAX package's one-shot kernel (S <= 8192) and its
+    key-chunked one.
   * K22 ``decode_attn_int8_4d``: K3b over one layer's [B, Hkv, S, D]
     cache (the 4-D branch of ``decode_attention_pallas``).
   * K21 ``decode_attn_int8_partial`` (``decode_attention_partial``): the
@@ -25,6 +27,8 @@ cache (the counterpart of the 5-D one-shot decode path of
 
 Each wrapper launches its CUDA kernel (csrc/attention.cu) on a CUDA
 tensor, or raises, and runs its plain PyTorch version on a CPU tensor.
+K3b, K22, K21 and K6 share one device body; their wrappers allocate the
+splits' scratch.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from .kv_cache import _quantize_kv
 __all__ = [
     "ONESHOT_S",
     "RING",
+    "SPLIT_KEYS",
     "decode_attention_ring",
     "decode_attention_ring_plain",
     "kv_ring_flush",
@@ -56,8 +61,14 @@ __all__ = [
 ]
 
 RING = 8  # ring depth == the rows one flush writes
-_MAX_REP = 8
 _MAX_D = 256
+# The key rows a block of K3b / K22 / K21 / K6 takes: split j covers rows
+# [j * SPLIT_KEYS, (j + 1) * SPLIT_KEYS). A multiple of the kernel's
+# 128-key tile, and one constant for every batch, cache length and
+# sequence length, so a sequence's bits depend on its own rows alone.
+SPLIT_KEYS = 256
+_GROUP = 8  # query heads a block serves (a kv head's group is cut into these)
+_split_buffers = {}  # device index -> (scratch, arrival counts)
 
 
 def _check_cache(name, k_cache, v_cache, k_scale, v_scale, layer):
@@ -66,8 +77,8 @@ def _check_cache(name, k_cache, v_cache, k_scale, v_scale, layer):
     if k_scale.dtype != torch.float32 or k_scale.shape != k_cache.shape[:4] or v_scale.shape != k_scale.shape:
         raise ValueError(f"{name}: scales must be f32 [L, B, Hkv, S]")
     for t in (k_cache, v_cache, k_scale, v_scale):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: caches must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: caches must be contiguous and 16-byte aligned")
     if not 0 <= layer < k_cache.shape[0]:
         raise IndexError(f"{name}: layer {layer} out of range")
 
@@ -222,22 +233,46 @@ def _check_cache_4d(name, k_cache, v_cache, k_scale, v_scale):
     if k_scale.dtype != torch.float32 or k_scale.shape != k_cache.shape[:3] or v_scale.shape != k_scale.shape:
         raise ValueError(f"{name}: scales must be f32 [B, Hkv, S]")
     for t in (k_cache, v_cache, k_scale, v_scale):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: caches must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: caches must be contiguous and 16-byte aligned")
 
 
 def _query_operands(name, q, lengths, B, Hkv, D):
-    """Check q [B, H, D] bf16 and lengths [B]; -> (q, lengths int32, n_rep)."""
+    """Check q [B, H, D] bf16 and lengths [B]; -> (q, lengths int32, n_rep).
+    Any n_rep is served; the head width is at most 256, a multiple of 16."""
     if q.dim() != 3 or q.shape[0] != B or q.shape[2] != D or q.shape[1] % Hkv:
         raise ValueError(f"{name}: q must be [B, H, D] with H a multiple of Hkv")
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name}: q must be bf16, got {q.dtype}")
-    n_rep = q.shape[1] // Hkv
-    if n_rep > _MAX_REP or D > _MAX_D or D % 16:
-        raise ValueError(f"{name}: n_rep <= {_MAX_REP}, D <= {_MAX_D}, D % 16 == 0")
+    if D > _MAX_D or D % 16:
+        raise ValueError(f"{name}: D <= {_MAX_D}, D % 16 == 0")
+    if B * Hkv > 65535:
+        raise ValueError(f"{name}: B * Hkv <= 65535")
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{name}: lengths must be [B]")
-    return q.contiguous(), lengths.to(torch.int32).contiguous(), n_rep
+    return q.contiguous(), lengths.to(torch.int32).contiguous(), q.shape[1] // Hkv
+
+
+def _scratch_floats(B, Hkv, S, D, n_rep) -> int:
+    """The f32 words of the splits' scratch: an (acc [8, D], m [8], den [8])
+    slot for each (b, kv head, group of 8 query heads, split)."""
+    return B * Hkv * -(-n_rep // _GROUP) * -(-S // SPLIT_KEYS) * _GROUP * (D + 2)
+
+
+def _split_operands(q, B, Hkv, S, D, n_rep):
+    """The body's last arguments before the stream: its scratch, its arrival
+    counts and the keys a split. Both buffers are kept per device and grow
+    when a launch needs more; launches on one stream use them in turn, and
+    every launch leaves the counts it used at 0 (they are zeroed once)."""
+    scratch, counts = _split_buffers.get(q.device.index, (None, None))
+    need = _scratch_floats(B, Hkv, S, D, n_rep)
+    if scratch is None or scratch.numel() < need:
+        scratch = torch.empty(max(need, 1 << 16), dtype=torch.float32, device=q.device)
+    groups = B * Hkv * -(-n_rep // _GROUP)
+    if counts is None or counts.numel() < groups:
+        counts = torch.zeros(max(groups, 1024), dtype=torch.int32, device=q.device)
+    _split_buffers[q.device.index] = (scratch, counts)
+    return scratch.data_ptr(), counts.data_ptr(), SPLIT_KEYS
 
 
 def _check_window(window, device) -> None:
@@ -265,6 +300,7 @@ def _launch_one_shot(name, entry, q, caches, lengths, layer_args, B, Hkv, S, D, 
         slopes = alibi_slopes.to(torch.float32).contiguous()
     win = _window_tensor(window, q.device)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    split = _split_operands(q, B, Hkv, S, D, n_rep)
     code = entry(
         q.data_ptr(),
         *(t.data_ptr() for t in caches),
@@ -281,6 +317,7 @@ def _launch_one_shot(name, entry, q, caches, lengths, layer_args, B, Hkv, S, D, 
         float(1.0 / softcap) if softcap else 0.0,
         _build.ptr(slopes),
         _build.ptr(win),
+        *split,
         _build.stream(q),
     )
     _build.check(name, code)
@@ -373,6 +410,7 @@ def decode_attn_int8_partial(
     acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((B, q.shape[1], 1), dtype=torch.float32, device=q.device)
     den = torch.empty_like(m)
+    split = _split_operands(q, B, Hkv, S, D, n_rep)
     code = _build.load_library().qllm_decode_attn_int8_partial(
         q.data_ptr(),
         k_cache.data_ptr(),
@@ -390,6 +428,7 @@ def decode_attn_int8_partial(
         D,
         n_rep,
         float(D**-0.5),
+        *split,
         _build.stream(q),
     )
     _build.check("decode_attn_int8_partial", code)
@@ -515,6 +554,7 @@ def decode_attention_ring(
         raise ValueError("decode_attention_ring: k_new/v_new must be bf16")
     k_new, v_new = k_new.contiguous(), v_new.contiguous()
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    split = _split_operands(q, B, Hkv, S, D, n_rep)
     lib = _build.load_library()
     code = lib.qllm_decode_attn_ring(
         q.data_ptr(),
@@ -535,6 +575,7 @@ def decode_attention_ring(
         D,
         n_rep,
         float(D**-0.5),
+        *split,
         _build.stream(q),
     )
     _build.check("decode_attention_ring", code)

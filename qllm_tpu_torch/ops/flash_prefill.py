@@ -2,10 +2,11 @@
 ``prefill_attention_flash`` in ``qllm_tpu/ops/pallas_attention.py``).
 
   * K5 ``flash_prefill``: query t of sequence b attends to keys
-    s <= pos[b] + t; K/V are int8 in the cache's own layout with per-key
-    f32 scales (the serving path reads the cache directly) or bf16. The
-    CUDA kernel (csrc/flash_prefill.cu) runs both products on the tensor
-    cores with an online softmax over key tiles.
+    pos[b] + t - window < s <= pos[b] + t, with an optional logit softcap;
+    K/V are int8 in the cache's own layout with per-key f32 scales (the
+    serving path reads the cache directly) or bf16; head width 128 or 256,
+    any n_rep. The CUDA kernel (csrc/flash_prefill.cu) runs both products
+    on the tensor cores with an online softmax over key tiles.
 
 The wrapper launches the kernel on a CUDA tensor, or raises, and runs
 its plain PyTorch version on a CPU tensor.
@@ -18,18 +19,21 @@ from typing import Optional, Tuple, Union
 import torch
 
 from . import _build
+from .attention import _check_window, _window_tensor
 
 __all__ = ["flash_prefill", "flash_prefill_plain", "prefill_attention_flash"]
 
 _MASKED = -1e30  # the TPU kernel's mask value (pallas_attention.py:281)
-_KERNEL_D = 128
-_MAX_REP = 8
+_KERNEL_D = (128, 256)
 
 
-def flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype) -> torch.Tensor:
+def flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype, softcap=0.0, window=None) -> torch.Tensor:
     """The plain version of K5 (the JAX kernel's one-shot softmax):
     q [B, T, H, d]; k / v [B, Hkv, S, d] int8 with k_scale / v_scale
-    [B, Hkv, S] f32, or bf16 with None; pos [B] -> [B, T, H, d]."""
+    [B, Hkv, S] f32, or bf16 with None; pos [B] -> [B, T, H, d]. The
+    options apply in the JAX kernel's order: the softcap
+    cap * tanh(s / cap) on the scaled scores, then the causal mask and the
+    window's pos + t - window < s (one integer in a tensor on q's device)."""
     B, T, H, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     n_rep = H // Hkv
@@ -38,9 +42,15 @@ def flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype) -> torch.Tens
     s = qg @ k.to(torch.float32)[:, :, None].transpose(-1, -2)  # [B, Hkv, n_rep, T, S]
     if k_scale is not None:
         s = s * k_scale[:, :, None, None, :]
+    if softcap:
+        s = softcap * torch.tanh(s * (1.0 / softcap))
     t = torch.arange(T, device=q.device)
     col = torch.arange(S, device=q.device)
-    visible = col[None, None, :] <= pos.to(torch.int64)[:, None, None] + t[None, :, None]  # [B, T, S]
+    row_pos = pos.to(torch.int64)[:, None, None] + t[None, :, None]
+    visible = col[None, None, :] <= row_pos  # [B, T, S]
+    if window is not None:
+        _check_window(window, q.device)
+        visible = visible & (col[None, None, :] > row_pos - window.to(torch.int64).reshape(1, 1, 1))
     s = torch.where(visible[:, None, None], s, torch.tensor(_MASKED, device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
@@ -64,10 +74,12 @@ def flash_prefill(
     v_scale: Optional[torch.Tensor],
     pos: torch.Tensor,  # [B] int32: query t sits at absolute position pos[b] + t
     out_dtype: torch.dtype = torch.bfloat16,
+    softcap: float = 0.0,  # gemma2 logit soft-capping
+    window: Optional[torch.Tensor] = None,  # one int32 on q's device: the sliding window (None = off)
 ) -> torch.Tensor:
     """K5: -> [B, T, H, d] in ``out_dtype`` (bf16 or f32)."""
     if not _build.use_kernel(q, "flash_prefill"):
-        return flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype)
+        return flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype, softcap, window)
     B, T, H, d = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16:
@@ -75,8 +87,8 @@ def flash_prefill(
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != d or v.shape != k.shape or H % Hkv:
         raise ValueError("flash_prefill: k/v must be [B, Hkv, S, d] with H a multiple of Hkv")
     n_rep = H // Hkv
-    if d != _KERNEL_D or n_rep > _MAX_REP:
-        raise ValueError(f"flash_prefill: the kernel takes d == {_KERNEL_D} and n_rep <= {_MAX_REP}")
+    if d not in _KERNEL_D:
+        raise ValueError(f"flash_prefill: the kernel takes d in {_KERNEL_D}")
     int8 = k.dtype == torch.int8
     if int8:
         if v.dtype != torch.int8 or k_scale is None or v_scale is None:
@@ -94,6 +106,7 @@ def flash_prefill(
         k, v = k.contiguous(), v.contiguous()
     q = q.contiguous()
     pos = pos.to(torch.int32).contiguous()
+    win = _window_tensor(window, q.device)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lib = _build.load_library()
     code = lib.qllm_flash_prefill(
@@ -116,6 +129,9 @@ def flash_prefill(
         int(int8),
         int(out_dtype == torch.float32),
         float(d**-0.5),
+        float(softcap),
+        float(1.0 / softcap) if softcap else 0.0,
+        _build.ptr(win),
         _build.stream(q),
     )
     _build.check("flash_prefill", code)
@@ -143,11 +159,9 @@ def prefill_attention_flash(
     the cache's layout [B, Hkv, S, d]; ``kv_scales`` = (k_scale,
     v_scale) [B, Hkv, S] f32 with int8 K/V (the serving path, fed by
     ``QuantizedKVCache.layer_kv_raw``). Float K/V are rounded to bf16.
-    Output [B, T, H, d] in ``out_dtype`` (None = f32, as in JAX)."""
-    if softcap or window is not None:
-        raise NotImplementedError(
-            "logit softcap and sliding-window masking are not wired into flash_prefill yet"
-        )
+    ``softcap`` and ``window`` (one int32 on q's device: key s is visible
+    to query t iff pos + t - window < s) as in JAX. Output [B, T, H, d] in
+    ``out_dtype`` (None = f32, as in JAX)."""
     B, T, H, d = q.shape
     if kv_native:
         kb, vb = k, v
@@ -166,4 +180,4 @@ def prefill_attention_flash(
         pos_b = torch.full((B,), pos, dtype=torch.int32, device=q.device)
     else:
         pos_b = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1).expand(B)
-    return flash_prefill(q, kb, vb, ks, vs, pos_b, torch.float32 if out_dtype is None else out_dtype)
+    return flash_prefill(q, kb, vb, ks, vs, pos_b, torch.float32 if out_dtype is None else out_dtype, softcap, window)

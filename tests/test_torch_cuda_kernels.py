@@ -650,3 +650,159 @@ def test_k21_shards_merge_to_k3b(gen):
     out = lse_merge(acc, m, den, lambda t: t.amax(0), lambda t: t.sum(0))
     ref = att.decode_attn_int8(q, *cache, lengths, 0)
     assert (out - ref).abs().max() <= 2e-2 * ref.abs().max() + 1e-4
+
+
+_C = att.SPLIT_KEYS  # the rows a block of the decode attention body takes
+
+
+def _m_close(m, ref):
+    """K21's running max against its plain version: within 1e-5 of the
+    largest |m| of a non-empty row (an f32 dot product's rounding follows
+    the size of its terms, not of a sum near 0); empty rows (-1e30) exact."""
+    live = ref > -1e29
+    assert torch.equal(m[~live], ref[~live])
+    assert (m[live] - ref[live]).abs().max() <= 1e-5 * ref[live].abs().max()
+
+
+@pytest.mark.parametrize("n_rep,D", [(48, 128), (71, 64)])
+def test_decode_attention_body_at_large_n_rep(gen, n_rep, D):
+    """StarCoder's (48 query heads on one kv head) and Falcon-7B's (71, head
+    width 64) groups through K3b, K22, K21 and K6, each against its plain
+    version within one bf16 ulp of max|plain| (K21: acc and den within one
+    ulp of their max, m within 1e-5 relative), over several splits."""
+    L, B, Hkv, S = 2, 3, 1, 3 * _C + 40
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([7, _C + 9, S], dtype=torch.int32, device="cuda")
+    out = att.decode_attention(q, *cache, lengths, 1)
+    ref = att.decode_attn_int8_plain(q, *cache, lengths, 1)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    one = [t[1] for t in cache]
+    out = att.decode_attention(q, *one, lengths)
+    ref = att.decode_attn_int8_4d_plain(q, *one, lengths)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    got = att.decode_attention_partial(q, *cache, lengths, 0)
+    want = att.decode_attn_int8_partial_plain(q, *cache, lengths, 0)
+    for name, a, r in zip(("acc", "m", "den"), got, want):
+        if name == "m":
+            _m_close(a, r)
+        else:
+            torch.testing.assert_close(a, r, atol=_bf16_ulp(r), rtol=0)
+    rk = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    a, b = [rk.clone(), rv.clone()], [rk.clone(), rv.clone()]
+    ring_len = torch.tensor([5, _C + 3, S - 1], dtype=torch.int32, device="cuda")
+    out = att.decode_attention_ring(q, kn, vn, *cache, *a, ring_len, 1)
+    ref = att.decode_attention_ring_plain(q, kn, vn, *cache, *b, ring_len, 1)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_decode_attention_lengths_around_a_split_edge(gen):
+    """Lengths 0, 1, C - 1, C and C + 1 (C = SPLIT_KEYS) and past two splits:
+    K21 (the length-0 row exactly m = -1e30, acc = 0, den = 0), K3b (from
+    length 1) and K6 (pos 0 attends to the current token alone) against
+    their plain versions within one bf16 ulp of max|plain|."""
+    L, B, Hkv, S, D, n_rep = 1, 6, 2, 3 * _C, 128, 4
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([0, 1, _C - 1, _C, _C + 1, 2 * _C + 5], dtype=torch.int32, device="cuda")
+    acc, m, den = att.decode_attention_partial(q, *cache, lengths, 0)
+    r_acc, r_m, r_den = att.decode_attn_int8_partial_plain(q, *cache, lengths, 0)
+    torch.testing.assert_close(acc, r_acc, atol=_bf16_ulp(r_acc), rtol=0)
+    torch.testing.assert_close(den, r_den, atol=_bf16_ulp(r_den), rtol=0)
+    _m_close(m, r_m)
+    assert bool((m[0] == -1e30).all()) and bool((acc[0] == 0).all()) and bool((den[0] == 0).all())
+    sub = [t[:, 1:].contiguous() for t in cache]  # K3b from length 1
+    out = att.decode_attention(q[1:], *sub, lengths[1:], 0)
+    ref = att.decode_attn_int8_plain(q[1:], *sub, lengths[1:], 0)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    rk = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    a, b = [rk.clone(), rv.clone()], [rk.clone(), rv.clone()]
+    out = att.decode_attention_ring(q, kn, vn, *cache, *a, lengths, 0)
+    ref = att.decode_attention_ring_plain(q, kn, vn, *cache, *b, lengths, 0)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_decode_attention_window_past_whole_splits(gen):
+    """A window whose first row lies past several whole splits: K3b and K22
+    against their plain versions (one bf16 ulp of max|plain|), and the
+    same output as a cache whose rows below the window are garbage."""
+    L, B, Hkv, S, D, n_rep = 1, 2, 2, 6 * _C, 128, 2
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([5 * _C + 3, 6 * _C], dtype=torch.int32, device="cuda")
+    window = torch.tensor([_C + 10], dtype=torch.int32, device="cuda")
+    out = att.decode_attention(q, *cache, lengths, 0, window=window)
+    ref = att.decode_attn_int8_plain(q, *cache, lengths, 0, window=window)
+    torch.testing.assert_close(out, ref, atol=_bf16_ulp(ref), rtol=0)
+    junk = [t.clone() for t in cache]
+    for t in junk[:2]:
+        t[..., : 3 * _C, :] = 127
+    for t in junk[2:]:
+        t[..., : 3 * _C] = float("nan")
+    assert torch.equal(att.decode_attention(q, *junk, lengths, 0, window=window), out)
+    four = att.decode_attention(q, *[t[0] for t in cache], lengths, window=window)
+    assert torch.equal(four, out)
+
+
+def test_decode_attention_rows_do_not_depend_on_the_batch(gen):
+    """A sequence's K3b and K6 outputs are bit-equal whether it is decoded
+    in a batch of 8 or alone (its splits depend on its own length only)."""
+    L, B, Hkv, S, D, n_rep = 2, 8, 2, 4 * _C, 128, 4
+    cache = _int8_cache(gen, (L, B, Hkv, S, D))
+    q = torch.randn((B, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.tensor([1, 100, _C, _C + 1, 2 * _C + 17, 3 * _C, 4 * _C - 3, 4 * _C], dtype=torch.int32,
+                           device="cuda")
+    rk = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    rv = torch.randn((L, B, Hkv, att.RING, D), device="cuda", generator=gen).to(torch.bfloat16)
+    kn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    vn = torch.randn((B, Hkv, D), device="cuda", generator=gen).to(torch.bfloat16)
+    full = att.decode_attention(q, *cache, lengths, 1)
+    ring_len = lengths - 1
+    full_ring = att.decode_attention_ring(q, kn, vn, *cache, rk.clone(), rv.clone(), ring_len, 1)
+    for b in range(B):
+        one = [t[:, b : b + 1].contiguous() for t in cache]
+        assert torch.equal(att.decode_attention(q[b : b + 1], *one, lengths[b : b + 1], 1), full[b : b + 1])
+        rings = [rk[:, b : b + 1].clone(), rv[:, b : b + 1].clone()]
+        alone = att.decode_attention_ring(q[b : b + 1], kn[b : b + 1], vn[b : b + 1], *one, *rings,
+                                          ring_len[b : b + 1], 1)
+        assert torch.equal(alone, full_ring[b : b + 1])
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("D,n_rep,softcap,window", [(256, 2, 50.0, 300), (256, 1, 0.0, 64), (128, 12, 30.0, 90)])
+def test_flash_prefill_kernel_options_match_plain(gen, int8, D, n_rep, softcap, window):
+    """K5 with the logit softcap and the window at head width 256 (Gemma-2)
+    and at n_rep 12 against its plain version (atol/rtol 2e-2, as the K5
+    test above); the softcap cases draw scores of RMS 0.5-1.5 x the cap,
+    and the plain version without the softcap misses ten times the limit."""
+    B, T, S, Hkv = 2, 200, 520, 2
+    q = torch.randn((B, T, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    pos = torch.tensor([0, 320], dtype=torch.int32, device="cuda")
+    spread = torch.rand((B, Hkv, S), device="cuda", generator=gen) + 0.5
+    if int8:
+        k = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        ks = spread * (softcap * 3**0.5 / 127) if softcap else spread * 0.01
+        vs = torch.rand((B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    else:
+        k = torch.randn((B, Hkv, S, D), device="cuda", generator=gen) * (spread * (softcap or 1.0))[..., None]
+        k, v = k.to(torch.bfloat16), torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(torch.bfloat16)
+        ks = vs = None
+    win = torch.tensor([window], dtype=torch.int32, device="cuda")
+    before = fp.flash_prefill.launches
+    out = fp.flash_prefill(q, k, v, ks, vs, pos, torch.float32, softcap, win)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, softcap, win)
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    if softcap:
+        bare = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 0.0, win)
+        assert not torch.allclose(out, bare, atol=0.2, rtol=0.2)

@@ -80,12 +80,26 @@ def test_flash_prefill_bf16_out_and_int_pos():
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=ATOL, rtol=ATOL)
 
 
-@pytest.mark.parametrize("kw", [{"softcap": 30.0}, {"window": torch.tensor(16)}])
+@pytest.mark.parametrize("kw", [{"softcap": 30.0}, {"window": 16}])
 def test_flash_prefill_refuses_what_is_not_wired(kw):
-    q = torch.zeros((1, 8, 2, 128))
-    k = torch.zeros((1, 8, 1, 128))
-    with pytest.raises(NotImplementedError):
-        tfp.prefill_attention_flash(q, k, k, 0, 2, **kw)
+    """The two options K5 once refused, the logit softcap and the sliding
+    window, are served and match JAX's prefill_attention_flash (atol/rtol
+    2e-2). The softcap case draws keys for scores of RMS 0.5-1.5 x the cap,
+    and the port without an option must miss ten times that limit."""
+    rng = np.random.default_rng(16)
+    B, T, S, Hkv, n_rep, d = 1, 48, 48, 1, 2, 128
+    q = rng.normal(size=(B, T, Hkv * n_rep, d)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    if "softcap" in kw:
+        k *= kw["softcap"] * rng.uniform(0.5, 1.5, (B, S, Hkv, 1)).astype(np.float32)
+    jkw = {n: (jnp.int32(x) if n == "window" else x) for n, x in kw.items()}
+    tkw = {n: (torch.tensor([x], dtype=torch.int32) if n == "window" else x) for n, x in kw.items()}
+    ref = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0, n_rep, **jkw))
+    out = tfp.prefill_attention_flash(_t(q), _t(k), _t(v), 0, n_rep, **tkw).numpy()
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=ATOL)
+    bare = tfp.prefill_attention_flash(_t(q), _t(k), _t(v), 0, n_rep).numpy()
+    assert not np.allclose(bare, ref, atol=10 * ATOL, rtol=10 * ATOL), f"{kw} changes nothing"
 
 
 def test_flash_prefill_int8_needs_the_native_layout():
