@@ -17,7 +17,11 @@ Phases, each of which fails the run on any error or disagreement:
      row with the SM-microseconds a walked 128-key tile costs, a sequence's
      K3b and K6 outputs bit-equal between a batch-8 and a batch-1 launch,
      and an A/B of the body's split length (128, 256, 512 rows); K5 at
-     Gemma-2-9B's head width 256 with its softcap and a window;
+     Gemma-2-9B's head width 256 with its softcap and a window, and at
+     head widths 384 and 512 (a synthetic head layout); K10 also at the
+     engine's verify shape (M = 40) and K10 / K18 with a call's device time
+     (torch.profiler) beside the event pair; K1, K2, K17 and K18 on g = 8
+     stacks, whose groups close inside a 16-k tile;
   3. main: a Llama-2-7B-shape W4 g128 model (32 layers, random weights
      drawn on the card, quantized lm_head) is stacked for serving,
      prefills 8 prompts of 128 tokens into an int8 KV cache (max_seq
@@ -183,6 +187,8 @@ GPTQ_CASES = tuple(
                      ("lm_head", 4096, 32000))]
     + [("gptq_gemv", 8, "gate/up", 4096, 11008, b, False) for b in (2, 8)]
     + [("gptq_gemv", 8, "q/k/v/o", 4096, 4096, 4, True)]
+    + [("gptq_gemm", 40, n, K, N, 4, False)  # the engine's verify step: 8 slots x (gamma 4 + 1)
+       for n, K, N in (("q/k/v/o", 4096, 4096), ("gate/up", 4096, 11008), ("down", 11008, 4096))]
     + [("gptq_gemm", M, n, K, N, 4, False) for M in (256, 1024)
        for n, K, N in (("gate/up", 4096, 11008), ("down", 11008, 4096))]
     + [("gptq_gemm", 256, "gate/up", 4096, 11008, 8, False)]
@@ -291,6 +297,15 @@ SPLIT_AB = (128, 256, 512)
 # local-layer window 4096) over a 2048-token prompt, and with a window that
 # masks (512): (T, S, window)
 GEMMA_FLASH = dict(H=16, Hkv=8, D=256, softcap=50.0, CASES=((2048, 2048, 4096), (2048, 2048, 512)))
+# K5 at head widths 384 and 512: no architecture of either package has them
+# yet, so a synthetic layout (16 query heads on 8 kv heads, batch 1, T = S =
+# 2048 from position 0): (D, softcap); the softcap row has its control
+WIDE_FLASH = dict(H=16, Hkv=8, T=2048, CASES=((384, 0.0), (512, 0.0), (512, 50.0)))
+# K1, K2, K17 and K18 on g = 8 planar stacks at the 7B gate|up shape
+# (groups close inside a 16-k tile): (kernel, M); K18 at M = 128, where its
+# plain version's [M, G, N] f32 group dots (G = 512) still fit the card
+G8_CASES = (("w4_planar_gemv", 8), ("w4_planar_gemm", 1024), ("w4_planar_f32s_gemv", 8),
+            ("w4_planar_f32s_gemm", 128))
 SP_TOL = 2e-2  # the merged attention against K3b's: atol / rtol (tests/test_parallel.py:190)
 # K22: one layer's 4-D cache at each model's published attention geometry
 # and context (config.json): (model, B, H, Hkv, D, S, least length,
@@ -723,6 +738,8 @@ def phase_kernels(torch, timer):
     rows.append(stream_row(torch, timer, gen))
     rows.extend(stacked_rows(torch, timer, gen))
     rows.extend(f32s_rows(torch, timer, gen))
+    rows.extend(g8_rows(torch, timer, gen))
+    rows.extend(wide_flash_rows(torch, timer, gen))
     rows.extend(sp_rows(torch, timer, gen))
     rows.extend(body_rows(torch, timer, gen))
     return rows
@@ -774,6 +791,118 @@ def gemma_flash_rows(torch, timer, gen):
                                  f"{miss} (must miss {10 * FLASH_TOL} atol/rtol)")
         del q, k, v, out
     torch.cuda.empty_cache()
+    return rows
+
+
+def wide_flash_rows(torch, timer, gen):
+    """K5 at head widths 384 and 512 (WIDE_FLASH: a synthetic layout, no
+    architecture of either package has these widths), int8 K/V in the
+    cache's layout, batch 1 from position 0, against its plain version
+    within FLASH_TOL; the softcap row draws scores of RMS 0.5-1.5 x the cap
+    and its plain version without the cap must miss ten times the limit.
+    Library: SDPA on the dequantized K/V (enable_gqa), where no softcap."""
+    from qllm_tpu_torch.ops import flash_prefill as fp
+
+    H, Hkv, T = (WIDE_FLASH[k] for k in ("H", "Hkv", "T"))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for D, cap in WIDE_FLASH["CASES"]:
+        B, S = 1, T
+        q = torch.randn((B, T, H, D), device=DEV, generator=gen).to(torch.bfloat16)
+        pos = torch.zeros((B,), dtype=torch.int32, device=DEV)
+        k = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device=DEV, generator=gen)
+        ksc = key_scales(torch, (B, Hkv, S), gen, {"softcap": cap} if cap else {})
+        vsc = torch.rand((B, Hkv, S), device=DEV, generator=gen) * 0.015 + 0.005
+        args = (q, k, v, ksc, vsc, pos, torch.bfloat16, cap)
+        out = fp.flash_prefill(*args)
+        torch.cuda.synchronize()
+        ref = fp.flash_prefill_plain(*args).float()
+        err = float((out.float() - ref).abs().max())
+        ok = bool(torch.allclose(out.float(), ref, atol=FLASH_TOL, rtol=FLASH_TOL))
+        extra, lib_ms = {}, None
+        if cap:
+            bare = fp.flash_prefill_plain(q, k, v, ksc, vsc, pos, torch.bfloat16, 0.0).float()
+            extra["without_softcap_max_abs_err"] = float((bare - ref).abs().max())
+            ok = ok and not torch.allclose(bare, ref, atol=10 * FLASH_TOL, rtol=10 * FLASH_TOL)
+            del bare
+        else:
+            kd = (k.float() * ksc[..., None]).to(torch.bfloat16)
+            vd = (v.float() * vsc[..., None]).to(torch.bfloat16)
+            qt = q.transpose(1, 2)
+            lib_ms = timer(lambda: sdpa(qt, kd, vd, is_causal=True, enable_gqa=True))
+            del kd, vd, qt
+        del ref
+        ms = timer(lambda: fp.flash_prefill(*args))
+        plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
+        pairs = T * (T + 1) // 2  # (query, key) pairs the causal mask keeps
+        nbytes = 2 * B * T * H * D * 2 + 2 * B * Hkv * S * D + 2 * B * Hkv * S * 4
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
+        rows.append(dict(kernel="flash_prefill", case=f"synthetic T={T} S={S} B={B} H={H} Hkv={Hkv} D={D} int8 K/V, "
+                         f"pos 0" + (f", softcap {cap}" if cap else ""), max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}",
+                         **extra, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"flash_prefill D={D} softcap {cap}: {rows[-1]}")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def g8_rows(torch, timer, gen):
+    """K1, K2, K17 and K18 on g = 8 planar stacks at the 7B gate|up shape
+    (K = 4096, Np = 22016; a group closes inside every 16-k tile) against
+    their plain versions: K1 / K2 within QMM_TOL, K17 / K18 within
+    F32S_TIGHT * max|plain| with the next layer's plain version missing
+    STACKED_TOL. Library: torch.matmul on the dequantized bf16 weight."""
+    from qllm_tpu_torch.ops import qmm, qmm_planar
+
+    Kf, Np, g = 4096, 22016, 8
+    G = Kf // g
+    rows = []
+    qw = torch.randint(-(2**31), 2**31, (3, Kf // 8, Np), dtype=torch.int32, device=DEV, generator=gen)
+    v = qmm._planar_values(qw[1], Kf).reshape(G, g, Np)
+    for kname, M in G8_CASES:
+        f32 = "f32s" in kname
+        mod = qmm_planar if f32 else qmm
+        fn, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+        x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
+        if f32:
+            sc = (torch.rand((3, G, Np), device=DEV, generator=gen) + 0.5) * widths_scale(4)
+            args, nxt = (x, qw, sc, 1), (x, qw, sc, 2)
+            w = (v * sc[1][:, None]).reshape(Kf, Np).to(torch.bfloat16)
+        else:
+            sc = ((torch.rand((3, G, Np), device=DEV, generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+            zs = (sc.float() * 8.0).to(torch.bfloat16)
+            args, nxt = (x, qw, sc, zs, 1), None
+            w = (v * sc[1].float()[:, None] - zs[1].float()[:, None]).reshape(Kf, Np).to(torch.bfloat16)
+        y = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args).float()
+        scale = float(ref.abs().max())
+        err = float((y.float() - ref).abs().max())
+        if f32:
+            control = float((y - plain(*nxt)).abs().max())
+            ok = err <= F32S_TIGHT * scale and control > STACKED_TOL * scale
+            extra = dict(tol=f"{F32S_TIGHT}*{scale:.4g}", control_next_layer_err=control)
+        else:
+            ok = bool(torch.allclose(y.float(), ref, atol=QMM_TOL * scale, rtol=QMM_TOL))
+            extra = dict(tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}")
+        del ref
+        lib_ms = timer(lambda: torch.matmul(x, w))
+        ms = timer(lambda: fn(*args))
+        plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
+        s_bytes = sc[1].numel() * sc.element_size() * (1 if f32 else 2)
+        nbytes = qw[1].numel() * 4 + s_bytes + M * Kf * 2 + M * Np * (4 if f32 else 2)
+        b_ms, b_by = bound(nbytes, 2.0 * M * Kf * Np)
+        rows.append(dict(kernel=kname, case=f"gateup K={Kf} N={Np} M={M} g={g}" + (" f32 scales" if f32 else ""),
+                         max_abs_err=err, **extra, ok=bool(ok), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"{kname} g={g} M={M}: {rows[-1]}")
+        del x, sc, w, y
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1007,9 +1136,12 @@ def gptq_rows(torch, timer, gen):
         nbytes = qt.qweight.numel() * 4 + 2 * qt.scales.numel() * qt.scales.element_size() + M * Kf * 2 + M * N * 2
         nbytes += Kf * 4 if act_order else 0
         b_ms, b_by = bound(nbytes, 2.0 * M * Kf * N)
+        # K10: a call's device time (the group sums, the product and, for a
+        # split launch, the segments' sum), beside the event pair
+        dev = {"device_ms": launch_us(torch, run, key="") / 1e3} if kname == "gptq_gemm" else {}
         rows.append(dict(kernel=kname, case=f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
                          max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **dev))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"{kname} {rows[-1]['case']}: max_abs_err {err} outside tolerance")
@@ -1135,10 +1267,11 @@ def walked_tiles(lengths, n_rep, Hkv, window=0, ring=False, split=None) -> int:
     return tiles * Hkv * -(-n_rep // 8)
 
 
-def launch_us(torch, fn, reps: int = 20) -> float:
-    """The mean device time (us) of one launch of the decode attention
-    body over ``reps`` back-to-back calls of fn (torch.profiler): an event
-    pair around one call also holds the wrapper's host time."""
+def launch_us(torch, fn, reps: int = 20, key: str = "decode_attn_kernel") -> float:
+    """The mean device time (us) of one call of fn over ``reps``
+    back-to-back calls (torch.profiler, L2 warm), summed over the CUDA
+    kernels whose name holds ``key`` (all of them for ""): an event pair
+    around one call also holds the wrapper's host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1148,7 +1281,7 @@ def launch_us(torch, fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    body = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "decode_attn_kernel" in e.key]
+    body = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
     return sum(e.self_device_time_total for e in body) / reps
 
 
@@ -2952,11 +3085,20 @@ def stream_check_chunked(torch, params, cfg, prompt, out, chunk):
     return int((gap == 0).sum()), len(out), float((gap / (top.abs() + 1)).max())
 
 
+def greedy_ids_agree(torch, card, cpu) -> bool:
+    """Every row's greedy id on the card is a greedy id of the CPU's logits:
+    the CPU's argmax, or an id whose CPU logit equals the CPU's row maximum
+    (bf16 logits can tie exactly, and argmax then takes the lowest id, which
+    no kernel's rounding can be held to)."""
+    ids = card.argmax(-1)
+    return bool((cpu.gather(-1, ids[..., None])[..., 0] == cpu.max(-1).values).all())
+
+
 def widths_cross(torch, cfg, sp, B, T, w4a8):
     """The first steps card against CPU on the first CROSS_LAYERS layers of
     the same stacks: a prefill of B prompts of T tokens and one decode
-    step, held to the same greedy ids and ||card - cpu|| / ||cpu|| below
-    WIDTHS_CROSS_REL (W4A8's step: A8_MODEL_REL, as the cross phase's
+    step, held to the CPU's greedy ids (greedy_ids_agree) and ||card -
+    cpu|| / ||cpu|| below WIDTHS_CROSS_REL (W4A8's step: A8_MODEL_REL, as the cross phase's
     engine leg); LOGIT_TOL is read. The CPU runs every kernel's plain
     version, a 2-D fallback weight included (K9 / K10's, as cross_engine
     does)."""
@@ -2992,7 +3134,7 @@ def widths_cross(torch, cfg, sp, B, T, w4a8):
         res[f"{name}_max_abs_err"] = float((a - b).abs().max())
         res[f"{name}_rel_err"] = float((a - b).norm() / b.norm())
         res[f"{name}_within_tol"] = bool(torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL))
-        res[f"{name}_same_ids"] = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+        res[f"{name}_same_ids"] = greedy_ids_agree(torch, a, b)
     ok = (res["prefill_rel_err"] < WIDTHS_CROSS_REL and res["prefill_same_ids"]
           and (res["step_rel_err"] < A8_MODEL_REL if w4a8 else
                res["step_rel_err"] < WIDTHS_CROSS_REL and res["step_same_ids"]))
@@ -3174,10 +3316,11 @@ def f32s_rows(torch, timer, gen):
         b_ms, b_by = bound(qw[1].numel() * 4 + sc[1].numel() * 4 + M * Kf * 2 + M * Np * 4, 2.0 * M * Kf * Np)
         bk = qmm.planar_bk(Kf, 128) or qmm.planar_bk_relaxed(Kf, 128)
         case = f"{pname} K={Kf} N={Np} M={M} f32 scales" + (f" (TPU bk {bk})" if M > 32 else "")
+        dev = {"device_ms": launch_us(torch, lambda: fn(x, qw, sc, 1), key="") / 1e3} if M > 32 else {}
         rows.append(dict(kernel=kname, case=case, max_abs_err=err, max_err_bf16_ulps=err_ulps,
                          tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control,
                          tight_tol=f"{F32S_TIGHT}*{scale:.4g}", control_bf16_weight_err=control_bf16, ok=bool(ok), ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **dev))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"{kname} {case}: max_abs_err {err}, limits {limit} / {tight}, controls {control} / "
@@ -3711,12 +3854,13 @@ def summary_entry(name, replaces, launches, mine, headline=""):
         "library_ms": head.get("library_ms"),
         "shape": head.get("case"),
     }
-    if len(mine) > 1 and name in ("w4_grouped_gemv", "gptq_gemv", "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
+    if len(mine) > 1 and name in ("w4_planar_gemv", "w4_planar_gemm", "flash_prefill", "w4_grouped_gemv", "gptq_gemv",
+                                  "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
                                   "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv",
                                   "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv",
                                   "decode_attn_int8_4d"):
-        entry["readings"] = [{k: r[k] for k in ("case", "ms", "max_abs_err", "bound_ms", "library_ms", "plain_ms")}
-                             for r in mine]
+        entry["readings"] = [{k: r[k] for k in ("case", "ms", "device_ms", "max_abs_err", "bound_ms", "library_ms",
+                                                "plain_ms") if k in r} for r in mine]
     if "yardstick_ms" in head:
         entry["yardstick"] = head["yardstick"]
         entry["yardstick_ms"] = head["yardstick_ms"]

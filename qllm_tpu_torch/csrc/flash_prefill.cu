@@ -32,6 +32,11 @@
 // key tiles are 32 keys; the score fragments become the A operand of P.V
 // in registers, and K / V tiles are staged in shared memory as bf16 (rows
 // padded by 16 bytes so the fragment reads are free of bank conflicts).
+// At D = 384 and 512 the 64 x D f32 output does not fit in registers, so
+// the output width is split across blocks: each block scores with the
+// full D (q staged as at D = 256) and runs P.V for its slice of kDV = 128
+// (D = 384) or 256 (D = 512) head dimensions, staging only that slice of
+// V; every slice computes the same softmax statistics.
 // The key loop walks only the keys visible to the block: from the tile
 // holding pos + t_first - win + 1 to the last key visible to its last
 // row, as the TPU kernel skips invisible tiles (pallas_attention.py:
@@ -65,10 +70,14 @@ __device__ __forceinline__ void int8x16_to_bf16(int4 raw, uint4& lo, uint4& hi) 
 template <int kD>
 struct FlashShape {
   static constexpr int kKeys = kD == 128 ? 64 : 32;  // keys per tile
-  static constexpr int kPitch = kD + 8;              // bf16 per staged row
+  static constexpr int kPitch = kD + 8;              // bf16 per staged K (and q) row
+  static constexpr int kDV = kD == 384 ? 128 : kD == 512 ? 256 : kD;  // output width of a block
+  static constexpr int kVPitch = kDV + 8;            // bf16 per staged V row
+  static constexpr int kSlices = kD / kDV;
   static constexpr bool kQInRegs = kD == 128;
-  // Ks, Vs [kKeys][kPitch] bf16, kss, vss [kKeys] f32, then Qs [kRows][kPitch] bf16 at D = 256
-  static constexpr int kSmem = 2 * kKeys * kPitch * 2 + 2 * kKeys * 4 + (kQInRegs ? 0 : kRows * kPitch * 2);
+  // Ks [kKeys][kPitch], Vs [kKeys][kVPitch] bf16, kss, vss [kKeys] f32, then Qs [kRows][kPitch] bf16 at D >= 256
+  static constexpr int kSmem =
+      kKeys * (kPitch + kVPitch) * 2 + 2 * kKeys * 4 + (kQInRegs ? 0 : kRows * kPitch * 2);
 };
 
 struct FlashArgs {
@@ -88,18 +97,20 @@ struct FlashArgs {
 template <int kD, bool kInt8, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(FlashArgs a) {
   using Shape = FlashShape<kD>;
-  constexpr int kKeys = Shape::kKeys, kPitch = Shape::kPitch;
+  constexpr int kKeys = Shape::kKeys, kPitch = Shape::kPitch, kDV = Shape::kDV, kVPitch = Shape::kVPitch;
   extern __shared__ __align__(16) unsigned char smem[];
   auto Ks = reinterpret_cast<__nv_bfloat16(*)[kPitch]>(smem);
-  auto Vs = Ks + kKeys;
+  auto Vs = reinterpret_cast<__nv_bfloat16(*)[kVPitch]>(Ks + kKeys);
   float* kss = reinterpret_cast<float*>(Vs + kKeys);
   float* vss = kss + kKeys;
-  auto Qs = reinterpret_cast<__nv_bfloat16(*)[kPitch]>(vss + kKeys);  // D = 256 only
+  auto Qs = reinterpret_cast<__nv_bfloat16(*)[kPitch]>(vss + kKeys);  // D >= 256 only
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, c = lane & 3;
   const int n_rep = a.n_rep, T = a.T, S = a.S;
-  const int tile = gridDim.x - 1 - blockIdx.x;  // longest key ranges first
+  // longest key ranges first; the slices of one row tile side by side
+  const int tile = gridDim.x / Shape::kSlices - 1 - blockIdx.x / Shape::kSlices;
+  const int dv0 = kDV * (blockIdx.x % Shape::kSlices);  // this block's output dimensions [dv0, dv0 + kDV)
   const int hk = blockIdx.y, b = blockIdx.z;
   const int H = a.Hkv * n_rep;
   const long long f0 = static_cast<long long>(tile) * kRows;  // first flat row: t * n_rep + rep
@@ -158,9 +169,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(FlashArgs a) {
     __syncwarp();
   }
 
-  float o[kD / 8][4];
+  float o[kDV / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt)
+  for (int nt = 0; nt < kDV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
   float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
@@ -172,24 +183,35 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(FlashArgs a) {
 
   for (int j0 = kstart / kKeys * kKeys; j0 < kend; j0 += kKeys) {
     __syncthreads();  // the previous tile's reads are done
-    // stage keys [j0, j0 + kKeys) as bf16; keys outside [kstart, kend) are zeros
-    constexpr int kChunks = kD * kElt / 16;  // 16-byte chunks per row
+    // stage keys [j0, j0 + kKeys) as bf16, all of K and this block's slice
+    // of V; keys outside [kstart, kend) are zeros
+    constexpr int kChunks = kD * kElt / 16;  // 16-byte chunks per K row
     for (int i = tid; i < kKeys * kChunks; i += kThreads) {
       const int j = i / kChunks, ch = i % kChunks;
       const long long off = (j0 + j) * a.ss * kElt + ch * 16;
       const bool in = j0 + j >= kstart && j0 + j < kend;
       const int4 kr = in ? *reinterpret_cast<const int4*>(kbase + off) : make_int4(0, 0, 0, 0);
-      const int4 vr = in ? *reinterpret_cast<const int4*>(vbase + off) : make_int4(0, 0, 0, 0);
       if constexpr (kInt8) {
         uint4 lo, hi;
         int8x16_to_bf16(kr, lo, hi);
         *reinterpret_cast<uint4*>(&Ks[j][16 * ch]) = lo;
         *reinterpret_cast<uint4*>(&Ks[j][16 * ch + 8]) = hi;
+      } else {
+        *reinterpret_cast<int4*>(&Ks[j][8 * ch]) = kr;
+      }
+    }
+    constexpr int kVChunks = kDV * kElt / 16;  // 16-byte chunks per V row slice
+    for (int i = tid; i < kKeys * kVChunks; i += kThreads) {
+      const int j = i / kVChunks, ch = i % kVChunks;
+      const long long off = (j0 + j) * a.ss * kElt + dv0 * kElt + ch * 16;
+      const bool in = j0 + j >= kstart && j0 + j < kend;
+      const int4 vr = in ? *reinterpret_cast<const int4*>(vbase + off) : make_int4(0, 0, 0, 0);
+      if constexpr (kInt8) {
+        uint4 lo, hi;
         int8x16_to_bf16(vr, lo, hi);
         *reinterpret_cast<uint4*>(&Vs[j][16 * ch]) = lo;
         *reinterpret_cast<uint4*>(&Vs[j][16 * ch + 8]) = hi;
       } else {
-        *reinterpret_cast<int4*>(&Ks[j][8 * ch]) = kr;
         *reinterpret_cast<int4*>(&Vs[j][8 * ch]) = vr;
       }
     }
@@ -275,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(FlashArgs a) {
       l_run[i] = l_run[i] * corr[i] + psum[i];
     }
 #pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
+    for (int nt = 0; nt < kDV / 8; ++nt) {
       o[nt][0] *= corr[0];
       o[nt][1] *= corr[0];
       o[nt][2] *= corr[1];
@@ -291,23 +313,24 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(FlashArgs a) {
       const uint32_t a2 = pa[2 * kc + 1][0], a3 = pa[2 * kc + 1][1];
       const int key = 16 * kc + 2 * c;
 #pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
+      for (int nt = 0; nt < kDV / 8; ++nt) {
         const int col = nt * 8 + gq;
-        const uint32_t b0 = vbits[key * kPitch + col] | (static_cast<uint32_t>(vbits[(key + 1) * kPitch + col]) << 16);
+        const uint32_t b0 =
+            vbits[key * kVPitch + col] | (static_cast<uint32_t>(vbits[(key + 1) * kVPitch + col]) << 16);
         const uint32_t b1 =
-            vbits[(key + 8) * kPitch + col] | (static_cast<uint32_t>(vbits[(key + 9) * kPitch + col]) << 16);
+            vbits[(key + 8) * kVPitch + col] | (static_cast<uint32_t>(vbits[(key + 9) * kVPitch + col]) << 16);
         mma_bf16_16816(o[nt], a0, a1, a2, a3, b0, b1);
       }
     }
   }
 
-  // out = acc / den for this thread's rows, head dimensions nt*8 + 2c, +1
+  // out = acc / den for this thread's rows, head dimensions dv0 + nt*8 + 2c, +1
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!row_ok[i]) continue;
-    const size_t orow = ((static_cast<size_t>(b) * T + row_t[i]) * H + row_h[i]) * kD;
+    const size_t orow = ((static_cast<size_t>(b) * T + row_t[i]) * H + row_h[i]) * kD + dv0;
 #pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
+    for (int nt = 0; nt < kDV / 8; ++nt) {
       const float x0 = o[nt][2 * i] / l_run[i], x1 = o[nt][2 * i + 1] / l_run[i];
       const size_t at = orow + nt * 8 + 2 * c;
       if (a.out_f32)
@@ -345,8 +368,8 @@ QLLM_API int qllm_flash_prefill(const void* q, const void* k, const void* v, con
                                 int kv_int8, int out_f32, float qscale, float softcap, float inv_softcap,
                                 const void* window, void* stream) {
   const long long tiles = (static_cast<long long>(T) * n_rep + kRows - 1) / kRows;
-  if (B < 1 || T < 1 || S < 1 || Hkv < 1 || n_rep < 1 || (D != 128 && D != 256) || B > 65535 || Hkv > 65535 ||
-      tiles > 0x7fffffffLL)
+  if (B < 1 || T < 1 || S < 1 || Hkv < 1 || n_rep < 1 || (D != 128 && D != 256 && D != 384 && D != 512) ||
+      B > 65535 || Hkv > 65535 || tiles * (D / 128) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   FlashArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -368,7 +391,12 @@ QLLM_API int qllm_flash_prefill(const void* q, const void* k, const void* v, con
   a.qscale = qscale;
   a.cap = softcap;
   a.inv_cap = inv_softcap;
-  const dim3 grid(static_cast<unsigned>(tiles), Hkv, B);
   const auto st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_width<128>(a, kv_int8 != 0, grid, st) : launch_width<256>(a, kv_int8 != 0, grid, st);
+  const bool int8 = kv_int8 != 0;
+  // row tiles x the output slices of D (FlashShape::kSlices)
+  auto grid = [&](int slices) { return dim3(static_cast<unsigned>(tiles * slices), Hkv, B); };
+  if (D == 128) return launch_width<128>(a, int8, grid(1), st);
+  if (D == 256) return launch_width<256>(a, int8, grid(1), st);
+  if (D == 384) return launch_width<384>(a, int8, grid(3), st);
+  return launch_width<512>(a, int8, grid(2), st);
 }

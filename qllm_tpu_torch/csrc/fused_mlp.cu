@@ -362,7 +362,9 @@ int coop_grid(const void* kernel, int tiles) {
   return std::max(1, std::min(tiles, per_sm * sms));
 }
 
-bool fullk_geometry(int K, int g) { return g >= 16 && g % 16 == 0 && K % 256 == 0 && (K / 2) % g == 0; }
+// the full-K planar geometry (K % 256 == 0, groups split at K/2); a word
+// row's quadruple of each half lies in one group for any g % 4 == 0
+bool fullk_geometry(int K, int g) { return g >= 4 && g % 4 == 0 && K % 256 == 0 && (K / 2) % g == 0; }
 
 }  // namespace
 

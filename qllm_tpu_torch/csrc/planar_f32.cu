@@ -11,9 +11,10 @@
 // scales, or zeros not prefolded), at every M (decode and prefill).
 //
 // Rounding as in the TPU kernel: nibbles and bf16 x are exact in bf16,
-// so each group's dot runs on the tensor cores (mma.sync m16n8k16 bf16
-// -> f32) into an f32 fragment of its own; at the group's end that
-// partial is multiplied by the f32 scale and added into the accumulator.
+// so each group's dot runs on the tensor cores (K17: mma.sync m16n8k16,
+// K18: wgmma; bf16 -> f32) into an f32 fragment of its own; at the
+// group's end that partial is multiplied by the f32 scale and added into
+// the accumulator.
 // The weight is never rounded to bf16 and the scale never enters the
 // product (K2's dequantize-then-one-big-dot is #2's rounding, not #3's).
 //
@@ -31,194 +32,276 @@
 // bytes (the layer's words and f32 scales read once).
 
 #include "planar_gemv.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
 // K18 w4_planar_f32s_gemm (prefill, M > 32).
 //
-// K2's tiling (csrc/qmm.cu) with #3's rounding. A block is 8 warps over
-// 128 output columns x 128 rows of x; each warp owns 32 columns x 64 rows.
-// The low-half and high-half groups of a k-tile have scales of their own,
-// so the block walks K twice: first every k-tile's low-half nibbles
-// against the low half of x, then the high-half nibbles against the high
-// half. Within a pass one f32 partial fragment a (column tile, row tile)
-// holds the open group's dot and is closed into the accumulator with the
-// f32 scales at the group's end (any g % 16 == 0; the TPU grid's k-block,
-// 2048 or the relaxed 256 of down_proj, sets only its order of adding the
-// group terms). A thread's A registers come from whole planar words
-// (thread (gq, c) holds word row 4t + c of k-tile t for its 4 columns) as
-// exact bf16 nibbles, reused for the warp's 8 row tiles; x (128 rows x 32 k
-// of the pass's half: two k-tiles a step, one barrier per 32 MMAs a warp)
-// streams into a 3-stage shared-memory ring by cp.async and the next
-// steps' words wait in registers. Each pass reads
-// the words once (from L2 after the first: a column tile's words are 256 KB
-// at K = 4096). Row blocks run along gridDim.x, so the blocks that share a
-// column tile's words are resident together. wgmma / TMA are later work.
-//
 // Bound on the H100: at M = 1024, 2*M*K*N flops against K*N/2 weight
 // bytes: the bf16 tensor-core rate.
+//
+// Design (csrc/wgmma.cuh): wgmma.mma_async with the product swapped, as in
+// K10 (csrc/gptq_mm.cu): 64 output columns are the instruction's rows and
+// the rows of x its width, A = the exact bf16 nibbles from registers, B =
+// the x tile in 128-byte-swizzled shared memory. A block is two
+// warpgroups over 128 output columns and MC x 64 rows of x (MC = 1 at M
+// <= 64). The low-half and high-half groups of a word have scales of their
+// own, so the block walks K twice: the low nibbles of the word rows
+// against the low half of x, then the high nibbles against the high half
+// (the second pass reads the words from L2). A stage holds 64 k of one
+// half: the x tile and 16 word rows, in a ring filled by cp.async
+// kF32sStages - 2 stages ahead. Thread (gq, c) of warp w takes columns gq
+// and gq + 8 of its 16 and, for the 16-k step j, k 2c, 2c+1 (word row 4j +
+// c/2, bytes 2(c&1) and 2(c&1)+1) and the same + 8 (two rows further).
+//
+// A stage's four 16-k steps are built at once, into one of two register
+// sets while the previous stage's products still read the other (both held
+// until the wait that retires their products: keep_regs), and issued as
+// one group of m64n(64 MC)k16 instructions. Each group's dot
+// accumulates into a partial fragment that starts fresh (scale-d 0) at the
+// group's first step; at the group's end the partial is promoted into the
+// accumulator with the f32 scales, acc += partial * s, as fp8 GEMMs
+// promote theirs; the two warpgroups wait for their own products, so one
+// promotes while the other's run. With g % 16 == 0 the groups close every
+// g / 16 steps in order over both halves (counted, no divisions), and each
+// group's f32 scales are loaded a group ahead. A group that closes inside
+// a 16-k step (g % 16 != 0) runs the step once per group it touches, the
+// A pairs of the other groups zeroed: any g % 4 == 0.
 // ---------------------------------------------------------------------------
 
-constexpr int kGemmThreads = 256;
-constexpr int kBM = 128, kBN = 128;  // rows of x, output columns per block
-constexpr int kMT = 8;               // 8-row MMA tiles per warp (64 rows)
-constexpr int kNT = 2;               // 16-column MMA tiles per warp (32 columns)
-constexpr int kStages = 3;           // steps of x in flight (cp.async ring)
-constexpr int kWPre = 2;             // steps of weight words in registers
-constexpr int kXRow = 48;            // bf16 per x row of a stage: 32 used, 96
-                                     // bytes (no bank conflicts on 8-byte reads)
+constexpr int kF32sThreads = 256;  // two warpgroups
+constexpr int kF32sCols = 128;     // output columns of a block
+constexpr int kF32sK = 64;         // k of one half a stage
+constexpr int kF32sRows = 16;      // word rows a stage (4 k of each half a row)
+constexpr int kF32sStages = 5;     // the ring; copies run kF32sStages - 2 stages ahead
+constexpr int kF32sPitch = 136;    // words of a staged word row: 128 used, rows 8 banks apart
 
-__global__ void __launch_bounds__(kGemmThreads)
-    f32s_gemm_kernel(const __nv_bfloat16* __restrict__ x,  // [M, K]
-                     const uint32_t* __restrict__ qw,      // [K/8, Np] this layer
-                     const float* __restrict__ sc,         // [G, Np] this layer
-                     float* __restrict__ out,              // [M, Np]
-                     int M, int K, int Np, int g) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kStages][kBM][kXRow];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, c = lane & 3;
-  const int wn = warp & 3, wm = warp >> 2;
-  const int m0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN + wn * 32 + 4 * gq;  // this thread's 4 columns
-  const int Kh = K / 2;
-  const int T = K / 32;    // k-tiles: 16 low-half + 16 high-half k each
-  const int tpg = g / 16;  // k-tiles per group
-  const int Gh = Kh / g;
-  const uint32_t* wp = qw + static_cast<size_t>(c) * Np + col0;
-  auto load_w = [&](int t) { return __ldg(reinterpret_cast<const uint4*>(wp + static_cast<size_t>(4 * t) * Np)); };
-
-  float acc[kNT][kMT][4], part[kNT][kMT][4];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][mt][e] = part[nt][mt][e] = 0.f;
-
-  const int U = T / 2;  // steps of two k-tiles (K % 64 == 0)
-  for (int half = 0; half < 2; ++half) {
-    const int kx = half * Kh;  // x columns of this pass
-    const int sh = 4 * half;   // nibble shift of this pass
-    // step u's x into stage s: row r holds x[m0 + r, kx + 32u .. +32), two
-    // 16-byte copies per thread
-    auto issue_x = [&](int u, int s) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = tid + j * kGemmThreads;
-        const int r = i >> 2, q = i & 3;
-        const bool ok = m0 + r < M;
-        cp_async16(&xs[s][r][8 * q], ok ? x + static_cast<size_t>(m0 + r) * K + kx + 32 * u + 8 * q : x, ok);
-      }
-    };
-    // k-tile t (the j-th of its step, in stage s): this thread's A
-    // registers for the pass's half, run against the warp's 8 row tiles of
-    // x into the group partials
-    auto compute = [&](uint4 wv, int s, int j) {
-      const uint32_t w[4] = {wv.x, wv.y, wv.z, wv.w};
-      uint32_t a[kNT][4];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        // A row gq is column col0 + 2nt (word 2nt), A row gq + 8 the next
-        a[nt][0] = nibbles_bf16x2(w[2 * nt], sh);
-        a[nt][1] = nibbles_bf16x2(w[2 * nt + 1], sh);
-        a[nt][2] = nibbles_bf16x2(w[2 * nt], sh + 8);
-        a[nt][3] = nibbles_bf16x2(w[2 * nt + 1], sh + 8);
-      }
-      const __nv_bfloat16(*xt)[kXRow] = xs[s];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        uint32_t b0, b1;
-        x_fragments(*reinterpret_cast<const uint2*>(&xt[wm * 64 + mt * 8 + gq][16 * j + 4 * c]), b0, b1);
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) mma_bf16_16816(part[nt][mt], a[nt][0], a[nt][1], a[nt][2], a[nt][3], b0, b1);
-      }
-    };
-    // close the group of tile t: acc += partial * s in f32
-    auto close_group = [&](int t) {
-      const int grp = half * Gh + t / tpg;
-      const float4 s4 = __ldg(reinterpret_cast<const float4*>(sc + static_cast<size_t>(grp) * Np + col0));
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          // C registers: (column col0 + 2nt; rows 2c, 2c+1), (the next column; rows 2c, 2c+1)
-          acc[nt][mt][0] = fmaf(part[nt][mt][0], sv[2 * nt], acc[nt][mt][0]);
-          acc[nt][mt][1] = fmaf(part[nt][mt][1], sv[2 * nt], acc[nt][mt][1]);
-          acc[nt][mt][2] = fmaf(part[nt][mt][2], sv[2 * nt + 1], acc[nt][mt][2]);
-          acc[nt][mt][3] = fmaf(part[nt][mt][3], sv[2 * nt + 1], acc[nt][mt][3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[nt][mt][e] = 0.f;
-        }
-    };
-
-    __syncthreads();  // the previous pass's last x is read
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < U) issue_x(s, s);
-      cp_async_commit();
-    }
-    uint4 wbuf[kWPre][2];
-#pragma unroll
-    for (int i = 0; i < kWPre; ++i)
-      if (i < U) {
-        wbuf[i][0] = load_w(2 * i);
-        wbuf[i][1] = load_w(2 * i + 1);
-      }
-    for (int ub = 0; ub < U; ub += kWPre) {
-#pragma unroll
-      for (int i = 0; i < kWPre; ++i) {
-        const int u = ub + i;
-        if (u < U) {  // uniform across the block
-          const uint4 w0 = wbuf[i][0], w1 = wbuf[i][1];
-          if (u + kWPre < U) {
-            wbuf[i][0] = load_w(2 * (u + kWPre));
-            wbuf[i][1] = load_w(2 * (u + kWPre) + 1);
-          }
-          cp_async_wait<kStages - 2>();  // this thread's copies of step u landed
-          __syncthreads();           // everyone's did; stage (u-1) % kStages is free
-          if (u + kStages - 1 < U) issue_x(u + kStages - 1, (u + kStages - 1) % kStages);
-          cp_async_commit();
-          const int s = u % kStages;
-          compute(w0, s, 0);
-          if ((2 * u + 1) % tpg == 0) close_group(2 * u);
-          compute(w1, s, 1);
-          if ((2 * u + 2) % tpg == 0) close_group(2 * u + 1);
-        }
-      }
-    }
-    cp_async_wait<0>();
-  }
-
-  // C registers: (column col0 + 2nt; rows 2c, 2c+1), (the next column;
-  // rows 2c, 2c+1) of each row tile: one f32 pair per row
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const int m = m0 + wm * 64 + mt * 8 + 2 * c;
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = col0 + 2 * nt;
-      if (m < M)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * Np + col) =
-            make_float2(acc[nt][mt][0], acc[nt][mt][2]);
-      if (m + 1 < M)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(m + 1) * Np + col) =
-            make_float2(acc[nt][mt][1], acc[nt][mt][3]);
-    }
-  }
+template <int MC>
+constexpr int f32s_smem_bytes() {
+  return kF32sStages * (MC * 64 * 128 + kF32sRows * kF32sPitch * 4) + 1024;
 }
 
-bool geometry_ok(int K, int g) { return K % 64 == 0 && g >= 16 && g % 16 == 0 && (K / 2) % g == 0; }
+template <int MC>
+__global__ void __launch_bounds__(kF32sThreads, 1)
+    f32s_wgmma_kernel(const __nv_bfloat16* __restrict__ x,  // [M, K]
+                      const uint32_t* __restrict__ qw,      // [K/8, Np] this layer
+                      const float* __restrict__ sc,         // [G, Np] this layer
+                      float* __restrict__ out,              // [M, Np]
+                      int M, int K, int Np, int g) {
+  constexpr int kXBytes = MC * 64 * 128;
+  constexpr int kWWords = kF32sRows * kF32sPitch;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = atom_aligned(smem_raw);
+  const uint32_t xs0 = smem_u32(smem);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem + kF32sStages * kXBytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, c = lane & 3;
+  const int m0 = blockIdx.x * 64 * MC, n0 = blockIdx.y * kF32sCols;
+  const int cl0 = 64 * (warp >> 2) + 16 * (warp & 3) + gq;  // this thread's columns cl0, cl0 + 8
+  const int Kh = K / 2, Th = Kh / kF32sK, U = 2 * Th, Gh = Kh / g;
+  // bytes 2(c&1), 2(c&1)+1 of a word into bytes 0 and 2
+  const uint32_t sel = (c & 1) ? 0x4342u : 0x4140u;
+
+  // The copy plan, fixed for the block: x chunk `it` of a stage is row
+  // (tid >> 3) + 32 it, 16-byte chunk tid & 7; word chunk `it` is word row
+  // (tid >> 5) + 8 it, columns n0 + 4 (tid & 31) ..+3.
+  const int xr = tid >> 3, xq = tid & 7;
+  const __nv_bfloat16* xsrc = x + static_cast<size_t>(m0 + xr) * K + 8 * xq;
+  const uint32_t xdst = sw128_offset(xr, xq);  // + 4096 per 32 rows: the same swizzle
+  unsigned xok = 0;
+#pragma unroll
+  for (int it = 0; it < 2 * MC; ++it) xok |= (m0 + xr + 32 * it < M ? 1u : 0u) << it;
+  const uint32_t* wsrc = qw + static_cast<size_t>(tid >> 5) * Np + n0 + 4 * (tid & 31);
+  const int wdst = (tid >> 5) * kF32sPitch + 4 * (tid & 31);
+
+  // stage (h, t) of the walk (half h, its 64-k tile t) into ring slot st
+  auto issue = [&](int h, int t, int st) {
+    const uint32_t xt = xs0 + st * kXBytes + xdst;
+    const __nv_bfloat16* xs = xsrc + h * Kh + kF32sK * t;
+#pragma unroll
+    for (int it = 0; it < 2 * MC; ++it) {
+      const bool ok = (xok >> it) & 1u;
+      cp_async16_s(xt + it * 4096, ok ? xs + static_cast<size_t>(32 * it) * K : x, ok);
+    }
+    uint32_t* wt = ws + st * kWWords + wdst;
+    const uint32_t* wg = wsrc + static_cast<size_t>(kF32sRows * t) * Np;
+#pragma unroll
+    for (int it = 0; it < kF32sRows * 32 / kF32sThreads; ++it)
+      cp_async16(wt + 8 * it * kF32sPitch, wg + static_cast<size_t>(8 * it) * Np, true);
+  };
+
+  float acc[MC][32], part[MC][32];
+#pragma unroll
+  for (int mc = 0; mc < MC; ++mc)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mc][i] = part[mc][i] = 0.f;
+  int fresh = 1;  // the next product starts a group's partial
+
+  // acc += partial * s with the f32 scales s0, s1 of its two columns
+  auto promote = [&](float s0, float s1) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mc = 0; mc < MC; ++mc) {
+      fence_regs(part[mc]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[mc][4 * i + 0] = fmaf(part[mc][4 * i + 0], s0, acc[mc][4 * i + 0]);
+        acc[mc][4 * i + 1] = fmaf(part[mc][4 * i + 1], s0, acc[mc][4 * i + 1]);
+        acc[mc][4 * i + 2] = fmaf(part[mc][4 * i + 2], s1, acc[mc][4 * i + 2]);
+        acc[mc][4 * i + 3] = fmaf(part[mc][4 * i + 3], s1, acc[mc][4 * i + 3]);
+      }
+    }
+    fresh = 1;
+  };
+  auto scale = [&](int grp, int col) { return __ldg(sc + static_cast<size_t>(grp) * Np + n0 + col); };
+  // g % 16 == 0: groups close at step ends, every g / 16 steps, in order
+  // over both halves (K/2 % g == 0); the next group's scales are loaded a
+  // group ahead
+  const int steps_per_group = g / 16;
+  int left = steps_per_group, grp = 0;
+  float ns0 = 0.f, ns1 = 0.f;
+  if (g % 16 == 0) {
+    ns0 = scale(0, cl0);
+    ns1 = scale(0, cl0 + 8);
+  }
+
+  // A registers of the four 16-k steps of a stage (words wt, half h):
+  // exact bf16 nibbles of columns cl0 (a0, a2) and cl0 + 8 (a1, a3)
+  auto build = [&](const uint32_t* wt, int h, uint32_t (&ar)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r0 = (4 * j + (c >> 1)) * kF32sPitch + cl0, r1 = r0 + 2 * kF32sPitch;
+      ar[j][0] = nibbles_bf16x2(__byte_perm(wt[r0], 0u, sel), 4 * h);
+      ar[j][1] = nibbles_bf16x2(__byte_perm(wt[r0 + 8], 0u, sel), 4 * h);
+      ar[j][2] = nibbles_bf16x2(__byte_perm(wt[r1], 0u, sel), 4 * h);
+      ar[j][3] = nibbles_bf16x2(__byte_perm(wt[r1 + 8], 0u, sel), 4 * h);
+    }
+  };
+
+  // the walk's position (half h, tile t, ring slot st) and the refill's,
+  // kF32sStages - 2 stages ahead
+  int h = 0, t = 0, st = 0, ih = 0, itl = 0, ist = 0;
+  auto advance = [&](int& hh, int& tt, int& ss) {
+    if (++tt == Th) {
+      tt = 0;
+      ++hh;
+    }
+    if (++ss == kF32sStages) ss = 0;
+  };
+  // stage u: wait for its copies, refill the ring, build its A registers
+  // (ar: one of two sets, while the previous stage's products still read
+  // the other, prev), then its products
+  auto stage = [&](int u, uint32_t (&ar)[4][4], uint32_t (&prev)[4][4]) {
+    cp_async_wait<kF32sStages - 3>();  // this thread's copies of stage u landed
+    fence_proxy_async();
+    // everyone's did, and every warpgroup has waited for stage u - 2's
+    // products (wait<1> after stage u - 1's): its slot and A set are free
+    __syncthreads();
+    if (u + kF32sStages - 2 < U) {
+      issue(ih, itl, ist);
+      advance(ih, itl, ist);
+    }
+    cp_async_commit();
+    build(ws + st * kWWords, h, ar);
+    const uint32_t xt = xs0 + st * kXBytes;
+    const uint64_t desc = sw128_desc(xt);  // + 2 per 16-k step: 32 bytes
+    if (g % 16 == 0) {  // uniform across the block
+      // every A register is written before the fence, none between the products
+      keep_regs(ar);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_rs<MC>(part, ar[j], desc + 2 * j, fresh ? 0 : 1);
+        fresh = 0;
+        if (--left == 0) {  // the group closes with this step
+          wgmma_commit();
+          const float s0 = ns0, s1 = ns1;
+          if (++grp < 2 * Gh) {
+            ns0 = scale(grp, cl0);
+            ns1 = scale(grp, cl0 + 8);
+          }
+          promote(s0, s1);
+          left = steps_per_group;
+          wgmma_fence();
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      // the previous stage's products are done: only now may its A set be
+      // written (kept live until here, so no build reuses its registers)
+      keep_regs(prev);
+    } else {
+      // a group closes inside a step: one product per group the step
+      // touches, the other groups' pairs zeroed
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kh = kF32sK * t + 16 * j;
+        const int g_first = kh / g, g_last = (kh + 15) / g;
+        const int gp0 = (kh + 2 * c) / g, gp1 = (kh + 2 * c + 8) / g;
+        for (int gi = g_first; gi <= g_last; ++gi) {
+          const uint32_t m0v = gp0 == gi ? 0xFFFFFFFFu : 0u, m1v = gp1 == gi ? 0xFFFFFFFFu : 0u;
+          const uint32_t am[4] = {ar[j][0] & m0v, ar[j][1] & m0v, ar[j][2] & m1v, ar[j][3] & m1v};
+          wgmma_fence();
+          wgmma_rs<MC>(part, am, desc + 2 * j, fresh ? 0 : 1);
+          fresh = 0;
+          wgmma_commit();
+          if ((gi + 1) * g <= kh + 16)
+            promote(scale(h * Gh + gi, cl0), scale(h * Gh + gi, cl0 + 8));
+          else
+            wgmma_wait<0>();
+        }
+      }
+    }
+    advance(h, t, st);
+  };
+
+#pragma unroll
+  for (int i = 0; i < kF32sStages - 2; ++i) {
+    if (i < U) {
+      issue(ih, itl, ist);
+      advance(ih, itl, ist);
+    }
+    cp_async_commit();
+  }
+  uint32_t ar0[4][4] = {}, ar1[4][4] = {};
+  for (int u = 0; u < U; u += 2) {
+    stage(u, ar0, ar1);
+    if (u + 1 < U) stage(u + 1, ar1, ar0);
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+
+  // D element 4i + e: column cl0 + 8 (e >> 1), x row 8i + 2c + (e & 1) of the chunk
+#pragma unroll
+  for (int mc = 0; mc < MC; ++mc)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 64 * mc + 8 * i + 2 * c + (e & 1);
+        if (m < M) out[static_cast<size_t>(m) * Np + n0 + cl0 + 8 * (e >> 1)] = acc[mc][4 * i + e];
+      }
+}
+
+template <int MC>
+int launch_f32s_wgmma(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, const uint32_t* qw, const float* sc,
+                      float* out, int M, int K, int Np, int g) {
+  constexpr int bytes = f32s_smem_bytes<MC>();
+  static int allowed[kMaxDevices];
+  if (const int e = allow_dynamic_smem(f32s_wgmma_kernel<MC>, bytes, allowed)) return e;
+  f32s_wgmma_kernel<MC><<<grid, kF32sThreads, bytes, st>>>(x, qw, sc, out, M, K, Np, g);
+  return 0;
+}
 
 }  // namespace
 
 // nt: 16-column MMA tiles per block (2 or 4); warps: the block's split of K
 QLLM_API int qllm_w4_planar_f32s_gemv(const void* x, const void* qweight, const void* scales, void* out,
                                       int layer, int M, int K, int Np, int g, int nt, int warps, void* stream) {
-  if (M < 1 || M > 32 || !geometry_ok(K, g) || (nt != 2 && nt != 4) || Np % (16 * nt) != 0 || warps < 1 ||
+  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || (nt != 2 && nt != 4) || Np % (16 * nt) != 0 || warps < 1 ||
       warps > kGemvMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t lw = static_cast<size_t>(K / 8) * Np;
@@ -241,13 +324,18 @@ QLLM_API int qllm_w4_planar_f32s_gemv(const void* x, const void* qweight, const 
 
 QLLM_API int qllm_w4_planar_f32s_gemm(const void* x, const void* qweight, const void* scales, void* out,
                                       int layer, int M, int K, int Np, int g, void* stream) {
-  if (M < 1 || !geometry_ok(K, g) || Np % kBN != 0 || Np / kBN > 65535)
+  if (M < 1 || !planar_geometry_ok(K, g) || Np % kF32sCols != 0 || Np / kF32sCols > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t lw = static_cast<size_t>(K / 8) * Np;
   const size_t ls = static_cast<size_t>(K / g) * Np;
-  const dim3 grid((M + kBM - 1) / kBM, Np / kBN);
-  f32s_gemm_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qweight) + layer * lw,
-      static_cast<const float*>(scales) + layer * ls, static_cast<float*>(out), M, K, Np, g);
-  return qllm_launch_status();
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * lw;
+  const auto* sc = static_cast<const float*>(scales) + layer * ls;
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int MC = M <= 64 ? 1 : 2;
+  const dim3 grid((M + 64 * MC - 1) / (64 * MC), Np / kF32sCols);
+  const int e = MC == 1 ? launch_f32s_wgmma<1>(grid, st, xb, qw, sc, o, M, K, Np, g)
+                        : launch_f32s_wgmma<2>(grid, st, xb, qw, sc, o, M, K, Np, g);
+  return e != 0 ? e : qllm_launch_status();
 }

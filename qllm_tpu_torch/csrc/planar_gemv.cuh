@@ -53,6 +53,15 @@
 namespace {
 
 constexpr int kGemvMaxWarps = 16;
+
+// What the planar kernels take (K1, K2, K8, K11, K17-K20): K a multiple
+// of 128 (whole 64-k tiles of each half), groups of a multiple of 4 k (a
+// word's quadruple of each half lies in one group) split at K/2. Groups
+// of g % 16 != 0 close inside a 16-k tile: the tile runs once per group
+// it touches, the other groups' k zeroed.
+inline bool planar_geometry_ok(int K, int g) {
+  return K % 128 == 0 && g >= 4 && g % 4 == 0 && (K / 2) % g == 0;
+}
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float4 bf16x4_to_float4(uint2 v) {
@@ -142,7 +151,7 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
   }
   const int Kh = K / 2;
   const int T = K / 32;    // k-tiles of 4 word rows: 16 low-half + 16 high-half k
-  const int tpg = g / 16;  // k-tiles per group
+  const int tpg = g / 16;  // k-tiles per group (g % 16 == 0)
   const int Gh = Kh / g;
   const int t0 = warp * T / nwarps, t1 = (warp + 1) * T / nwarps;
   const bool xrow = m0 + gq < M;  // the x row this thread feeds into B
@@ -206,9 +215,9 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
     }
   };
 
-  // close the group of tile t (or the part of it this warp covers):
-  // y += dot * s (- xsum * zs) for the low-half group and the high-half one
-  auto flush = [&](int t) {
+  // close group grp (or the part of it this warp covers): y += dot * s
+  // (- xsum * zs) for the low-half group and the high-half one
+  auto flush = [&](int grp) {
     float xl0 = 0.f, xl1 = 0.f, xh0 = 0.f, xh1 = 0.f;
     if constexpr (ZS) {
       xs_lo += __shfl_xor_sync(kFull, xs_lo, 1);
@@ -221,7 +230,6 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
       xh0 = __shfl_sync(kFull, xs_hi, 8 * c);
       xh1 = __shfl_sync(kFull, xs_hi, 8 * c + 4);
     }
-    const int grp = t / tpg;
     const size_t col = static_cast<size_t>(n0 + kW * gq);
     const size_t lo = static_cast<size_t>(grp) * Np + col, hi = static_cast<size_t>(Gh + grp) * Np + col;
 #pragma unroll
@@ -267,8 +275,20 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
         for (int j = 0; j < kW; ++j) w[j] = wbuf[i][j];
         const uint2 xl = xbuf[i][0], xh = xbuf[i][1];
         if (t + P < t1) load(i, t + P);
-        compute(w, xl, xh, t);
-        if ((t + 1) % tpg == 0 || t + 1 == t1) flush(t);
+        if (g % 16 == 0) {  // one group a tile: uniform across the block
+          compute(w, xl, xh, t);
+          if ((t + 1) % tpg == 0 || t + 1 == t1) flush(t / tpg);
+        } else {
+          // the tile touches groups g_first .. g_last; it runs once per
+          // group, with the x of the other groups' k quadruples zeroed
+          const int g_first = 16 * t / g, g_last = (16 * t + 15) / g, mine = (16 * t + 4 * c) / g;
+          for (int gi = g_first; gi <= g_last; ++gi) {
+            const bool on = mine == gi;
+            const uint2 none = make_uint2(0u, 0u);
+            compute(w, on ? xl : none, on ? xh : none, t);
+            if ((gi + 1) * g <= 16 * t + 16 || t + 1 == t1) flush(gi);
+          }
+        }
       }
     }
   }

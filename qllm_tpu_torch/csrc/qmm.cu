@@ -50,7 +50,7 @@ QLLM_API int qllm_w4_planar_gemv(const void* x, const void* qweight, const void*
                                  const void* zs, const void* norm_w, void* out, int layer, int M,
                                  int K, int Np, int g, int nt, int warps, int nw_f32, float eps,
                                  void* stream) {
-  if (M < 1 || M > 32 || g < 16 || g % 16 != 0 || (K / 2) % g != 0 || (nt != 2 && nt != 4) ||
+  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || (nt != 2 && nt != 4) ||
       Np % (16 * nt) != 0 || warps < 1 || warps > kGemvMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = K / g;
@@ -101,7 +101,7 @@ QLLM_API int qllm_w4_planar_gemv(const void* x, const void* qweight, const void*
 QLLM_API int qllm_w4_grouped_gemv(const void* x, const void* qweight, const void* scales,
                                   const void* zs, const void* ids, void* out, int n, int n_experts,
                                   int x_shared, int K, int Np, int g, int nt, int warps, void* stream) {
-  if (n < 1 || n > 65535 || n_experts < 1 || g < 16 || g % 16 != 0 || (K / 2) % g != 0 ||
+  if (n < 1 || n > 65535 || n_experts < 1 || !planar_geometry_ok(K, g) ||
       (nt != 2 && nt != 4) || Np % (16 * nt) != 0 || warps < 1 || warps > kGemvMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(Np / (16 * nt), n);
@@ -187,7 +187,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   const int col0 = blockIdx.x * kBN + wn * 32 + 4 * gq;  // this thread's 4 columns
   const int Kh = K / 2;
   const int T = K / 32;    // k-tiles: 16 low-half + 16 high-half k each
-  const int tpg = g / 16;  // k-tiles per group
   const int Gh = Kh / g;
 
   // x tile t into stage s: row r holds x[m0 + r, 16t .. +16) then
@@ -217,7 +216,7 @@ __global__ void __launch_bounds__(kGemmThreads)
   // K, then run them against the warp's 8 row tiles of x
   auto compute = [&](uint4 wv, int t) {
     const uint32_t w[4] = {wv.x, wv.y, wv.z, wv.w};
-    const int grp = t / tpg;
+    const int grp = (16 * t + 4 * c) / g;  // the group of this thread's k quadruple
     const uint2 s_lo = __ldg(reinterpret_cast<const uint2*>(sc + static_cast<size_t>(grp) * Np + col0));
     const uint2 z_lo = __ldg(reinterpret_cast<const uint2*>(zs + static_cast<size_t>(grp) * Np + col0));
     const uint2 s_hi = __ldg(reinterpret_cast<const uint2*>(sc + static_cast<size_t>(Gh + grp) * Np + col0));
@@ -305,7 +304,7 @@ __global__ void __launch_bounds__(kGemmThreads)
 QLLM_API int qllm_w4_planar_gemm(const void* x, const void* qweight, const void* scales,
                                  const void* zs, void* out, int layer, int M, int K, int Np,
                                  int g, void* stream) {
-  if (M < 1 || K % 64 != 0 || g < 16 || g % 16 != 0 || (K / 2) % g != 0 || Np % kBN != 0)
+  if (M < 1 || !planar_geometry_ok(K, g) || Np % kBN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = K / g;
   const size_t lw = static_cast<size_t>(K / 8) * Np;

@@ -181,10 +181,10 @@ int launch_quantize(const void* x, int x_f32, void* x8, void* sx, void* xsum, in
 // The x8 sums that the zero-point term needs are taken from the same B
 // registers (dp4a against ones), so a warp that covers part of a group
 // subtracts exactly its part. The warps split K's tiles and meet in
-// shared memory, summed in warp order (no atomics). Groups of g % 32 ==
-// 16 (HALF) can close in the middle of a k-tile: the tile then runs as
-// two MMAs, each with the B registers of the other 16 k zeroed, and a
-// group closes after either.
+// shared memory, summed in warp order (no atomics). Groups of g % 32 != 0
+// (GENERIC, any g % 4 == 0) can close inside a k-tile: the tile then runs
+// once per group it touches, each MMA with the B registers of the other
+// groups' k quadruples zeroed, and a group closes after its own.
 // ---------------------------------------------------------------------------
 
 constexpr int kA8MaxWarps = 8;
@@ -208,7 +208,7 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-template <int MT, int P, bool HALF>
+template <int MT, int P, bool GENERIC>
 __global__ void __launch_bounds__(kA8MaxWarps * 32)
     w4a8_planar_gemv_kernel(const int8_t* __restrict__ x8,         // [M, K]
                             const float* __restrict__ sx,          // [M]
@@ -225,7 +225,7 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
   const int n0 = blockIdx.x * kA8Cols;
   const int Kh = K / 2;
   const int T = K / 64;    // k-tiles of 8 word rows: 32 low-half + 32 high-half k
-  const int upg = g / 16;  // 16-k units per group (two a k-tile)
+  const int upg = g / 16;  // 16-k units per group (g % 32 == 0: two a k-tile)
   const int Gh = Kh / g;
   const int t0 = warp * T / nwarps, t1 = (warp + 1) * T / nwarps;
   const uint32_t* wp = qw + static_cast<size_t>(c) * Np + n0 + kA8W * gq;
@@ -269,16 +269,17 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
       }
   }
 
-  // part 0: the whole k-tile; 1: its first 16 k, 2: its last 16 k (the
-  // other B registers zeroed, so they add nothing to the dot or the sums)
-  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT], int part) {
+  // on: bit 0 keeps this thread's k quadruple of the tile's first 16 k,
+  // bit 1 that of its last 16 (a zeroed B register adds nothing to the
+  // dot or the sums)
+  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT], int on) {
     uint32_t bl0[MT], bl1[MT], bh0[MT], bh1[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      bl0[mt] = part == 2 ? 0u : xv[mt].x;
-      bl1[mt] = part == 1 ? 0u : xv[mt].y;
-      bh0[mt] = part == 2 ? 0u : xv[mt].z;
-      bh1[mt] = part == 1 ? 0u : xv[mt].w;
+      bl0[mt] = (on & 1) ? xv[mt].x : 0u;
+      bl1[mt] = (on & 2) ? xv[mt].y : 0u;
+      bh0[mt] = (on & 1) ? xv[mt].z : 0u;
+      bh1[mt] = (on & 2) ? xv[mt].w : 0u;
       xs_lo[mt] = __dp4a(static_cast<int>(bl1[mt]), kOnes, __dp4a(static_cast<int>(bl0[mt]), kOnes, xs_lo[mt]));
       xs_hi[mt] = __dp4a(static_cast<int>(bh1[mt]), kOnes, __dp4a(static_cast<int>(bh0[mt]), kOnes, xs_hi[mt]));
     }
@@ -349,14 +350,17 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) xv[mt] = xbuf[i][mt];
         if (t + P < t1) load(i, t + P);
-        const int u = 2 * t;  // the tile's first 16-k unit
-        if constexpr (HALF) {
-          compute(w, xv, 1);
-          if ((u + 1) % upg == 0) flush(u / upg);
-          compute(w, xv, 2);
-          if ((u + 2) % upg == 0 || t + 1 == t1) flush((u + 1) / upg);
+        if constexpr (GENERIC) {
+          // the groups of this thread's two k quadruples, and the tile's
+          const int q0 = (32 * t + 4 * c) / g, q1 = (32 * t + 16 + 4 * c) / g;
+          const int g_first = 32 * t / g, g_last = (32 * t + 31) / g;
+          for (int gi = g_first; gi <= g_last; ++gi) {
+            compute(w, xv, (q0 == gi ? 1 : 0) | (q1 == gi ? 2 : 0));
+            if ((gi + 1) * g <= 32 * t + 32 || t + 1 == t1) flush(gi);
+          }
         } else {
-          compute(w, xv, 0);
+          const int u = 2 * t;  // the tile's first 16-k unit
+          compute(w, xv, 3);
           if ((u + 2) % upg == 0 || t + 1 == t1) flush(u / upg);
         }
       }
@@ -574,7 +578,7 @@ QLLM_API int qllm_quantize_rows_int8(const void* x, int x_f32, void* x8, void* s
 QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx, const void* qweight,
                                    const void* scales, const void* zs, const void* norm_w, int nw_f32, float eps,
                                    void* out, int layer, int M, int K, int Np, int g, int warps, void* stream) {
-  if (M < 1 || M > 32 || g < 16 || g % 16 != 0 || K % 64 != 0 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
+  if (M < 1 || M > 32 || g < 4 || g % 4 != 0 || K % 128 != 0 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
       warps < 1 || warps > kA8MaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -54,7 +54,7 @@ _SIGNATURES = {
     "qllm_kv_ring_flush": [_P] * 7 + [_I] * 5 + [_P],
     "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _F, _F, _P, _P],
     "qllm_gptq_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    "qllm_gptq_gemm": [_P, _P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 5 + [_P],
+    "qllm_gptq_gemm": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
     "qllm_quantize_rows_int8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "qllm_w4a8_planar_gemv": [_P, _I] + [_P] * 6 + [_I, _F, _P] + [_I] * 6 + [_P],
     "qllm_gptq_w4a8_gemv": [_P, _I] + [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_P],

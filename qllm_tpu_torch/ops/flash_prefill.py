@@ -4,9 +4,11 @@
   * K5 ``flash_prefill``: query t of sequence b attends to keys
     pos[b] + t - window < s <= pos[b] + t, with an optional logit softcap;
     K/V are int8 in the cache's own layout with per-key f32 scales (the
-    serving path reads the cache directly) or bf16; head width 128 or 256,
-    any n_rep. The CUDA kernel (csrc/flash_prefill.cu) runs both products
-    on the tensor cores with an online softmax over key tiles.
+    serving path reads the cache directly) or bf16; head width 128, 256,
+    384 or 512 (every multiple of 128 the model gates send here), any
+    n_rep. The CUDA kernel (csrc/flash_prefill.cu) runs both products on
+    the tensor cores with an online softmax over key tiles; at 384 and 512
+    each block writes a slice of the head width.
 
 The wrapper launches the kernel on a CUDA tensor, or raises, and runs
 its plain PyTorch version on a CPU tensor.
@@ -24,7 +26,7 @@ from .attention import _check_window, _window_tensor
 __all__ = ["flash_prefill", "flash_prefill_plain", "prefill_attention_flash"]
 
 _MASKED = -1e30  # the TPU kernel's mask value (pallas_attention.py:281)
-_KERNEL_D = (128, 256)
+_KERNEL_D = (128, 256, 384, 512)
 
 
 def flash_prefill_plain(q, k, v, k_scale, v_scale, pos, out_dtype, softcap=0.0, window=None) -> torch.Tensor:

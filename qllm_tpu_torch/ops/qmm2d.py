@@ -38,7 +38,7 @@ import torch
 
 from . import _build
 from ..quant.qtensor import QuantizedTensor, unpack_rows
-from .qmm import _per_group_branch, quantize_rows_int8_plain
+from .qmm import _per_group_branch, _sm_count, quantize_rows_int8_plain
 
 __all__ = [
     "qmatmul_2d",
@@ -49,6 +49,7 @@ __all__ = [
     "gptq_w4a8_gemv",
     "gptq_w4a8_gemv_plain",
     "GEMV_MAX_M",
+    "gemm_segments",
 ]
 
 GEMV_MAX_M = 32
@@ -188,13 +189,41 @@ def gptq_gemm_plain(
     return (y1 - _zero_point_term(x.to(torch.float32), s, z, G, g)).to(torch.bfloat16)
 
 
+# K10: blocks of 128 columns; K splits into segments of 64-k tiles, about
+# one block per SM of the H100's 132 at one row tile, at least 4 tiles a
+# segment
+_GEMM_COLS = 128
+_GEMM_KT = 64
+_GEMM_TARGET_BLOCKS = 132
+_GEMM_MIN_TILES = 4
+
+
+def gemm_segments(K: int, N: int) -> Tuple[int, int]:
+    """K10's split of K: (segments, 64-k tiles per segment), from the
+    weight's shape alone. Every launch adds the segments' sums in segment
+    order, so a row's bits never depend on M or on how the launch spreads
+    the segments over blocks."""
+    tiles = -(-K // _GEMM_KT)
+    blocks_n = -(-N // _GEMM_COLS)
+    want = max(1, min(-(-_GEMM_TARGET_BLOCKS // blocks_n), tiles // _GEMM_MIN_TILES))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def gemm_split_launch(M: int, N: int, segments: int, sms: int) -> bool:
+    """Whether K10 runs one block per segment (partial sums, then a second
+    kernel adds them): where the row and column tiles alone leave SMs idle."""
+    return segments > 1 and -(-N // _GEMM_COLS) * -(-M // 128) < sms
+
+
 def gptq_gemm(
     x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
 ) -> torch.Tensor:
     """K10: x [M, K] bf16 or f32 -> y [M, N] bf16 (see the plain version).
-    Replaces ``_qmm_kernel`` (pallas_qmm.py:119) at M > 32. Bound:
-    operations (2 * M * N * K) over 989 TFLOP/s bf16. The kernel takes
-    K % 64 == 0, groups of a multiple of 32 and N % 4 == 0."""
+    Replaces ``_qmm_kernel`` (pallas_qmm.py:119) at M > 32, every geometry
+    ``_qmm_2d`` takes (2/4/8 bits, g a multiple of pf that divides K).
+    Bound: the words' bytes at the verify shapes, operations (2 * M * N *
+    K over 989 TFLOP/s bf16) at prefill."""
     _check_bits(bits)
     if not _build.use_kernel(x, "gptq_gemm"):
         return gptq_gemm_plain(x, qweight, scales, zeros, bits, group_size)
@@ -203,21 +232,25 @@ def gptq_gemm(
     M, K = x.shape
     g = _group(K, group_size)
     N, s_type = _check_weight("gptq_gemm", x, qweight, scales, zeros, bits, K, g)
-    if K % 64 or g % 32 or N % 4:
-        raise ValueError(f"gptq_gemm: the kernel takes K % 64 == 0, g % 32 == 0 and N % 4 == 0 (K={K}, g={g}, N={N})")
-    if qweight.data_ptr() % 16:
-        raise ValueError("gptq_gemm: qweight must start on a 16-byte boundary")
     x = x.contiguous()
-    # the MMA operand, loaded in 16-byte copies
+    # the MMA operand, zero-padded to whole 64-k tiles, loaded in 16-byte copies
+    Kp = -(-K // _GEMM_KT) * _GEMM_KT
     x_mma = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    if Kp != K:
+        x_mma = torch.nn.functional.pad(x_mma, (0, Kp - K))
     if x_mma.data_ptr() % 16:
         x_mma = x_mma.clone()
-    xsum = torch.empty((M, K // g), dtype=torch.float32, device=x.device)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = _build.load_library()
-    code = lib.qllm_gptq_gemm(
-        x_mma.data_ptr(), x.data_ptr(), int(x.dtype == torch.float32), qweight.data_ptr(), scales.data_ptr(),
-        zeros.data_ptr(), s_type, xsum.data_ptr(), out.data_ptr(), bits, M, K, N, g, _build.stream(x),
+    segments, per = gemm_segments(K, N)
+    dev = x.device
+    split = gemm_split_launch(M, N, segments, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
+    xsum = torch.empty((M, K // g), dtype=torch.float32, device=dev)
+    part = torch.empty((segments, M, N), dtype=torch.float32, device=dev) if split else None
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    vec = int(N % 4 == 0 and qweight.data_ptr() % 16 == 0)
+    code = _build.load_library().qllm_gptq_gemm(
+        x_mma.data_ptr(), Kp, x.data_ptr(), int(x.dtype == torch.float32), qweight.data_ptr(), scales.data_ptr(),
+        zeros.data_ptr(), s_type, xsum.data_ptr(), _build.ptr(part), out.data_ptr(), bits, M, K, N, g, segments, per,
+        int(split), vec, _build.stream(x),
     )
     _build.check("gptq_gemm", code)
     gptq_gemm.launches += 1

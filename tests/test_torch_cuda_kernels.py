@@ -806,3 +806,190 @@ def test_flash_prefill_kernel_options_match_plain(gen, int8, D, n_rep, softcap, 
     if softcap:
         bare = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 0.0, win)
         assert not torch.allclose(out, bare, atol=0.2, rtol=0.2)
+
+
+# ---------------------------------------------------------------------------
+# K10 and K18 on wgmma; the planar kernels at g % 16 != 0; K5 at d = 384 / 512
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("g", [16, 32, 128, -1])
+@pytest.mark.parametrize("M", [33, 40, 64, 256, 1024])
+def test_k10_wgmma_matches_plain(gen, M, bits, g):
+    """K10 at every bit width and group size it serves against its plain
+    version, within the K10 test's limit above (1e-2 * max|plain|, rtol
+    1e-2); g = -1 is one group over K."""
+    K, N = 1024, 384
+    qw, sc, zr = _gptq(gen, K, N, bits, K if g == -1 else g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm2d.gptq_gemm.launches
+    y = qmm2d.gptq_gemm(x, qw, sc, zr, bits, g).float()
+    assert qmm2d.gptq_gemm.launches == before + 1
+    ref = qmm2d.gptq_gemm_plain(x, qw, sc, zr, bits, g).float()
+    torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)
+
+
+@pytest.mark.parametrize(
+    "M,K,N,bits,g",
+    [(40, 1000, 388, 8, 40), (70, 960, 390, 4, 32), (300, 4112, 256, 2, 16)],
+    ids=["K-not-64", "N-not-4", "K-pad-2bit"],
+)
+def test_k10_wgmma_ragged_shapes(gen, M, K, N, bits, g):
+    """K not a multiple of 64 (x padded, word rows masked) and N not a
+    multiple of 4 (4-byte word copies) against the plain version."""
+    qw, sc, zr = _gptq(gen, K, N, bits, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.float32)
+    y = qmm2d.gptq_gemm(x, qw, sc, zr, bits, g).float()
+    ref = qmm2d.gptq_gemm_plain(x, qw, sc, zr, bits, g).float()
+    torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)
+
+
+@pytest.mark.parametrize("N", [4096, 11008])
+def test_k10_rows_do_not_depend_on_m(gen, N):
+    """The verify shape (M = 40, one block per K segment, partial sums added
+    by a second kernel) gives the same bits for its rows as M = 256 (at N =
+    11008 every segment in one block) and M = 1024: the segments are fixed
+    by (K, N) and added in one order."""
+    K = 4096
+    qw, sc, zr = _gptq(gen, K, N, 4, 128)
+    x = torch.randn((1024, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y40 = qmm2d.gptq_gemm(x[:40], qw, sc, zr, 4, 128)
+    y256 = qmm2d.gptq_gemm(x[:256], qw, sc, zr, 4, 128)
+    y1024 = qmm2d.gptq_gemm(x, qw, sc, zr, 4, 128)
+    assert torch.equal(y40, y256[:40])
+    assert torch.equal(y256, y1024[:256])
+
+
+def test_k10_serves_g16_per_layer_weight_past_32_rows(gen):
+    """A per-layer g = 16 weight at M > 32 (an engine prefill dispatch or a
+    verify step) runs K10 through qmatmul_2d."""
+    from qllm_tpu_torch.quant.qtensor import QuantizedTensor
+
+    K, N, g = 512, 256, 16
+    qw, sc, zr = _gptq(gen, K, N, 4, g)
+    qt = QuantizedTensor(qweight=qw, scales=sc, zeros=zr, perm=None, bits=4, group_size=g, in_features=K,
+                         out_features=N)
+    x = torch.randn((48, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm2d.gptq_gemm.launches
+    y = qmm2d.qmatmul_2d(x, qt).float()
+    assert qmm2d.gptq_gemm.launches == before + 1
+    ref = qmm2d.gptq_gemm_plain(x, qw, sc, zr, 4, g).float()
+    torch.testing.assert_close(y, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2)
+
+
+@pytest.mark.parametrize("g", [8, 24, 32, 128])
+@pytest.mark.parametrize("M", [33, 64, 1024])
+def test_k18_wgmma_matches_plain(gen, M, g):
+    """K18 on wgmma at the group sizes JAX's planar gate admits, with the
+    existing limits (_f32s_close: 1e-2, and 1e-4 with the bf16-weight
+    control missing)."""
+    K, Np = 1536, 512
+    qw, sc = _f32s_stack(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm_planar.w4_planar_f32s_gemm.launches
+    y = qmm_planar.w4_planar_f32s_gemm(x, qw, sc, 1)
+    assert qmm_planar.w4_planar_f32s_gemm.launches == before + 1
+    _f32s_close(y, x, qw, sc)
+
+
+def _stack_g(gen, K, Np, g, L=2):
+    qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((L, K // g, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+    return qw, sc, (sc.float() * 8).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("g", [8, 24])
+def test_planar_kernels_at_g8_and_g24(gen, g):
+    """K1 (with and without the norm), K2, K17 and K8 on stacks whose groups
+    close inside a 16-k tile, against their plain versions (the limits of
+    the tests above)."""
+    K, Np = 768, 512
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    for M, norm in ((5, False), (8, True)):
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+        y = qmm.w4_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5).float()
+        ref = qmm.w4_planar_gemv_plain(x, qw, sc, zs, 1, nw, 1e-5).float()
+        torch.testing.assert_close(y, ref, atol=2e-2 * float(ref.abs().max()), rtol=2e-2)
+    for M in (40, 200):
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        y, ref = qmm.w4_planar_gemm(x, qw, sc, zs, 1).float(), qmm.w4_planar_gemm_plain(x, qw, sc, zs, 1).float()
+        torch.testing.assert_close(y, ref, atol=2e-2 * float(ref.abs().max()), rtol=2e-2)
+    fq, fs = _f32s_stack(gen, K, Np, g)
+    x = torch.randn((8, K), device="cuda", generator=gen).to(torch.bfloat16)
+    _f32s_close(qmm_planar.w4_planar_f32s_gemv(x, fq, fs, 1), x, fq, fs)
+    eq, es, ez = _stack_g(gen, K, Np, g, L=4)
+    ids = torch.tensor([3, 0, 3], dtype=torch.int32, device="cuda")
+    x = torch.randn((3, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4_grouped_gemv(x, eq, es, ez, ids, False).float()
+    ref = qmm.w4_grouped_gemv_plain(x, eq, es, ez, ids, False).float()
+    assert (y - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+
+
+@pytest.mark.parametrize("g,norm", [(8, False), (8, True), (24, True)])
+def test_k11_at_g8(gen, g, norm):
+    """K11 on a g = 8 (and 24) planar stack in the full-K geometry, within
+    one bf16 ulp plus 1e-3 * max|y| of its plain version."""
+    K, Np, M = 768, 384, 8
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+    args = (x, qw, sc, zs, 1, nw, 1e-5)
+    _a8_close(qmm.w4a8_planar_gemv(*args), qmm.w4a8_planar_gemv_plain(*args))
+
+
+def test_k19_k20_at_g8(gen):
+    """K19 and K20 on g = 8 stacks, with the limits of their tests above."""
+    E, K1, K2, Np2, n = 4, 512, 256, 512, 3
+    gq, gs, gz = _stack_g(gen, K1, 2 * K2, 8, L=E)
+    dq, ds, dz = _stack_g(gen, K2, Np2, 8, L=E)
+    ids = torch.tensor([2, 0, 3], dtype=torch.int32, device="cuda")
+    x = torch.randn((n, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    args = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", False)
+    y = qmm.w4_grouped_fused_mlp(*args)
+    ref = qmm.w4_grouped_fused_mlp_plain(*args).float()
+    torch.testing.assert_close(y.float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    L, M, D = 2, 8, 512
+    q1, s1, z1 = _stack_g(gen, K1, D, 8, L=L)
+    q2, s2, z2 = _stack_g(gen, D, Np2, 8, L=L)
+    nw = (torch.rand((L, D), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    x1 = torch.randn((M, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    h = torch.randn((M, D), device="cuda", generator=gen) * 4.0
+    args = (x1, h, q1, s1, z1, q2, s2, z2, nw, 1, 1e-6)
+    hn, y2 = qmm.w4_pnp_gemv(*args)
+    hn_ref, y2_ref = qmm.w4_pnp_gemv_plain(*args)
+    torch.testing.assert_close(hn, hn_ref, atol=1e-5 * float(hn_ref.abs().max()), rtol=0)
+    torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("D,n_rep,softcap,window", [(384, 2, 0.0, 0), (512, 1, 50.0, 0), (512, 2, 0.0, 90)])
+def test_flash_prefill_kernel_at_d384_and_d512(gen, int8, D, n_rep, softcap, window):
+    """K5 at head widths 384 and 512 (each block writes a slice of the
+    width) against its plain version (atol/rtol 2e-2, as above); the
+    softcap case draws scores of RMS 0.5-1.5 x the cap, and the plain
+    version without the softcap misses ten times the limit."""
+    B, T, S, Hkv = 2, 150, 400, 2
+    q = torch.randn((B, T, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    pos = torch.tensor([0, 250], dtype=torch.int32, device="cuda")
+    spread = torch.rand((B, Hkv, S), device="cuda", generator=gen) + 0.5
+    if int8:
+        k = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        ks = spread * (softcap * 3**0.5 / 127) if softcap else spread * 0.01
+        vs = torch.rand((B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    else:
+        k = torch.randn((B, Hkv, S, D), device="cuda", generator=gen) * (spread * (softcap or 1.0))[..., None]
+        k, v = k.to(torch.bfloat16), torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(torch.bfloat16)
+        ks = vs = None
+    win = torch.tensor([window], dtype=torch.int32, device="cuda") if window else None
+    before = fp.flash_prefill.launches
+    out = fp.flash_prefill(q, k, v, ks, vs, pos, torch.float32, softcap, win)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, softcap, win)
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    if softcap:
+        bare = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 0.0, win)
+        assert not torch.allclose(out, bare, atol=0.2, rtol=0.2)

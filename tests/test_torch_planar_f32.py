@@ -204,10 +204,9 @@ CHIP_BRANCH = {
     (True, 512, 16): ("fused", "fused", "a8", "fused"),
     (True, 256, 8): ("fused", "fused", "a8", "fused"),
 }
-# g = 8: JAX's planar kernels take it (planar_bk(256, 8) = 256); the
-# port's planar kernels take groups of 16-value k-tiles, so it stays in the
-# fallback (ROADMAP queue 3)
-PORT_FALLBACK = {(256, 8)}
+# g = 8: JAX's planar kernels take it (planar_bk(256, 8) = 256), and so
+# do the port's (a group closing inside a 16-k tile runs the tile once per
+# group)
 
 
 def _jax_chip_branches(monkeypatch, js, Ms, w4a8):
@@ -294,8 +293,7 @@ def _port_branch(monkeypatch, ts, M, w4a8):
 def test_route_names_jax_chip_branch(jax_env, sd, prefolded, K, g):
     """stacked_route, the wrapper the port calls and the kernel JAX's chip
     gate traces agree with the chip's lines at M in (1, 32, 33, 256), with
-    and without W4A8; g = 8 is the one planar geometry the port leaves in
-    the fallback."""
+    and without W4A8; g = 8 included."""
     js, ts = _stacks(K, g, sd, prefolded, seed=K + g)
     fused = prefolded and sd == "bf16"
     want = CHIP_BRANCH[(fused, K, g)]
@@ -308,8 +306,6 @@ def test_route_names_jax_chip_branch(jax_env, sd, prefolded, K, g):
         port = route_tag[qmm.stacked_route(ts, M, w4a8=w4a8)]
         if port == "fused" and w4a8 and M <= 32 and qmm.a8_full_k_ok(K, g, ts.qweight.shape[-1]):
             port = "a8"
-        if (K, g) in PORT_FALLBACK:
-            expected = "fallback"
         assert port == expected, (M, w4a8)
         if M in (1, 33):  # the wrapper each branch calls (the CPU's plain versions)
             assert _port_branch(jax_env, ts, M, w4a8) == expected, (M, w4a8)
@@ -325,10 +321,9 @@ def test_g16_planar_stacks_take_k1_k2(jax_env, M):
     """A bf16 prefolded g = 16 planar stack takes K1 (M <= 32) / K2 (M > 32)
     as JAX takes its fused planar kernels, no longer the fallback; their
     plain versions match the interpreted kernels within
-    tests/test_torch_qmm.py's 2e-2 * max|y|. The g = 8 stack JAX also
-    serves with them stays in the port's fallback, within 2e-2 of JAX's
-    kernels too (its K9 / K10 rounding)."""
-    for K, g, branch in ((512, 16, "planar"), (256, 8, "fallback")):
+    tests/test_torch_qmm.py's 2e-2 * max|y|. So does the g = 8 stack,
+    whose groups close inside a 16-k tile."""
+    for K, g, branch in ((512, 16, "planar"), (256, 8, "planar")):
         js, ts = _stacks(K, g, "bf16", True, seed=K + g)
         rng = np.random.default_rng(M + g)
         assert qmm.stacked_route(ts, M) == branch
