@@ -20,8 +20,10 @@ Phases, each of which fails the run on any error or disagreement:
      Gemma-2-9B's head width 256 with its softcap and a window, and at
      head widths 384 and 512 (a synthetic head layout); K10 also at the
      engine's verify shape (M = 40) and K10 / K18 with a call's device time
-     (torch.profiler) beside the event pair; K1, K2, K17 and K18 on g = 8
-     stacks, whose groups close inside a 16-k tile;
+     (torch.profiler) beside the event pair, as K2 and K5 have too; K1,
+     K2, K17 and K18 on g = 8 stacks, whose groups close inside a 16-k
+     tile, and on g = 6 stacks at Phi-3-mini's gate|up, whose groups end
+     inside a planar word's k quadruple;
   3. main: a Llama-2-7B-shape W4 g128 model (32 layers, random weights
      drawn on the card, quantized lm_head) is stacked for serving,
      prefills 8 prompts of 128 tokens into an int8 KV cache (max_seq
@@ -30,7 +32,8 @@ Phases, each of which fails the run on any error or disagreement:
   4. main1: the same model at batch 1: a 512-token prompt flash-prefilled
      into a ring-fused cache (max_seq 640), 64 ring-fused greedy steps,
      then a 2048-token prompt flash-prefilled into a 2048-row int8
-     cache, counts again set to 0 before and read after;
+     cache, counts again set to 0 before and read after; then one more
+     warm 2048-token prefill under torch.profiler (device ms by kernel);
  4b. pnp (after main1, on its model): qmatmul_pnp_stacked, the JAX
      package's ops-level entry point for o_proj -> residual + RMSNorm ->
      gate|up (K20), at batch 8 for each of the 32 layers, against K1, the
@@ -306,6 +309,10 @@ WIDE_FLASH = dict(H=16, Hkv=8, T=2048, CASES=((384, 0.0), (512, 0.0), (512, 50.0
 # plain version's [M, G, N] f32 group dots (G = 512) still fit the card
 G8_CASES = (("w4_planar_gemv", 8), ("w4_planar_gemm", 1024), ("w4_planar_f32s_gemv", 8),
             ("w4_planar_f32s_gemm", 128))
+# the same kernels on g = 6 stacks, whose groups end inside a planar word's k
+# quadruple; the 7B's K (4096, 11008) has no g = 6 split at K/2, so Phi-3-mini's
+# gate|up (config.json: hidden 3072, intermediate 8192): (g, name, K, N)
+G6 = (6, "Phi-3-mini gateup", 3072, 16384)
 SP_TOL = 2e-2  # the merged attention against K3b's: atol / rtol (tests/test_parallel.py:190)
 # K22: one layer's 4-D cache at each model's published attention geometry
 # and context (config.json): (model, B, H, Hkv, D, S, least length,
@@ -459,6 +466,9 @@ def phase_kernels(torch, timer):
                 lib_ms = timer(lambda: torch.matmul(xin, w))
                 del w
                 ms = timer(lambda: fn(*args))
+                extra = {}
+                if kname == "w4_planar_gemm":  # a launch's device time (torch.profiler, L2 warm)
+                    extra["device_ms"] = launch_us(torch, lambda: fn(*args), key="w4_gemm_kernel") / 1e3
                 plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
                 nbytes = qw[1].numel() * 4 + 2 * sc[1].numel() * 2 + M * Kf * 2 + M * Np * 2
                 nbytes += Kf * 2 if norm else 0
@@ -466,7 +476,7 @@ def phase_kernels(torch, timer):
                 rows.append(
                     dict(kernel=kname, case=f"{pname} K={Kf} N={Np} M={M}" + (" +norm" if norm else ""),
                          max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok),
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                         ms=ms, **extra, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
                 )
                 log(f"[kernel] {json.dumps(rows[-1])}")
                 if not ok:
@@ -626,6 +636,7 @@ def phase_kernels(torch, timer):
         lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True))
         del qt, kt, vt
         ms = timer(lambda: fp.flash_prefill(*args))
+        dev_ms = launch_us(torch, lambda: fp.flash_prefill(*args), key="flash_prefill_kernel") / 1e3
         plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
         keys = min(S, T)  # pos 0: keys [0, T) are visible to some query
         pairs = sum(min(S, t + 1) for t in range(T))  # (query, key) pairs the mask keeps
@@ -633,8 +644,8 @@ def phase_kernels(torch, timer):
         nbytes = 2 * B * T * H * D * 2 + 2 * B * H * keys * D * elt + (2 * B * H * keys * 4 if form == "int8" else 0)
         b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
         rows.append(dict(kernel="flash_prefill", case=f"T={T} S={S} B={B} H=Hkv={H} D={D} {form} K/V, pos 0",
-                         max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}", ok=bool(ok), ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}", ok=bool(ok), ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"flash_prefill T={T} S={S} {form}: max_abs_err {err}")
@@ -739,6 +750,7 @@ def phase_kernels(torch, timer):
     rows.extend(stacked_rows(torch, timer, gen))
     rows.extend(f32s_rows(torch, timer, gen))
     rows.extend(g8_rows(torch, timer, gen))
+    rows.extend(g8_rows(torch, timer, gen, G6))
     rows.extend(wide_flash_rows(torch, timer, gen))
     rows.extend(sp_rows(torch, timer, gen))
     rows.extend(body_rows(torch, timer, gen))
@@ -776,6 +788,7 @@ def gemma_flash_rows(torch, timer, gen):
         control = not torch.allclose(bare, ref, atol=10 * FLASH_TOL, rtol=10 * FLASH_TOL)
         del ref, bare
         ms = timer(lambda: fp.flash_prefill(*args))
+        dev_ms = launch_us(torch, lambda: fp.flash_prefill(*args), key="flash_prefill_kernel") / 1e3
         plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
         keys = min(S, T)  # pos 0: keys [0, T) are visible to some query
         pairs = sum(min(t + 1, window) for t in range(T))  # (query, key) pairs the masks keep
@@ -783,8 +796,8 @@ def gemma_flash_rows(torch, timer, gen):
         b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
         rows.append(dict(kernel="flash_prefill", case=f"Gemma-2-9B T={T} S={S} B={B} H={H} Hkv={Hkv} D={D} int8 "
                          f"K/V, pos 0, softcap {cap}, window {window}", max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}",
-                         without_softcap_max_abs_err=miss, ok=ok and control, ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                         without_softcap_max_abs_err=miss, ok=ok and control, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not (ok and control):
             raise AssertionError(f"flash_prefill Gemma-2 window {window}: max_abs_err {err}, without the softcap "
@@ -834,13 +847,15 @@ def wide_flash_rows(torch, timer, gen):
             del kd, vd, qt
         del ref
         ms = timer(lambda: fp.flash_prefill(*args))
+        dev_ms = launch_us(torch, lambda: fp.flash_prefill(*args), key="flash_prefill_kernel") / 1e3
         plain_ms = timer(lambda: fp.flash_prefill_plain(*args), reps=5, warmup=1)
         pairs = T * (T + 1) // 2  # (query, key) pairs the causal mask keeps
         nbytes = 2 * B * T * H * D * 2 + 2 * B * Hkv * S * D + 2 * B * Hkv * S * 4
         b_ms, b_by = bound(nbytes, 4.0 * B * H * D * pairs)
         rows.append(dict(kernel="flash_prefill", case=f"synthetic T={T} S={S} B={B} H={H} Hkv={Hkv} D={D} int8 K/V, "
                          f"pos 0" + (f", softcap {cap}" if cap else ""), max_abs_err=err, tol=f"atol/rtol {FLASH_TOL}",
-                         **extra, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         **extra, ok=ok, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"flash_prefill D={D} softcap {cap}: {rows[-1]}")
@@ -849,15 +864,17 @@ def wide_flash_rows(torch, timer, gen):
     return rows
 
 
-def g8_rows(torch, timer, gen):
+def g8_rows(torch, timer, gen, geom=(8, "gateup", 4096, 22016)):
     """K1, K2, K17 and K18 on g = 8 planar stacks at the 7B gate|up shape
-    (K = 4096, Np = 22016; a group closes inside every 16-k tile) against
-    their plain versions: K1 / K2 within QMM_TOL, K17 / K18 within
+    (K = 4096, Np = 22016; a group closes inside every 16-k tile), or on
+    ``geom`` = (g, name, K, Np) (G6: groups that end inside a k quadruple),
+    against their plain versions: K1 / K2 within QMM_TOL, K17 / K18 within
     F32S_TIGHT * max|plain| with the next layer's plain version missing
-    STACKED_TOL. Library: torch.matmul on the dequantized bf16 weight."""
+    STACKED_TOL; K2 also with a launch's device time. Library: torch.matmul
+    on the dequantized bf16 weight."""
     from qllm_tpu_torch.ops import qmm, qmm_planar
 
-    Kf, Np, g = 4096, 22016, 8
+    g, pname, Kf, Np = geom
     G = Kf // g
     rows = []
     qw = torch.randint(-(2**31), 2**31, (3, Kf // 8, Np), dtype=torch.int32, device=DEV, generator=gen)
@@ -891,11 +908,13 @@ def g8_rows(torch, timer, gen):
         del ref
         lib_ms = timer(lambda: torch.matmul(x, w))
         ms = timer(lambda: fn(*args))
+        if kname == "w4_planar_gemm":
+            extra["device_ms"] = launch_us(torch, lambda: fn(*args), key="w4_gemm_kernel") / 1e3
         plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
         s_bytes = sc[1].numel() * sc.element_size() * (1 if f32 else 2)
         nbytes = qw[1].numel() * 4 + s_bytes + M * Kf * 2 + M * Np * (4 if f32 else 2)
         b_ms, b_by = bound(nbytes, 2.0 * M * Kf * Np)
-        rows.append(dict(kernel=kname, case=f"gateup K={Kf} N={Np} M={M} g={g}" + (" f32 scales" if f32 else ""),
+        rows.append(dict(kernel=kname, case=f"{pname} K={Kf} N={Np} M={M} g={g}" + (" f32 scales" if f32 else ""),
                          max_abs_err=err, **extra, ok=bool(ok), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
         log(f"[kernel] {json.dumps(rows[-1])}")
@@ -1631,6 +1650,11 @@ def phase_main1(torch, K, model):
     _, toks2, cache, _, _, warm = run()
     same = bool(torch.equal(toks, toks2))
     busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + STEPS, steps=8)
+    # one more warm T_LONG prefill under the profiler: device ms by kernel
+    log(f"[main1] profile of one warm T={T_LONG} prefill (ms, launches, kernel):")
+    long_cache = make_cache(cfg, 1, T_LONG, device=DEV)
+    prefill_profile = profile_run(torch, lambda: prefill(sp, cfg, prompt_long, long_cache, device=DEV), 1)
+    del long_cache
     result = {
         "config": f"Llama-2-7B shape, {L} layers, W4 g128, quantized lm_head, B=1: T={T} prefill into a ring "
         f"cache of max_seq {MAX_SEQ}, {STEPS} ring-fused greedy steps, T={T_LONG} prefill into an int8 "
@@ -1648,6 +1672,7 @@ def phase_main1(torch, K, model):
         "decode_ms_per_step_warm": warm[1] / STEPS * 1e3,
         "peak_mem_gib": peak_gib,
         **busy,
+        f"prefill_{T_LONG}_profile": prefill_profile,
         "repeat_run_same_ids": same,
     }
     log(f"[main1] {json.dumps(result)}")
@@ -2708,6 +2733,11 @@ def phase_serve(torch, K, card):
         f"{forks.count(None)} of {len(forks)} identical, first differing token of the others {[f for f in forks if f is not None]}")
     log(f"[serve] sampled rows held to their support: {probe.sampled_rows}; bucket-length requests equal to "
         f"greedy_generate")
+    # per-layer weights run K9 / K10 (the stream check's readings assume it)
+    k2 = sum(r.get("w4_planar_gemm", 0) for r in runs.values())
+    log(f"[serve] K2 (w4_planar_gemm) launches over both legs: {k2}")
+    if k2:
+        raise AssertionError(f"serve: {k2} K2 launches on per-layer weights")
     for speculative in (False, True):
         log(f"[serve] {'verify' if speculative else 'decode'} step profile: "
             f"{json.dumps(profile_engine(torch, mod, params, cfg, speculative))}")

@@ -120,7 +120,7 @@ __device__ void tile_product(const XS& xs, int M, const uint32_t* __restrict__ q
                              const __nv_bfloat16* __restrict__ zs, int K, int g, int Np, int col0, int ncols,
                              float (*red)[MR][kCols], Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int R = K / 8, Rg = g / 4, Gh = K / 2 / g, Kh = K / 2;
+  const int R = K / 8, Rg = g % 4 == 0 ? g / 4 : 1, Gh = K / 2 / g, Kh = K / 2;
   const int r0 = warp * R / kWarps, r1 = (warp + 1) * R / kWarps;
   const int c0 = col0 + 4 * lane;
   const bool live = c0 < ncols;
@@ -150,23 +150,33 @@ __device__ void tile_product(const XS& xs, int M, const uint32_t* __restrict__ q
             lo[q][j] = nib(w[q], 8 * j);
             hi[q][j] = nib(w[q], 8 * j + 4);
           }
+        // the row's k = 4r + j (and K/2 + 4r + j) with bit j of `on` set
+        auto accum = [&](uint32_t on) {
 #pragma unroll
-        for (int m = 0; m < MR; ++m) {
-          if (m < M) {
-            const float4 xl = xs(m, 4 * r), xh = xs(m, Kh + 4 * r);
+          for (int m = 0; m < MR; ++m) {
+            if (m < M) {
+              float4 xl = xs(m, 4 * r), xh = xs(m, Kh + 4 * r);
+              if (on != 0xFu) {
+                xl = make_float4((on & 1u) ? xl.x : 0.f, (on & 2u) ? xl.y : 0.f, (on & 4u) ? xl.z : 0.f,
+                                 (on & 8u) ? xl.w : 0.f);
+                xh = make_float4((on & 1u) ? xh.x : 0.f, (on & 2u) ? xh.y : 0.f, (on & 4u) ? xh.z : 0.f,
+                                 (on & 8u) ? xh.w : 0.f);
+              }
 #pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              dl[m][q] = fmaf(xl.x, lo[q][0], fmaf(xl.y, lo[q][1], fmaf(xl.z, lo[q][2], fmaf(xl.w, lo[q][3], dl[m][q]))));
-              dh[m][q] = fmaf(xh.x, hi[q][0], fmaf(xh.y, hi[q][1], fmaf(xh.z, hi[q][2], fmaf(xh.w, hi[q][3], dh[m][q]))));
+              for (int q = 0; q < 4; ++q) {
+                dl[m][q] =
+                    fmaf(xl.x, lo[q][0], fmaf(xl.y, lo[q][1], fmaf(xl.z, lo[q][2], fmaf(xl.w, lo[q][3], dl[m][q]))));
+                dh[m][q] =
+                    fmaf(xh.x, hi[q][0], fmaf(xh.y, hi[q][1], fmaf(xh.z, hi[q][2], fmaf(xh.w, hi[q][3], dh[m][q]))));
+              }
+              sl[m] += (xl.x + xl.y) + (xl.z + xl.w);
+              sh[m] += (xh.x + xh.y) + (xh.z + xh.w);
             }
-            sl[m] += (xl.x + xl.y) + (xl.z + xl.w);
-            sh[m] += (xh.x + xh.y) + (xh.z + xh.w);
           }
-        }
-        if ((r + 1) % Rg == 0 || r + 1 == r1) {
-          // close the low-half group r / Rg and the high-half one Gh + r / Rg
+        };
+        // close the low-half group grp and the high-half one Gh + grp
+        auto close = [&](int grp) {
           if (live) {
-            const int grp = r / Rg;
             const size_t lo_at = static_cast<size_t>(grp) * Np + c0, hi_at = static_cast<size_t>(Gh + grp) * Np + c0;
             const float4 s_l = bf16x4(__ldg(reinterpret_cast<const uint2*>(sc + lo_at)));
             const float4 s_h = bf16x4(__ldg(reinterpret_cast<const uint2*>(sc + hi_at)));
@@ -187,6 +197,21 @@ __device__ void tile_product(const XS& xs, int M, const uint32_t* __restrict__ q
             sl[m] = sh[m] = 0.f;
 #pragma unroll
             for (int q = 0; q < 4; ++q) dl[m][q] = dh[m][q] = 0.f;
+          }
+        };
+        if (g % 4 == 0) {  // the row's quadruple lies in group r / Rg (uniform across the block)
+          accum(0xFu);
+          if ((r + 1) % Rg == 0 || r + 1 == r1) close(r / Rg);
+        } else {
+          // the row's k run once per group they touch, the other groups' k zeroed
+          const int g_first = 4 * r / g, g_last = (4 * r + 3) / g;
+          for (int gi = g_first; gi <= g_last; ++gi) {
+            const int lo = gi * g - 4 * r;  // group gi holds k in [gi g, gi g + g)
+            uint32_t on = 0u;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) on |= (j >= lo && j < lo + g ? 1u : 0u) << j;
+            accum(on);
+            if ((gi + 1) * g <= 4 * r + 4 || r + 1 == r1) close(gi);
           }
         }
       }
@@ -362,9 +387,9 @@ int coop_grid(const void* kernel, int tiles) {
   return std::max(1, std::min(tiles, per_sm * sms));
 }
 
-// the full-K planar geometry (K % 256 == 0, groups split at K/2); a word
-// row's quadruple of each half lies in one group for any g % 4 == 0
-bool fullk_geometry(int K, int g) { return g >= 4 && g % 4 == 0 && K % 256 == 0 && (K / 2) % g == 0; }
+// the full-K planar geometry (K % 256 == 0, groups split at K/2, any g);
+// a word row's quadruple that straddles two groups runs once per group
+bool fullk_geometry(int K, int g) { return g >= 1 && K % 256 == 0 && (K / 2) % g == 0; }
 
 }  // namespace
 

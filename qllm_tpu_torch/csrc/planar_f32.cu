@@ -68,7 +68,7 @@ namespace {
 // g / 16 steps in order over both halves (counted, no divisions), and each
 // group's f32 scales are loaded a group ahead. A group that closes inside
 // a 16-k step (g % 16 != 0) runs the step once per group it touches, the
-// A pairs of the other groups zeroed: any g % 4 == 0.
+// A values of the other groups zeroed one bf16 half at a time: any g.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32sThreads = 256;  // two warpgroups
@@ -240,9 +240,15 @@ __global__ void __launch_bounds__(kF32sThreads, 1)
       for (int j = 0; j < 4; ++j) {
         const int kh = kF32sK * t + 16 * j;
         const int g_first = kh / g, g_last = (kh + 15) / g;
-        const int gp0 = (kh + 2 * c) / g, gp1 = (kh + 2 * c + 8) / g;
         for (int gi = g_first; gi <= g_last; ++gi) {
-          const uint32_t m0v = gp0 == gi ? 0xFFFFFFFFu : 0u, m1v = gp1 == gi ? 0xFFFFFFFFu : 0u;
+          // a pair's halves are k and k + 1 (lower k in the lower half);
+          // group gi holds k in [gi g, gi g + g)
+          const int glo = gi * g;
+          auto half_mask = [&](int k) {
+            const int e = k - glo;
+            return (e >= 0 && e < g ? 0x0000FFFFu : 0u) | (e + 1 >= 0 && e + 1 < g ? 0xFFFF0000u : 0u);
+          };
+          const uint32_t m0v = half_mask(kh + 2 * c), m1v = half_mask(kh + 2 * c + 8);
           const uint32_t am[4] = {ar[j][0] & m0v, ar[j][1] & m0v, ar[j][2] & m1v, ar[j][3] & m1v};
           wgmma_fence();
           wgmma_rs<MC>(part, am, desc + 2 * j, fresh ? 0 : 1);

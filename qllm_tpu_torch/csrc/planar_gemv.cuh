@@ -55,12 +55,26 @@ namespace {
 constexpr int kGemvMaxWarps = 16;
 
 // What the planar kernels take (K1, K2, K8, K11, K17-K20): K a multiple
-// of 128 (whole 64-k tiles of each half), groups of a multiple of 4 k (a
-// word's quadruple of each half lies in one group) split at K/2. Groups
-// of g % 16 != 0 close inside a 16-k tile: the tile runs once per group
-// it touches, the other groups' k zeroed.
+// of 128 (whole 64-k tiles of each half) below 2^17, any group size g >= 1
+// that splits at K/2 (the JAX package's planar_full_ok). Groups that close
+// inside a kernel's k-tile (g % 16 != 0 here) run the tile once per group
+// it touches, each time with the other groups' elements zeroed, one bf16
+// (or int8) value at a time where a group ends inside a k quadruple.
 inline bool planar_geometry_ok(int K, int g) {
-  return K % 128 == 0 && g >= 4 && g % 4 == 0 && (K / 2) % g == 0;
+  return K % 128 == 0 && K < (1 << 17) && g >= 1 && (K / 2) % g == 0;
+}
+
+// AND masks of the bf16 elements e = 0..3 of a 4-value x vector (two
+// words, lower element in the lower half) with lo <= e < lo + g: the
+// elements k0 + e of the group [k0 + lo, k0 + lo + g)
+__device__ __forceinline__ uint2 group_mask4(int lo, int g) {
+  uint32_t m[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const int e = 2 * w - lo;
+    m[w] = (e >= 0 && e < g ? 0x0000FFFFu : 0u) | (e + 1 >= 0 && e + 1 < g ? 0xFFFF0000u : 0u);
+  }
+  return make_uint2(m[0], m[1]);
 }
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -280,12 +294,12 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
           if ((t + 1) % tpg == 0 || t + 1 == t1) flush(t / tpg);
         } else {
           // the tile touches groups g_first .. g_last; it runs once per
-          // group, with the x of the other groups' k quadruples zeroed
-          const int g_first = 16 * t / g, g_last = (16 * t + 15) / g, mine = (16 * t + 4 * c) / g;
+          // group, with the x of the other groups' k zeroed (the high half's
+          // groups are the low half's + G/2: the same mask)
+          const int g_first = 16 * t / g, g_last = (16 * t + 15) / g;
           for (int gi = g_first; gi <= g_last; ++gi) {
-            const bool on = mine == gi;
-            const uint2 none = make_uint2(0u, 0u);
-            compute(w, on ? xl : none, on ? xh : none, t);
+            const uint2 on = group_mask4(gi * g - (16 * t + 4 * c), g);
+            compute(w, make_uint2(xl.x & on.x, xl.y & on.y), make_uint2(xh.x & on.x, xh.y & on.y), t);
             if ((gi + 1) * g <= 16 * t + 16 || t + 1 == t1) flush(gi);
           }
         }

@@ -10,6 +10,7 @@
 // group of g k-values spans g/4 word rows in each half.
 
 #include "planar_gemv.cuh"
+#include "wgmma.cuh"
 
 // ---------------------------------------------------------------------------
 // K1 w4_planar_gemv (decode, M <= 32).
@@ -134,169 +135,258 @@ QLLM_API int qllm_w4_grouped_gemv(const void* x, const void* qweight, const void
 //
 // Bound on the H100: at M = 1024 the product is 2*M*K*N flops against
 // K*N/2 weight bytes (~4000 flops/byte), far above the bf16 ridge
-// (~295 flops/byte), so the tensor-core rate bounds it. Design: the MMA
-// layout of K1 with many rows of x. mma.sync m16n8k16 takes 16 output
-// columns of dequantized weights as A and 8 rows of x as B; a thread's A
-// registers come from whole planar words (thread (gq, c) holds word row
-// 4t + c of k-tile t for its columns), dequantized in registers to
-// bf16(q * s - zs) once and reused for the warp's 8 row tiles, so no
-// weight tile passes through shared memory. x tiles (128 rows x 16
-// low-half + 16 high-half k) stream into a 3-stage shared-memory ring by
-// cp.async; the next k-tiles' weight words wait in registers. A block is
-// 8 warps over 128 columns x 128 rows; each warp owns 32 columns x 64
-// rows (64 f32 accumulators a thread). wgmma / TMA are later work.
+// (~295 flops/byte), so the tensor-core rate bounds it.
+//
+// Design (csrc/wgmma.cuh, K18's skeleton in csrc/planar_f32.cu):
+// wgmma.mma_async with the product swapped: 64 output columns are the
+// instruction's rows and the rows of x its width, A = the dequantized
+// weight bf16(fmaf(q, s, -zs)) from registers, B = the x tile in
+// 128-byte-swizzled shared memory. A block is two warpgroups over 128
+// output columns and MC x 64 rows of x (MC = 1 at M <= 64, 2 at M <= 128,
+// else 4: the dequantize, built once a block for its rows, costs about as
+// much issue time as 128 rows' products, so 256 rows let the tensor cores
+// set the pace). The weight is bf16(q * s - zs) in one product (no group
+// partials), so the block walks K once: a stage holds 16 word rows and the
+// x tiles of both halves (64 k of each); the low nibbles build A against
+// the low-half tile and the high nibbles against the high-half tile, into
+// the same accumulator. Stages come through a ring filled by cp.async two
+// (at MC = 4 one) stages ahead. Each half's four 16-k steps are built at
+// once into one of two A register sets while the other half's products
+// still read the other set (both held until the wait that retires their
+// products: keep_regs), and issued as one group of m64n(64 MC)k16
+// instructions.
+// Thread (gq, c) of warp w takes columns gq and gq + 8 of its 16 and, for
+// the 16-k step j, k 2c, 2c+1 (word row 4j + c/2, bytes 2(c&1), 2(c&1)+1)
+// and the same + 8 (two rows further). A nibble becomes an exact f32 by
+// PRMT (0x4B0000vv = 2^23 + v) and one FADD, then one FFMA with the
+// scale and zs, one rounding to bf16: the TPU kernel's w.
+// Scales: where g % 64 == 0 a half-stage lies in one group of each half;
+// the (s, zs) of the next group are loaded a group ahead, counted without
+// divisions. Elsewhere (any g with (K/2) % g == 0) each element takes the
+// (s, zs) of its own group, the group found by a multiply-high with
+// ceil(2^32 / g) (exact for k, g < 2^16).
+// No split of K: a row's bits never depend on M (MC = 1, 2 and 4 run the
+// same k order per output).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kGemmThreads = 256;
-constexpr int kBM = 128, kBN = 128;  // rows of x, output columns per block
-constexpr int kMT = 8;               // 8-row MMA tiles per warp (64 rows)
-constexpr int kNT = 2;               // 16-column MMA tiles per warp (32 columns)
-constexpr int kStages = 3;           // x tiles in flight (cp.async ring)
-constexpr int kWPre = 4;             // k-tiles of weight words in registers
-constexpr int kXRow = 48;            // bf16 per x-tile row: 32 used, 96 bytes
-                                     // (no bank conflicts on 8-byte reads)
+constexpr int kGemmThreads = 256;  // two warpgroups
+constexpr int kGemmCols = 128;     // output columns of a block
+constexpr int kGemmK = 64;         // k of each half a stage
+constexpr int kGemmRows = 16;      // word rows a stage (4 k of each half a row)
+constexpr int kGemmPitch = 136;    // words of a staged word row: 128 used, rows 8 banks apart
 
-// 4-bit values 0..15 in the bytes of `bits` (each byte < 16) as exact
-// floats: PRMT builds 0x4B0000vv = 2^23 + vv, one FADD removes 2^23
-__device__ __forceinline__ float nibble_f32(uint32_t bits, int byte) {
-  return __int_as_float(__byte_perm(bits, 0x4B000000u, 0x7440u + byte)) - 8388608.f;
+// the ring: copies run kGemmStagesOf<MC> - 2 stages ahead (three stages
+// of 256 rows fill the shared memory)
+template <int MC>
+constexpr int kGemmStagesOf = MC == 4 ? 3 : 4;
+template <int MC>
+constexpr int kGemmSmemOf = kGemmStagesOf<MC> * (2 * MC * 64 * 128 + kGemmRows * kGemmPitch * 4) + 1024;
+
+// byte `sel` (0x7440 + byte) of `bits` (each byte < 16) as an exact float:
+// PRMT builds 0x4B0000vv = 2^23 + v, one FADD removes 2^23
+__device__ __forceinline__ float nibble_f32(uint32_t bits, uint32_t sel) {
+  return __int_as_float(__byte_perm(bits, 0x4B000000u, sel)) - 8388608.f;
 }
 
-// bf16(v * s - z) for the nibbles of bytes j and j + 2 of `nib` (each
-// byte < 16) as one bf16 pair: the A registers of one MMA row
-__device__ __forceinline__ uint32_t dequant_pair(uint32_t nib, int j, float s, float z) {
-  return bf16x2_bits(__floats2bfloat162_rn(fmaf(nibble_f32(nib, j), s, -z), fmaf(nibble_f32(nib, j + 2), s, -z)));
-}
-
-__global__ void __launch_bounds__(kGemmThreads)
+template <int MC, bool G64>
+__global__ void __launch_bounds__(kGemmThreads, 1)
     w4_gemm_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
                    const uint32_t* __restrict__ qw,       // [K/8, Np] this layer
                    const __nv_bfloat16* __restrict__ sc,  // [G, Np]
                    const __nv_bfloat16* __restrict__ zs,  // [G, Np]
                    __nv_bfloat16* __restrict__ out,       // [M, Np]
                    int M, int K, int Np, int g) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kStages][kBM][kXRow];
+  constexpr int kXBytes = MC * 64 * 128;  // one half's x tile
+  constexpr int kStageX = 2 * kXBytes;
+  constexpr int kWWords = kGemmRows * kGemmPitch;
+  constexpr int kGemmStages = kGemmStagesOf<MC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = atom_aligned(smem_raw);
+  const uint32_t xs0 = smem_u32(smem);
+  uint32_t* ws = reinterpret_cast<uint32_t*>(smem + kGemmStages * kStageX);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, c = lane & 3;
-  const int wn = warp & 3, wm = warp >> 2;
-  const int m0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN + wn * 32 + 4 * gq;  // this thread's 4 columns
-  const int Kh = K / 2;
-  const int T = K / 32;    // k-tiles: 16 low-half + 16 high-half k each
-  const int Gh = Kh / g;
+  const int m0 = blockIdx.x * 64 * MC, n0 = blockIdx.y * kGemmCols;
+  const int cl0 = 64 * (warp >> 2) + 16 * (warp & 3) + gq;  // this thread's columns cl0, cl0 + 8
+  const int Kh = K / 2, U = Kh / kGemmK, Gh = Kh / g;
+  // the PRMT selectors of this thread's bytes 2(c&1) and 2(c&1) + 1
+  const uint32_t sel0 = 0x7440u + 2 * (c & 1), sel1 = sel0 + 1;
 
-  // x tile t into stage s: row r holds x[m0 + r, 16t .. +16) then
-  // x[m0 + r, Kh + 16t .. +16), two 16-byte copies per thread
-  auto issue_x = [&](int t, int s) {
+  // The copy plan, fixed for the block: x chunk `it` of a half's tile is
+  // row (tid >> 3) + 32 it, 16-byte chunk tid & 7; word chunk `it` is word
+  // row (tid >> 5) + 8 it, columns n0 + 4 (tid & 31) ..+3.
+  const int xr = tid >> 3, xq = tid & 7;
+  const __nv_bfloat16* xsrc = x + static_cast<size_t>(m0 + xr) * K + 8 * xq;
+  const uint32_t xdst = sw128_offset(xr, xq);  // + 4096 per 32 rows: the same swizzle
+  unsigned xok = 0;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * kGemmThreads;
-      const int r = i >> 2, q = i & 3;
-      const int k = (q < 2 ? 16 * t + 8 * q : Kh + 16 * t + 8 * (q - 2));
-      const bool ok = m0 + r < M;
-      cp_async16(&xs[s][r][8 * q], ok ? x + static_cast<size_t>(m0 + r) * K + k : x, ok);
+  for (int it = 0; it < 2 * MC; ++it) xok |= (m0 + xr + 32 * it < M ? 1u : 0u) << it;
+  const uint32_t* wsrc = qw + static_cast<size_t>(tid >> 5) * Np + n0 + 4 * (tid & 31);
+  const int wdst = (tid >> 5) * kGemmPitch + 4 * (tid & 31);
+
+  // stage u (word rows 16u.., k 64u.. of each half) into ring slot st
+  auto issue = [&](int u, int st) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t xt = xs0 + st * kStageX + h * kXBytes + xdst;
+      const __nv_bfloat16* xs = xsrc + h * Kh + kGemmK * u;
+#pragma unroll
+      for (int it = 0; it < 2 * MC; ++it) {
+        const bool ok = (xok >> it) & 1u;
+        cp_async16_s(xt + it * 4096, ok ? xs + static_cast<size_t>(32 * it) * K : x, ok);
+      }
+    }
+    uint32_t* wt = ws + st * kWWords + wdst;
+    const uint32_t* wg = wsrc + static_cast<size_t>(kGemmRows * u) * Np;
+#pragma unroll
+    for (int it = 0; it < kGemmRows * 32 / kGemmThreads; ++it)
+      cp_async16(wt + 8 * it * kGemmPitch, wg + static_cast<size_t>(8 * it) * Np, true);
+  };
+
+  float acc[MC][32];
+#pragma unroll
+  for (int mc = 0; mc < MC; ++mc)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mc][i] = 0.f;
+
+  // g % 64 == 0: (s, zs) of columns cl0, cl0 + 8 for the low-half group
+  // and the high-half one, {s0, z0, s1, z1} each; the next group's wait in
+  // bf16, loaded a group ahead
+  const int stages_per_group = G64 ? g / kGemmK : 1;
+  int left = stages_per_group, grp = 0;
+  float cur[2][4] = {};
+  __nv_bfloat16 nxt[2][4];
+  auto fetch = [&](int gi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t at = static_cast<size_t>(h * Gh + gi) * Np + n0 + cl0;
+      nxt[h][0] = sc[at];
+      nxt[h][1] = zs[at];
+      nxt[h][2] = sc[at + 8];
+      nxt[h][3] = zs[at + 8];
     }
   };
-  const uint32_t* wp = qw + static_cast<size_t>(c) * Np + col0;
-  auto load_w = [&](int t) { return __ldg(reinterpret_cast<const uint4*>(wp + static_cast<size_t>(4 * t) * Np)); };
+  auto take = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cur[h][i] = bf2f(nxt[h][i]);
+  };
+  // elsewhere: the group of half-k kh is __umulhi(kh, gmagic)
+  const uint32_t gmagic = 0xFFFFFFFFu / static_cast<uint32_t>(g) + 1u;
+  if constexpr (G64) {
+    fetch(0);
+    take();
+    if (Gh > 1) fetch(1);
+  }
 
-  float acc[kNT][kMT][4];
+  // bf16(fmaf(q, s, -z)) of this thread's two nibbles of `bits`, one
+  // (s, z) for both or one each
+  auto deq = [&](uint32_t bits, float s0, float z0, float s1, float z1) {
+    return bf16x2_bits(__floats2bfloat162_rn(fmaf(nibble_f32(bits, sel0), s0, -z0),
+                                             fmaf(nibble_f32(bits, sel1), s1, -z1)));
+  };
+  // A registers of half h's four 16-k steps of stage u (words wt):
+  // columns cl0 (a0, a2) and cl0 + 8 (a1, a3), k 2c.. (a0, a1) and 2c + 8..
+  // (a2, a3) of each step
+  auto build = [&](const uint32_t* wt, int u, int h, uint32_t (&ar)[4][4]) {
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
+    for (int j = 0; j < 4; ++j) {
+      const int r0 = (4 * j + (c >> 1)) * kGemmPitch + cl0, r1 = r0 + 2 * kGemmPitch;
+      const uint32_t w[4] = {wt[r0], wt[r0 + 8], wt[r1], wt[r1 + 8]};
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][mt][e] = 0.f;
-
-  // one k-tile: dequantize this thread's A registers for both halves of
-  // K, then run them against the warp's 8 row tiles of x
-  auto compute = [&](uint4 wv, int t) {
-    const uint32_t w[4] = {wv.x, wv.y, wv.z, wv.w};
-    const int grp = (16 * t + 4 * c) / g;  // the group of this thread's k quadruple
-    const uint2 s_lo = __ldg(reinterpret_cast<const uint2*>(sc + static_cast<size_t>(grp) * Np + col0));
-    const uint2 z_lo = __ldg(reinterpret_cast<const uint2*>(zs + static_cast<size_t>(grp) * Np + col0));
-    const uint2 s_hi = __ldg(reinterpret_cast<const uint2*>(sc + static_cast<size_t>(Gh + grp) * Np + col0));
-    const uint2 z_hi = __ldg(reinterpret_cast<const uint2*>(zs + static_cast<size_t>(Gh + grp) * Np + col0));
-    const float4 sl = bf16x4_to_float4(s_lo), zl = bf16x4_to_float4(z_lo);
-    const float4 sh = bf16x4_to_float4(s_hi), zh = bf16x4_to_float4(z_hi);
-    const float slv[4] = {sl.x, sl.y, sl.z, sl.w}, zlv[4] = {zl.x, zl.y, zl.z, zl.w};
-    const float shv[4] = {sh.x, sh.y, sh.z, sh.w}, zhv[4] = {zh.x, zh.y, zh.z, zh.w};
-    uint32_t alo[kNT][4], ahi[kNT][4];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      // A row gq is column col0 + 2nt (word a), row gq + 8 the next (word b)
-      const int ca = 2 * nt, cb = 2 * nt + 1;
-      const uint32_t la = w[ca] & 0x0F0F0F0Fu, lb = w[cb] & 0x0F0F0F0Fu;
-      const uint32_t ha = (w[ca] >> 4) & 0x0F0F0F0Fu, hb = (w[cb] >> 4) & 0x0F0F0F0Fu;
-      alo[nt][0] = dequant_pair(la, 0, slv[ca], zlv[ca]);
-      alo[nt][1] = dequant_pair(lb, 0, slv[cb], zlv[cb]);
-      alo[nt][2] = dequant_pair(la, 1, slv[ca], zlv[ca]);
-      alo[nt][3] = dequant_pair(lb, 1, slv[cb], zlv[cb]);
-      ahi[nt][0] = dequant_pair(ha, 0, shv[ca], zhv[ca]);
-      ahi[nt][1] = dequant_pair(hb, 0, shv[cb], zhv[cb]);
-      ahi[nt][2] = dequant_pair(ha, 1, shv[ca], zhv[ca]);
-      ahi[nt][3] = dequant_pair(hb, 1, shv[cb], zhv[cb]);
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t bits = (w[i] >> (4 * h)) & 0x0F0F0F0Fu;
+        const int col = i & 1;  // 0: cl0, 1: cl0 + 8
+        if constexpr (G64) {
+          const float s = cur[h][2 * col], z = cur[h][2 * col + 1];
+          ar[j][i] = deq(bits, s, z, s, z);
+        } else {
+          const uint32_t kh = kGemmK * u + 16 * j + 2 * c + 8 * (i >> 1);
+          const size_t a0 = static_cast<size_t>(h * Gh + __umulhi(kh, gmagic)) * Np + n0 + cl0 + 8 * col;
+          const size_t a1 = static_cast<size_t>(h * Gh + __umulhi(kh + 1, gmagic)) * Np + n0 + cl0 + 8 * col;
+          ar[j][i] = deq(bits, bf2f(sc[a0]), bf2f(zs[a0]), bf2f(sc[a1]), bf2f(zs[a1]));
+        }
+      }
     }
-    const __nv_bfloat16(*xt)[kXRow] = xs[t % kStages];
+  };
+
+  // stage u in ring slot st: wait for its copies, refill the ring, then
+  // per half: build its A set (while the other half's products still read
+  // the other set), issue its four steps as one group
+  uint32_t ar[2][4][4] = {};
+  auto stage = [&](int u, int st, int ist) {
+    cp_async_wait<kGemmStages - 3>();  // this thread's copies of stage u landed
+    fence_proxy_async();
+    // everyone's did, and every warpgroup has waited for stage u - 1's low
+    // half (so for all of stage u - 2): its slot is free
+    __syncthreads();
+    if (u + kGemmStages - 2 < U) issue(u + kGemmStages - 2, ist);
+    cp_async_commit();
+    const uint32_t* wt = ws + st * kWWords;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int r = wm * 64 + mt * 8 + gq;
-      uint32_t bl0, bl1, bh0, bh1;
-      x_fragments(*reinterpret_cast<const uint2*>(&xt[r][4 * c]), bl0, bl1);
-      x_fragments(*reinterpret_cast<const uint2*>(&xt[r][16 + 4 * c]), bh0, bh1);
+    for (int h = 0; h < 2; ++h) {
+      build(wt, u, h, ar[h]);
+      const uint64_t desc = sw128_desc(xs0 + st * kStageX + h * kXBytes);  // + 2 per 16-k step: 32 bytes
+      // every A register is written before the fence, none between the products
+      keep_regs(ar[h]);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        mma_bf16_16816(acc[nt][mt], alo[nt][0], alo[nt][1], alo[nt][2], alo[nt][3], bl0, bl1);
-        mma_bf16_16816(acc[nt][mt], ahi[nt][0], ahi[nt][1], ahi[nt][2], ahi[nt][3], bh0, bh1);
+      for (int j = 0; j < 4; ++j) wgmma_rs<MC>(acc, ar[h][j], desc + 2 * j, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      // the other half's products are done: only now may its A set be
+      // written (kept live until here, so no build reuses its registers)
+      keep_regs(ar[1 - h]);
+    }
+    if constexpr (G64) {
+      if (--left == 0) {  // the next stage starts a group
+        left = stages_per_group;
+        take();
+        if (++grp + 1 < Gh) fetch(grp + 1);
       }
     }
   };
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < T) issue_x(s, s);
+  for (int i = 0; i < kGemmStages - 2; ++i) {
+    if (i < U) issue(i, i);
     cp_async_commit();
   }
-  uint4 wbuf[kWPre];
-#pragma unroll
-  for (int i = 0; i < kWPre; ++i)
-    if (i < T) wbuf[i] = load_w(i);
-  for (int tb = 0; tb < T; tb += kWPre) {
-#pragma unroll
-    for (int i = 0; i < kWPre; ++i) {
-      const int t = tb + i;
-      if (t < T) {  // uniform across the block
-        const uint4 wv = wbuf[i];
-        if (t + kWPre < T) wbuf[i] = load_w(t + kWPre);
-        cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
-        __syncthreads();               // everyone's did; stage (t-1) % kStages is free
-        if (t + kStages - 1 < T) issue_x(t + kStages - 1, (t + kStages - 1) % kStages);
-        cp_async_commit();
-        compute(wv, t);
-      }
-    }
+  int st = 0, ist = kGemmStages - 2;
+  for (int u = 0; u < U; ++u) {
+    stage(u, st, ist);
+    if (++st == kGemmStages) st = 0;
+    if (++ist == kGemmStages) ist = 0;
   }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mc = 0; mc < MC; ++mc) fence_regs(acc[mc]);
 
-  // C registers: (column col0 + 2nt; rows 2c, 2c+1), (the next column;
-  // rows 2c, 2c+1) of each row tile: one bf16 pair per row
+  // D element 4i + e: column cl0 + 8 (e >> 1), x row 8i + 2c + (e & 1) of the chunk
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    const int m = m0 + wm * 64 + mt * 8 + 2 * c;
+  for (int mc = 0; mc < MC; ++mc)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = col0 + 2 * nt;
-      if (m < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * Np + col) =
-            __floats2bfloat162_rn(acc[nt][mt][0], acc[nt][mt][2]);
-      if (m + 1 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m + 1) * Np + col) =
-            __floats2bfloat162_rn(acc[nt][mt][1], acc[nt][mt][3]);
-    }
-  }
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + 64 * mc + 8 * i + 2 * c + (e & 1);
+        if (m < M) out[static_cast<size_t>(m) * Np + n0 + cl0 + 8 * (e >> 1)] = __float2bfloat16_rn(acc[mc][4 * i + e]);
+      }
+}
+
+template <int MC, bool G64>
+int launch_gemm(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, const uint32_t* qw, const __nv_bfloat16* sc,
+                const __nv_bfloat16* zs, __nv_bfloat16* out, int M, int K, int Np, int g) {
+  constexpr int bytes = kGemmSmemOf<MC>;
+  static int allowed[kMaxDevices];
+  if (const int e = allow_dynamic_smem(w4_gemm_kernel<MC, G64>, bytes, allowed)) return e;
+  w4_gemm_kernel<MC, G64><<<grid, kGemmThreads, bytes, st>>>(x, qw, sc, zs, out, M, K, Np, g);
+  return 0;
 }
 
 }  // namespace
@@ -304,16 +394,28 @@ __global__ void __launch_bounds__(kGemmThreads)
 QLLM_API int qllm_w4_planar_gemm(const void* x, const void* qweight, const void* scales,
                                  const void* zs, void* out, int layer, int M, int K, int Np,
                                  int g, void* stream) {
-  if (M < 1 || !planar_geometry_ok(K, g) || Np % kBN != 0)
+  if (M < 1 || !planar_geometry_ok(K, g) || Np % kGemmCols != 0 || Np / kGemmCols > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = K / g;
   const size_t lw = static_cast<size_t>(K / 8) * Np;
-  const size_t ls = static_cast<size_t>(G) * Np;
-  const dim3 grid(Np / kBN, (M + kBM - 1) / kBM);
-  w4_gemm_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qweight) + layer * lw,
-      static_cast<const __nv_bfloat16*>(scales) + layer * ls,
-      static_cast<const __nv_bfloat16*>(zs) + layer * ls, static_cast<__nv_bfloat16*>(out), M, K,
-      Np, g);
-  return qllm_launch_status();
+  const size_t ls = static_cast<size_t>(K / g) * Np;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * lw;
+  const auto* sc = static_cast<const __nv_bfloat16*>(scales) + layer * ls;
+  const auto* zz = static_cast<const __nv_bfloat16*>(zs) + layer * ls;
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int MC = M <= 64 ? 1 : M <= 128 ? 2 : 4;
+  const dim3 grid((M + 64 * MC - 1) / (64 * MC), Np / kGemmCols);
+  const bool g64 = g % kGemmK == 0;
+  int e;
+  if (MC == 1)
+    e = g64 ? launch_gemm<1, true>(grid, st, xb, qw, sc, zz, o, M, K, Np, g)
+            : launch_gemm<1, false>(grid, st, xb, qw, sc, zz, o, M, K, Np, g);
+  else if (MC == 2)
+    e = g64 ? launch_gemm<2, true>(grid, st, xb, qw, sc, zz, o, M, K, Np, g)
+            : launch_gemm<2, false>(grid, st, xb, qw, sc, zz, o, M, K, Np, g);
+  else
+    e = g64 ? launch_gemm<4, true>(grid, st, xb, qw, sc, zz, o, M, K, Np, g)
+            : launch_gemm<4, false>(grid, st, xb, qw, sc, zz, o, M, K, Np, g);
+  return e != 0 ? e : qllm_launch_status();
 }

@@ -182,9 +182,9 @@ int launch_quantize(const void* x, int x_f32, void* x8, void* sx, void* xsum, in
 // registers (dp4a against ones), so a warp that covers part of a group
 // subtracts exactly its part. The warps split K's tiles and meet in
 // shared memory, summed in warp order (no atomics). Groups of g % 32 != 0
-// (GENERIC, any g % 4 == 0) can close inside a k-tile: the tile then runs
-// once per group it touches, each MMA with the B registers of the other
-// groups' k quadruples zeroed, and a group closes after its own.
+// (GENERIC, any g) can close inside a k-tile: the tile then runs once per
+// group it touches, each MMA with the x8 bytes of the other groups zeroed,
+// and a group closes after its own.
 // ---------------------------------------------------------------------------
 
 constexpr int kA8MaxWarps = 8;
@@ -269,17 +269,17 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
       }
   }
 
-  // on: bit 0 keeps this thread's k quadruple of the tile's first 16 k,
-  // bit 1 that of its last 16 (a zeroed B register adds nothing to the
+  // on0 / on1: byte masks of this thread's k quadruple of the tile's
+  // first 16 k and of its last 16 (a zeroed x8 value adds nothing to the
   // dot or the sums)
-  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT], int on) {
+  auto compute = [&](const uint4 (&w)[2], const uint4 (&xv)[MT], uint32_t on0, uint32_t on1) {
     uint32_t bl0[MT], bl1[MT], bh0[MT], bh1[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      bl0[mt] = (on & 1) ? xv[mt].x : 0u;
-      bl1[mt] = (on & 2) ? xv[mt].y : 0u;
-      bh0[mt] = (on & 1) ? xv[mt].z : 0u;
-      bh1[mt] = (on & 2) ? xv[mt].w : 0u;
+      bl0[mt] = xv[mt].x & on0;
+      bl1[mt] = xv[mt].y & on1;
+      bh0[mt] = xv[mt].z & on0;
+      bh1[mt] = xv[mt].w & on1;
       xs_lo[mt] = __dp4a(static_cast<int>(bl1[mt]), kOnes, __dp4a(static_cast<int>(bl0[mt]), kOnes, xs_lo[mt]));
       xs_hi[mt] = __dp4a(static_cast<int>(bh1[mt]), kOnes, __dp4a(static_cast<int>(bh0[mt]), kOnes, xs_hi[mt]));
     }
@@ -351,16 +351,23 @@ __global__ void __launch_bounds__(kA8MaxWarps * 32)
         for (int mt = 0; mt < MT; ++mt) xv[mt] = xbuf[i][mt];
         if (t + P < t1) load(i, t + P);
         if constexpr (GENERIC) {
-          // the groups of this thread's two k quadruples, and the tile's
-          const int q0 = (32 * t + 4 * c) / g, q1 = (32 * t + 16 + 4 * c) / g;
+          // the tile's groups; per group, the bytes of this thread's two k
+          // quadruples that lie in it
           const int g_first = 32 * t / g, g_last = (32 * t + 31) / g;
           for (int gi = g_first; gi <= g_last; ++gi) {
-            compute(w, xv, (q0 == gi ? 1 : 0) | (q1 == gi ? 2 : 0));
+            auto bytes_in = [&](int k0) {  // group gi holds k in [gi g, gi g + g)
+              const int lo = gi * g - k0;
+              uint32_t m = 0u;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) m |= (j >= lo && j < lo + g ? 0xFFu : 0u) << (8 * j);
+              return m;
+            };
+            compute(w, xv, bytes_in(32 * t + 4 * c), bytes_in(32 * t + 16 + 4 * c));
             if ((gi + 1) * g <= 32 * t + 32 || t + 1 == t1) flush(gi);
           }
         } else {
           const int u = 2 * t;  // the tile's first 16-k unit
-          compute(w, xv, 3);
+          compute(w, xv, 0xFFFFFFFFu, 0xFFFFFFFFu);
           if ((u + 2) % upg == 0 || t + 1 == t1) flush(u / upg);
         }
       }
@@ -578,7 +585,8 @@ QLLM_API int qllm_quantize_rows_int8(const void* x, int x_f32, void* x8, void* s
 QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx, const void* qweight,
                                    const void* scales, const void* zs, const void* norm_w, int nw_f32, float eps,
                                    void* out, int layer, int M, int K, int Np, int g, int warps, void* stream) {
-  if (M < 1 || M > 32 || g < 4 || g % 4 != 0 || K % 128 != 0 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
+  // the planar geometry (csrc/planar_gemv.cuh planar_geometry_ok): any g
+  if (M < 1 || M > 32 || K % 128 != 0 || K >= (1 << 17) || g < 1 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
       warps < 1 || warps > kA8MaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);

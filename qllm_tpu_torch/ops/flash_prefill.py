@@ -7,8 +7,9 @@
     serving path reads the cache directly) or bf16; head width 128, 256,
     384 or 512 (every multiple of 128 the model gates send here), any
     n_rep. The CUDA kernel (csrc/flash_prefill.cu) runs both products on
-    the tensor cores with an online softmax over key tiles; at 384 and 512
-    each block writes a slice of the head width.
+    wgmma with an online softmax over key tiles that a cp.async ring brings
+    in a tile ahead (int8 tiles converted once a block, for 128 rows); at
+    384 and 512 each block writes a slice of the head width.
 
 The wrapper launches the kernel on a CUDA tensor, or raises, and runs
 its plain PyTorch version on a CPU tensor.
@@ -107,6 +108,8 @@ def flash_prefill(
     if not (_aligned(k) and _aligned(v) and k.stride() == v.stride()):
         k, v = k.contiguous(), v.contiguous()
     q = q.contiguous()
+    if q.data_ptr() % 16:  # the kernel loads q in 16-byte vectors
+        q = q.clone()
     pos = pos.to(torch.int32).contiguous()
     win = _window_tensor(window, q.device)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)

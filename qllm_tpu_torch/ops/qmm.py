@@ -173,13 +173,13 @@ def a8_full_k_ok(K: int, g: int, Np: int) -> bool:
 
 def _kernel_geometry_ok(K: int, g: int) -> bool:
     """What the planar kernels (K1, K2, K8, K11, K17-K20) take: K a
-    multiple of 128, groups of a multiple of 4 values (a planar word's
-    quadruple of each half lies in one group) split at K/2. Every planar
-    stack the JAX package builds has K % 256 == 0 (``planar_full_ok``,
-    ``planar_bk``), so this admits every g % 4 == 0 that JAX makes planar
-    (8, 24 and 40 among them); a group that closes inside a kernel's k-tile
-    runs the tile once per group it touches."""
-    return g >= 4 and g % 4 == 0 and K % 128 == 0 and (K // 2) % g == 0
+    multiple of 128 below 2^17 and any group size g >= 1 split at K/2.
+    Every planar stack the JAX package builds has K % 256 == 0
+    (``planar_full_ok``, ``planar_bk``), so this admits every g that JAX
+    makes planar (3, 6, 8, 12, 24 and 40 among them); a group that closes
+    inside a kernel's k-tile runs the tile once per group it touches, the
+    other groups' elements zeroed one value at a time."""
+    return g >= 1 and K % 128 == 0 and K < (1 << 17) and (K // 2) % g == 0
 
 
 def _choose_bk(K: int, g: int, pf: int, target: int) -> int:
@@ -686,8 +686,7 @@ def stacked_route(qt_stacked: QuantizedTensor, M: int, w4a8: bool = False) -> st
       * "fallback": the layer through ``ops.ref_matmul.qmatmul``; for a
         planar stack, a geometry the JAX gate admits no kernel for (at
         decode: no ``planar_bk`` and no fused full-K kernel, e.g. the 7B
-        down_proj K = 11008 with f32 scales), and groups of g % 4 != 0,
-        which JAX's planar kernels take and the port's do not.
+        down_proj K = 11008 with f32 scales).
 
     Not mirrored, as in every ported gate: the environment switches
     (``QLLM_TPU_FUSED_CORR``, ``QLLM_TPU_FUSED_CORR_V3``,
@@ -917,7 +916,7 @@ def grouped_fused_ok(gu: QuantizedTensor, dn: QuantizedTensor, n: int, act: str)
     width 2 * K2 with K2 <= 1024 and a buffer that K2 tiles, one group
     size, both stacks 4-bit planar, prefolded, without act-order, in the
     full-K geometry, with bf16 scales (the chip's rule, taken on every
-    device). As for K8, groups of a multiple of 4 (``_kernel_geometry_ok``).
+    device). As for K8, the planar kernels' geometry (``_kernel_geometry_ok``).
     JAX's switch ``QLLM_TPU_MOE_FUSED`` is the caller's ``moe_fused``."""
     K1, K2 = gu.in_features, dn.in_features
     if act not in _FUSED_ACTS or n > 16 or gu.out_features != 2 * K2 or K2 > 1024:
@@ -1063,7 +1062,7 @@ def pnp_stacked_ok(qt1: QuantizedTensor, qt2: QuantizedTensor) -> bool:
     with bf16 scales (the chip's rule, taken on every device); proj1
     unpadded and as wide as proj2 is deep; each (K/8) x bn word block
     within the 4 MiB full-K cap (bn = 512 at most). As for K1, groups of a
-    multiple of 4 (``_kernel_geometry_ok``)."""
+    size the planar kernels take (``_kernel_geometry_ok``)."""
     for qt in (qt1, qt2):
         K, g = qt.in_features, qt.effective_group_size
         if not (

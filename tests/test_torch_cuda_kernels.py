@@ -993,3 +993,150 @@ def test_flash_prefill_kernel_at_d384_and_d512(gen, int8, D, n_rep, softcap, win
     if softcap:
         bare = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 0.0, win)
         assert not torch.allclose(out, bare, atol=0.2, rtol=0.2)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K5 on wgmma; the planar kernels at any group size (g % 4 != 0)
+# ---------------------------------------------------------------------------
+
+
+def _k2_close(y, ref):
+    """K2 against its plain version: within one bf16 ulp of max|plain| (the
+    same bf16 weights and exact products, f32 sums in another order)."""
+    torch.testing.assert_close(y.float(), ref.float(), atol=_bf16_ulp(ref.float()), rtol=0)
+
+
+@pytest.mark.parametrize("M", [33, 64, 65, 1000, 2048])
+def test_k2_wgmma_matches_plain_at_every_m(gen, M):
+    K, Np = 1536, 512
+    qw, sc, zs = _stack(gen, K, Np)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm.w4_planar_gemm.launches
+    y = qmm.w4_planar_gemm(x, qw, sc, zs, 1)
+    assert qmm.w4_planar_gemm.launches == before + 1
+    _k2_close(y, qmm.w4_planar_gemm_plain(x, qw, sc, zs, 1))
+
+
+@pytest.mark.parametrize("K,N", [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)],
+                         ids=["qkv", "o", "gateup", "down"])
+def test_k2_wgmma_at_7b_shapes(gen, K, N):
+    qw, sc, zs = _stack(gen, K, N)
+    x = torch.randn((128, K), device="cuda", generator=gen).to(torch.bfloat16)
+    _k2_close(qmm.w4_planar_gemm(x, qw, sc, zs, 1), qmm.w4_planar_gemm_plain(x, qw, sc, zs, 1))
+
+
+@pytest.mark.parametrize("g", [3, 6, 8, 24, 128])
+def test_k2_wgmma_at_every_group_size(gen, g):
+    K, Np, M = 1536, 384, 200
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    _k2_close(qmm.w4_planar_gemm(x, qw, sc, zs, 1), qmm.w4_planar_gemm_plain(x, qw, sc, zs, 1))
+
+
+@pytest.mark.parametrize("g", [6, 128])
+def test_k2_rows_do_not_depend_on_m(gen, g):
+    """K2's rows at M = 64 (one 64-row chunk a block) equal the same rows
+    at M = 1024 (two a block) bit for bit: no split of K, one k order."""
+    K, Np = 3072, 1024
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    x = torch.randn((1024, K), device="cuda", generator=gen).to(torch.bfloat16)
+    assert torch.equal(qmm.w4_planar_gemm(x[:64], qw, sc, zs, 1), qmm.w4_planar_gemm(x, qw, sc, zs, 1)[:64])
+
+
+@pytest.mark.parametrize("g", [6, 3])
+def test_planar_kernels_at_g_not_multiple_of_4(gen, g):
+    """K1 (with and without the norm), K17, K18, K8, K11, K19 and K20 on
+    stacks whose groups end inside a planar word's quadruple, against their
+    plain versions with the limits of the tests above."""
+    K, Np = 768, 512
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    for M, norm in ((5, False), (8, True)):
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16) if norm else None
+        y = qmm.w4_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5).float()
+        ref = qmm.w4_planar_gemv_plain(x, qw, sc, zs, 1, nw, 1e-5).float()
+        torch.testing.assert_close(y, ref, atol=2e-2 * float(ref.abs().max()), rtol=2e-2)
+        args = (x, qw, sc, zs, 1, nw, 1e-5)
+        _a8_close(qmm.w4a8_planar_gemv(*args), qmm.w4a8_planar_gemv_plain(*args))
+    fq, fs = _f32s_stack(gen, K, Np, g)
+    for M, fn in ((8, qmm_planar.w4_planar_f32s_gemv), (40, qmm_planar.w4_planar_f32s_gemm),
+                  (130, qmm_planar.w4_planar_f32s_gemm)):
+        x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+        _f32s_close(fn(x, fq, fs, 1), x, fq, fs)
+    eq, es, ez = _stack_g(gen, K, Np, g, L=4)
+    ids = torch.tensor([3, 0, 3], dtype=torch.int32, device="cuda")
+    x = torch.randn((3, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4_grouped_gemv(x, eq, es, ez, ids, False).float()
+    ref = qmm.w4_grouped_gemv_plain(x, eq, es, ez, ids, False).float()
+    assert (y - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+    E, K1, K2, Np2, n = 4, 768, 768, 512, 3
+    gq, gs, gz = _stack_g(gen, K1, 2 * K2, g, L=E)
+    dq, ds, dz = _stack_g(gen, K2, Np2, g, L=E)
+    x = torch.randn((n, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    args = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", False)
+    ref = qmm.w4_grouped_fused_mlp_plain(*args).float()
+    torch.testing.assert_close(qmm.w4_grouped_fused_mlp(*args).float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    L, M, D = 2, 8, 768
+    q1, s1, z1 = _stack_g(gen, K1, D, g, L=L)
+    q2, s2, z2 = _stack_g(gen, D, Np2, g, L=L)
+    nw = (torch.rand((L, D), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    x1 = torch.randn((M, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    h = torch.randn((M, D), device="cuda", generator=gen) * 4.0
+    args = (x1, h, q1, s1, z1, q2, s2, z2, nw, 1, 1e-6)
+    hn, y2 = qmm.w4_pnp_gemv(*args)
+    hn_ref, y2_ref = qmm.w4_pnp_gemv_plain(*args)
+    torch.testing.assert_close(hn, hn_ref, atol=1e-5 * float(hn_ref.abs().max()), rtol=0)
+    torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)
+
+
+def _flash_inputs(gen, B, T, S, Hkv, n_rep, D, int8, softcap=0.0):
+    q = torch.randn((B, T, Hkv * n_rep, D), device="cuda", generator=gen).to(torch.bfloat16)
+    spread = torch.rand((B, Hkv, S), device="cuda", generator=gen) + 0.5
+    if int8:
+        k = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        v = torch.randint(-127, 128, (B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+        ks = spread * (softcap * 3**0.5 / 127) if softcap else spread * 0.01
+        vs = torch.rand((B, Hkv, S), device="cuda", generator=gen) * 0.01 + 0.005
+    else:
+        k = torch.randn((B, Hkv, S, D), device="cuda", generator=gen) * (spread * (softcap or 1.0))[..., None]
+        k, v = k.to(torch.bfloat16), torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(torch.bfloat16)
+        ks = vs = None
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 12])
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
+def test_k5_wgmma_matches_plain(gen, D, int8, n_rep):
+    """K5 on wgmma at every head width, int8 and bf16 K/V, n_rep 1 / 4 / 12,
+    T = 150 (no multiple of 64 or 128), pos 0 and 517, bf16 and f32 out,
+    within FLASH_TOL (atol/rtol 2e-2) of its plain version."""
+    B, T, S, Hkv = 2, 150, 700, 1 if n_rep == 12 else 2
+    q, k, v, ks, vs = _flash_inputs(gen, B, T, S, Hkv, n_rep, D, int8)
+    pos = torch.tensor([0, 517], dtype=torch.int32, device="cuda")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = fp.flash_prefill.launches
+        out = fp.flash_prefill(q, k, v, ks, vs, pos, out_dtype).float()
+        torch.cuda.synchronize()
+        assert fp.flash_prefill.launches == before + 1
+        ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, out_dtype).float()
+        torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("D", [128, 256, 384, 512])
+def test_k5_wgmma_softcap_and_window(gen, D, int8):
+    """K5 with the softcap 50 (scores of RMS 0.5-1.5 x the cap; the plain
+    version without the cap misses ten times the limit) and a window of 512
+    keys over T = S = 1100, within FLASH_TOL of its plain version."""
+    B, T, S, Hkv, n_rep = 1, 1100, 1100, 2, 2
+    q, k, v, ks, vs = _flash_inputs(gen, B, T, S, Hkv, n_rep, D, int8, softcap=50.0)
+    pos = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    win = torch.tensor([512], dtype=torch.int32, device="cuda")
+    out = fp.flash_prefill(q, k, v, ks, vs, pos, torch.float32, 50.0, win)
+    ref = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 50.0, win)
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+    bare = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 0.0, win)
+    assert not torch.allclose(out, bare, atol=0.2, rtol=0.2)
+    whole = fp.flash_prefill_plain(q, k, v, ks, vs, pos, torch.float32, 50.0, None)
+    assert not torch.allclose(out, whole, atol=0.2, rtol=0.2)

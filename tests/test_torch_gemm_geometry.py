@@ -8,7 +8,7 @@ redesign: what they take and how they split K.
   * The wrappers' geometry gates, run on the CPU with the C library
     replaced by a recorder (no card here): K10 takes every g that is a
     multiple of the pack factor and divides K (K9's geometry), K18 every
-    planar g % 4 == 0 split at K/2, and each refuses the rest.
+    planar g split at K/2, and each refuses the rest.
   * K10's split of K into segments: chosen from (K, N) alone, never from
     M; M decides only whether the segments spread over blocks (partial
     sums added in segment order by a second kernel) or stay in one.
@@ -106,8 +106,8 @@ def test_k10_gate(recorder, bits, K, g, taken):
     assert args[11:16] == (bits, M, K, N, g)
 
 
-# (K, g, taken): planar K % 128 == 0, g % 4 == 0 with (K / 2) % g == 0
-K18_GATES = [(768, 8, True), (768, 24, True), (1280, 40, True), (768, 6, False), (768, 256, False), (576, 8, False)]
+# (K, g, taken): planar K % 128 == 0, any g with (K / 2) % g == 0
+K18_GATES = [(768, 8, True), (768, 24, True), (1280, 40, True), (768, 6, True), (768, 256, False), (576, 8, False)]
 
 
 @pytest.mark.parametrize("K,g,taken", K18_GATES)
