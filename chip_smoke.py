@@ -680,15 +680,18 @@ def phase_kernels(torch, timer):
         w_sel = torch.stack([dequant(qw, sc, zs, e, Kf) for e in host_ids])  # [n, K, Np], outside the timing
         xs = x.expand(n, Kf) if shared else x
         lib_ms = timer(lambda: torch.bmm(xs[:, None, :], w_sel))
+        lib_device_ms = launch_us(torch, lambda: torch.bmm(xs[:, None, :], w_sel), key="") / 1e3
         del w_sel
         ms = timer(lambda: qmm.w4_grouped_gemv(*args))
+        device_ms = launch_us(torch, lambda: qmm.w4_grouped_gemv(*args), key="") / 1e3
         plain_ms = timer(lambda: qmm.w4_grouped_gemv_plain(*args), reps=5, warmup=1)
         uniq = len(set(host_ids))  # the experts this run's ids touch, each read once
         nbytes = uniq * (qw[0].numel() * 4 + 2 * sc[0].numel() * 2) + x.numel() * 2 + n * Np * 2 + n * 4
         b_ms, b_by = bound(nbytes, 2.0 * n * Kf * Np)
         rows.append(dict(kernel="w4_grouped_gemv", case=f"{cname} K={Kf} N={Np} E={E} n={n} {mode} ({uniq} experts)",
                          max_abs_err=err, tol=f"{K8_TOL[0]}*{scale:.4g} + {K8_TOL[1]}, equal pairs bit-equal",
-                         ok=bool(ok), ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                         ok=bool(ok), ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_device_ms, bound_ms=b_ms, bound_by=b_by))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"w4_grouped_gemv {cname}: max_abs_err {err}, equal pair {same}")
@@ -1121,7 +1124,9 @@ def split_ab(torch, timer, gen):
 def gptq_rows(torch, timer, gen):
     """K9 / K10 on random GPTQ-order weights (fp16 scales, mid-range
     zeros, as the loaders give them) against their plain versions; the
-    library time is torch.matmul on the pre-dequantized bf16 weight."""
+    library time is torch.matmul on the pre-dequantized bf16 weight. Each
+    row also gives a call's device time and the library call's
+    (torch.profiler), since an event pair holds the wrapper's host time."""
     from qllm_tpu_torch.ops import qmm2d
     from qllm_tpu_torch.ops.ref_matmul import dequant_ref
     from qllm_tpu_torch.utils.testing import random_quantized_tensor
@@ -1149,15 +1154,16 @@ def gptq_rows(torch, timer, gen):
         ok = torch.allclose(y.float(), y_ref.float(), atol=QMM_TOL * scale, rtol=QMM_TOL)
         w = dequant_ref(qt, torch.bfloat16)
         lib_ms = timer(lambda: torch.matmul(xp, w))
+        lib_device_ms = launch_us(torch, lambda: torch.matmul(xp, w), key="") / 1e3
         del w
         ms = timer(run)
         plain_ms = timer(lambda: plain(xp, *w_args), reps=5, warmup=1)
         nbytes = qt.qweight.numel() * 4 + 2 * qt.scales.numel() * qt.scales.element_size() + M * Kf * 2 + M * N * 2
         nbytes += Kf * 4 if act_order else 0
         b_ms, b_by = bound(nbytes, 2.0 * M * Kf * N)
-        # K10: a call's device time (the group sums, the product and, for a
+        # a call's device time (K10: the group sums, the product and, for a
         # split launch, the segments' sum), beside the event pair
-        dev = {"device_ms": launch_us(torch, run, key="") / 1e3} if kname == "gptq_gemm" else {}
+        dev = {"device_ms": launch_us(torch, run, key="") / 1e3, "library_device_ms": lib_device_ms}
         rows.append(dict(kernel=kname, case=f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
                          max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok), ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **dev))
@@ -1185,7 +1191,8 @@ def a8_rows(torch, timer, gen, stack, dequant):
     GPTQ-order weights at the serve path's shapes, each against its plain
     version; the quantizer's x8 and sx against the plain quantizer's, bit
     for bit; K12's rows at M = 1 against the same rows inside M = 8. The
-    library time is torch.matmul on the pre-dequantized bf16 weight."""
+    library time is torch.matmul on the pre-dequantized bf16 weight; each
+    row also gives both calls' device times (torch.profiler)."""
     from qllm_tpu_torch.ops import qmm, qmm2d
     from qllm_tpu_torch.ops.ref_matmul import dequant_ref
     from qllm_tpu_torch.utils.testing import random_quantized_tensor
@@ -1199,6 +1206,8 @@ def a8_rows(torch, timer, gen, stack, dequant):
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
         # the prologue alone, without a norm (launched from K11's and K12's own entry points)
         extra = {**(extra or {}), "quantizer_ms": timer(lambda: qmm.quantize_rows_int8(x, 128))}
+        # a call's device time (the quantizer prologue included) and the library's
+        extra.update(device_ms=launch_us(torch, run, key="") / 1e3, library_device_ms=launch_us(torch, lib, key="") / 1e3)
         rows.append(dict(kernel=kname, case=case, max_abs_err=err, tol=f"1 bf16 ulp + {A8_TOL}*max|plain|",
                          x8_sx_bit_equal=quant_equal, ok=ok, ms=timer(run),
                          plain_ms=timer(plain, reps=5, warmup=1), library_ms=timer(lib), bound_ms=b_ms,
@@ -3011,14 +3020,20 @@ def stacked_rows(torch, timer, gen):
     """K14, K15 and K16 at the 7B stacked shapes against their plain
     versions (1e-2 * max|plain|, the largest gap also in bf16 ulps of the
     plain output), with a control: the same kernel output against the
-    plain version of the next layer must miss the limit. Library time:
-    torch.matmul on the layer dequantized to bf16."""
+    plain version of the next layer must miss the limit. K14 and K16 also
+    hold their tensor cores' rounding: fused (bf16) outputs within one bf16
+    ulp of max|plain|; unfused (f32) outputs within F32S_TIGHT of
+    max|plain|, which x @ the weight q * s rounded to bf16 first must miss.
+    Library time: torch.matmul on the layer dequantized to bf16. Each
+    reading also gives a call's device time (the split sum included) and
+    the library call's, from torch.profiler."""
     from qllm_tpu_torch.ops import qmm, qmm_stacked as qs
     from qllm_tpu_torch.quant.qtensor import unpack_rows
 
     rows = []
     for kname, bits, sd, fused in STACKED_VARIANTS:
         dtype = torch.float32 if sd == "f32" else torch.bfloat16
+        tight = kname != "gptq_stacked_w4a8_gemv"
         for pname, Kf, N in STACKED_PROJ:
             Np = -(-N // 512) * 512
             G = Kf // 128
@@ -3027,8 +3042,11 @@ def stacked_rows(torch, timer, gen):
             sc = (torch.rand((STACK_L, G, Np), device=DEV, generator=gen) + 0.5) * widths_scale(bits)
             zs = (sc * ((1 << bits) / 2.0 - 0.5)).to(dtype)
             sc = sc.to(dtype)
-            w = ((unpack_rows(qw[1], bits, Kf).float().reshape(G, 128, Np) * sc[1].float()[:, None]
-                  - zs[1].float()[:, None]).reshape(Kf, Np).to(torch.bfloat16))
+            q = unpack_rows(qw[1], bits, Kf).float().reshape(G, 128, Np)
+            w = (q * sc[1].float()[:, None] - zs[1].float()[:, None]).reshape(Kf, Np).to(torch.bfloat16)
+            # the unfused control: the weight q * s rounded to bf16 first
+            wq = (q * sc[1].float()[:, None]).reshape(Kf, Np).to(torch.bfloat16) if tight and not fused else None
+            del q
             for M in ((1, 8, 32) if pname in ("gateup", "down") else (8,)):
                 x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
                 if kname == "gptq_stacked_w4a8_gemv":
@@ -3049,9 +3067,19 @@ def stacked_rows(torch, timer, gen):
                 control = float((yf - plain(*args(2)).float()).abs().max())
                 limit = STACKED_TOL * scale
                 ok = err <= limit < control
+                extra = {}
+                if tight and fused:
+                    extra = dict(tight_tol=f"one bf16 ulp: {bf16_ulp(ref):.4g}")
+                    ok = ok and err <= bf16_ulp(ref)
+                elif tight:
+                    control_bf16 = float((torch.matmul(x.float(), wq.float()) - ref).abs().max())
+                    extra = dict(tight_tol=f"{F32S_TIGHT}*{scale:.4g}", control_bf16_weight_err=control_bf16)
+                    ok = ok and err <= F32S_TIGHT * scale < control_bf16
                 ms = timer(lambda: fn(*args(1)))
                 plain_ms = timer(lambda: plain(*args(1)), reps=5, warmup=1)
                 lib_ms = timer(lambda: torch.matmul(x, w))
+                device_ms = launch_us(torch, lambda: fn(*args(1)), key="") / 1e3
+                lib_device_ms = launch_us(torch, lambda: torch.matmul(x, w), key="") / 1e3
                 # the function's bytes: the layer's words and scales (and zs
                 # when fused), x in, y out (bf16 fused, else f32)
                 nbytes = (qw[1].numel() * 4 + sc[1].numel() * sc.element_size() * (2 if fused else 1)
@@ -3059,12 +3087,13 @@ def stacked_rows(torch, timer, gen):
                 b_ms, b_by = bound(nbytes, 2.0 * M * Kf * Np, PEAK_INT8 if "w4a8" in kname else PEAK_BF16)
                 case = f"{pname} K={Kf} N={Np} M={M} {bits}-bit {sd} scales" + (" fused" if fused else "")
                 rows.append(dict(kernel=kname, case=case, max_abs_err=err, max_err_bf16_ulps=err_ulps,
-                                 tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control, ok=bool(ok),
-                                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                                 tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control, **extra, ok=bool(ok),
+                                 ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 library_device_ms=lib_device_ms, bound_ms=b_ms, bound_by=b_by))
                 log(f"[kernel] {json.dumps(rows[-1])}")
                 if not ok:
-                    raise AssertionError(f"{kname} {case}: max_abs_err {err}, limit {limit}, control {control}")
-            del qw, sc, zs, w
+                    raise AssertionError(f"{kname} {case}: max_abs_err {err}, limit {limit}, control {control}, {extra}")
+            del qw, sc, zs, w, wq
         torch.cuda.empty_cache()
     return rows
 
@@ -3171,13 +3200,15 @@ def widths_cross(torch, cfg, sp, B, T, w4a8):
     return res, ok
 
 
-def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=None):
+def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=None, profile_prefill=False):
     """One widths leg: B prompts of T tokens prefilled (a16) into a fresh
     int8 cache and ``steps`` greedy steps (``w4a8`` as given), with every
     count set to 0 just before and the launches asserted; tok/s, the device
-    busy share of 4 warm steps, peak GiB; the streams against teacher-forced
-    prefills (check_streams' limits; ``chunk``: in forwards of that many
-    rows); and the first steps card against CPU on a cut of the stacks."""
+    busy share of 4 warm steps (with ``profile_prefill``, of a warm prefill
+    too: its device ms by kernel), peak GiB; the streams against
+    teacher-forced prefills (check_streams' limits; ``chunk``: in forwards
+    of that many rows); and the first steps card against CPU on a cut of
+    the stacks."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
     from qllm_tpu_torch.models.generate import make_cache, prefill
 
@@ -3209,6 +3240,10 @@ def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=
     peak = torch.cuda.max_memory_allocated() / 2**30
     busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + steps, steps=4, w4a8=w4a8)
     del cache
+    if profile_prefill:  # a warm prefill into a fresh cache, after the counts were read
+        log(f"[widths] {tag}: warm prefill profile")
+        busy["prefill"] = profile_run(
+            torch, lambda: prefill(sp, cfg, prompts, make_cache(cfg, B, T + steps + 8, device=DEV), device=DEV), 1)
     streams = [(prompts[b].tolist(), [int(first[b, 0])] + toks[b].tolist()) for b in range(B)]
     if chunk is None:
         reads = [stream_check(torch, sp, cfg, p, o) for p, o in streams]
@@ -3256,7 +3291,8 @@ def phase_widths(torch, K):
     def leg(name, bits, layers, sd, B, T, expected, planar=True, act_order=False, w4a8=False, chunk=None):
         t0 = time.time()
         cfg, sp = widths_model(torch, bits, layers, sd, planar=planar, act_order=act_order)
-        runs[f"widths_{name}"] = widths_leg(torch, K, name, cfg, sp, B, T, S, expected, w4a8=w4a8, chunk=chunk)
+        runs[f"widths_{name}"] = widths_leg(torch, K, name, cfg, sp, B, T, S, expected, w4a8=w4a8, chunk=chunk,
+                                            profile_prefill=bits in (3, 5, 6, 7))
         del sp
         torch.cuda.empty_cache()
         log(f"[time] widths {name} {time.time() - t0:.1f} s")
@@ -3890,7 +3926,7 @@ def summary_entry(name, replaces, launches, mine, headline=""):
                                   "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv",
                                   "decode_attn_int8_4d"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "device_ms", "max_abs_err", "bound_ms", "library_ms",
-                                                "plain_ms") if k in r} for r in mine]
+                                                "library_device_ms", "plain_ms") if k in r} for r in mine]
     if "yardstick_ms" in head:
         entry["yardstick"] = head["yardstick"]
         entry["yardstick_ms"] = head["yardstick_ms"]

@@ -8,142 +8,27 @@
 // stack by pointer arithmetic: nothing copies it out.
 //
 // Bound on the H100: bytes (each layer's words, scales and zs, read once).
-// Design, as K9's (gptq_mm.cu:47): one thread per output column, so a warp
-// reads one 128-byte run of a word row, word rows loaded ahead of their
-// arithmetic, MT rows of f32 sums in registers (MT = 1, 8 or 32, the
-// smallest that holds M; each row's sums run the same way at any MT), and
-// x tiles in shared memory read by every lane at once (a broadcast). K is
-// split over gridDim.y by a count chosen from K and N alone; each split
-// writes its f32 partial sums and a second kernel adds them in split
-// order, so a row's result never depends on M or on the run.
+// K14 runs its group dots on the tensor cores (csrc/stacked_mma.cuh, the
+// body it shares with K16). K15, as K9 (gptq_mm.cu:47): one thread per
+// output column, so a warp reads one 128-byte run of a word row, word rows
+// loaded ahead of their arithmetic, MT rows of sums in registers (MT = 1,
+// 8 or 32, the smallest that holds M; each row's sums run the same way at
+// any MT), and x tiles in shared memory read by every lane at once (a
+// broadcast). K is split over gridDim.y by a count chosen from K and N
+// alone; each split writes its f32 partial sums and a second kernel adds
+// them in split order, so a row's result never depends on M or on the run.
 
 #include "common.cuh"
+#include "stacked_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kPre = 8;  // word rows a thread loads ahead
 
-// ---------------------------------------------------------------------------
-// K14 gptq_stacked_gemv.
-//
-// Replaces _qmm_kernel_v3_stacked (pallas_qmm.py:476) and
-// _qmm_kernel_v4_stacked (:514). With x in f32 and q the unsigned field:
-//   v3 (FUSE false): y[m, n] = sum_g s_g[n] * (x_g . q_g[:, n]), f32 out;
-//                    the caller takes off xsum_g @ zs_g outside, as JAX does;
-//   v4 (FUSE true):  y[m, n] = sum_g (s_g[n] * (x_g . q_g[:, n])
-//                    - sum(x_g) * zs_g[n]), rounded to bf16.
-// The group's x sums come from per-word sums kept beside the x tile.
-// ---------------------------------------------------------------------------
-
-constexpr int kKT = 256;  // k per x tile in shared memory
-
-template <int BITS, int MT, bool FUSE>
-__global__ void __launch_bounds__(kThreads)
-    gptq_stacked_gemv_kernel(const void* __restrict__ x, int x_f32,    // [M, K]
-                             const uint32_t* __restrict__ qw,          // [K/pf, Np] of the layer
-                             const void* __restrict__ sc, const void* __restrict__ zs, int s_type,  // [G, Np]
-                             int M, int K, int Np, int g, int rows_per_split,
-                             float* __restrict__ part,  // [splits, M, Np] when split
-                             void* __restrict__ out) {  // [M, Np] f32 (v3) or bf16 (v4) when not
-  constexpr int PF = 32 / BITS;
-  constexpr uint32_t kMask = (1u << BITS) - 1u;
-  constexpr int kWT = kKT / PF;  // word rows per x tile
-  __shared__ float xs[MT][kKT];
-  __shared__ float xw[FUSE ? MT : 1][kWT];  // sums of x over each word's pf values
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * kThreads + tid;
-  const bool col = n < Np;
-  const int rows = K / PF;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(rows, r0 + rows_per_split);
-
-  float y[MT], dot[MT], xg[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) y[m] = dot[m] = xg[m] = 0.f;
-  // the group open at r0: its parameters and the k values it has left
-  int left = g - (r0 * PF) % g;
-  float s = 0.f, z = 0.f;
-  auto load_group = [&](int k) {
-    const size_t gi = static_cast<size_t>(k / g) * Np + n;
-    s = load_param(sc, s_type, gi);
-    if (FUSE) z = load_param(zs, s_type, gi);
-  };
-  auto close = [&]() {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      y[m] = FUSE ? y[m] + dot[m] * s - xg[m] * z : fmaf(dot[m], s, y[m]);
-      dot[m] = xg[m] = 0.f;
-    }
-  };
-  if (col && r0 < r1) load_group(r0 * PF);
-
-  for (int k0 = r0 * PF; k0 < r1 * PF; k0 += kKT) {
-    const int kn = min(kKT, r1 * PF - k0);
-    __syncthreads();
-    for (int i = tid; i < MT * kKT; i += kThreads) {
-      const int m = i / kKT, kk = i % kKT;
-      xs[m][kk] = (m < M && kk < kn) ? load_x(x, x_f32, static_cast<size_t>(m) * K + k0 + kk) : 0.f;
-    }
-    __syncthreads();
-    if (FUSE) {
-      for (int i = tid; i < MT * kWT; i += kThreads) {
-        const int m = i / kWT, w = i % kWT;
-        float a = 0.f;
-#pragma unroll
-        for (int f = 0; f < PF; ++f) a += xs[m][w * PF + f];
-        xw[m][w] = a;
-      }
-      __syncthreads();
-    }
-    if (col) {
-      const int ra = k0 / PF, rb = (k0 + kn) / PF;
-      for (int rc = ra; rc < rb; rc += kPre) {
-        uint32_t wb[kPre];
-#pragma unroll
-        for (int i = 0; i < kPre; ++i)
-          wb[i] = rc + i < rb ? __ldcs(qw + static_cast<size_t>(rc + i) * Np + n) : 0u;
-#pragma unroll
-        for (int i = 0; i < kPre; ++i) {
-          const int r = rc + i;
-          if (r >= rb) break;
-          const float* xr = &xs[0][(r - ra) * PF];
-#pragma unroll
-          for (int f = 0; f < PF; ++f) {
-            const float q = static_cast<float>((wb[i] >> (BITS * f)) & kMask);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) dot[m] = fmaf(xr[m * kKT + f], q, dot[m]);
-          }
-          if (FUSE) {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) xg[m] += xw[m][r - ra];
-          }
-          left -= PF;
-          if (left == 0) {  // the group ends with this word
-            close();
-            left = g;
-            if (r + 1 < r1) load_group((r + 1) * PF);
-          }
-        }
-      }
-    }
-  }
-  if (!col) return;
-  if (left != g) close();  // the split ends inside a group
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
-      const size_t o = static_cast<size_t>(m) * Np + n;
-      if (part != nullptr)
-        part[(static_cast<size_t>(blockIdx.y) * M + m) * Np + n] = y[m];
-      else if (FUSE)
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y[m]);
-      else
-        static_cast<float*>(out)[o] = y[m];
-    }
-  }
-}
+// K14 gptq_stacked_gemv replaces _qmm_kernel_v3_stacked (pallas_qmm.py:476,
+// unfused, f32 out) and _qmm_kernel_v4_stacked (:514, fused, bf16 out):
+// stacked_mma::stacked_mma_kernel on stacked_mma::GptqOrder<bits>.
 
 // ---------------------------------------------------------------------------
 // K15 gptq_stacked_w4a8_gemv.
@@ -260,30 +145,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int BITS, int MT>
-void launch_k14_mt(dim3 grid, cudaStream_t st, int fused, const void* x, int x_f32, const uint32_t* qw,
-                   const void* sc, const void* zs, int s_type, int M, int K, int Np, int g, int rps, float* part,
-                   void* out) {
-  if (fused)
-    gptq_stacked_gemv_kernel<BITS, MT, true>
-        <<<grid, kThreads, 0, st>>>(x, x_f32, qw, sc, zs, s_type, M, K, Np, g, rps, part, out);
-  else
-    gptq_stacked_gemv_kernel<BITS, MT, false>
-        <<<grid, kThreads, 0, st>>>(x, x_f32, qw, sc, zs, s_type, M, K, Np, g, rps, part, out);
-}
-
-template <int BITS>
-void launch_k14_bits(dim3 grid, cudaStream_t st, int fused, const void* x, int x_f32, const uint32_t* qw,
-                     const void* sc, const void* zs, int s_type, int M, int K, int Np, int g, int rps, float* part,
-                     void* out) {
-  if (M <= 1)
-    launch_k14_mt<BITS, 1>(grid, st, fused, x, x_f32, qw, sc, zs, s_type, M, K, Np, g, rps, part, out);
-  else if (M <= 8)
-    launch_k14_mt<BITS, 8>(grid, st, fused, x, x_f32, qw, sc, zs, s_type, M, K, Np, g, rps, part, out);
-  else
-    launch_k14_mt<BITS, 32>(grid, st, fused, x, x_f32, qw, sc, zs, s_type, M, K, Np, g, rps, part, out);
-}
-
 template <int BITS>
 void launch_k15_bits(dim3 grid, cudaStream_t st, const int8_t* x8, const uint32_t* qw, const void* sc, int s_type,
                      int M, int K, int Np, int g, int rps, float* part, float* out) {
@@ -323,17 +184,11 @@ QLLM_API int qllm_gptq_stacked_gemv(const void* x, int x_f32, const void* qweigh
   const auto* qw = static_cast<const uint32_t*>(qweight) + layer * lw;
   const void* sc = param_offset(scales, s_type, layer * ls);
   const void* zz = fused ? param_offset(zs, s_type, layer * ls) : nullptr;
-  const dim3 grid((Np + kThreads - 1) / kThreads, splits);
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
   if (bits == 2)
-    launch_k14_bits<2>(grid, st, fused, x, x_f32, qw, sc, zz, s_type, M, K, Np, g, rows_per_split, p, out);
-  else
-    launch_k14_bits<4>(grid, st, fused, x, x_f32, qw, sc, zz, s_type, M, K, Np, g, rows_per_split, p, out);
-  if (splits > 1) {
-    const int MN = M * Np;
-    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, fused, out);
-  }
-  return qllm_launch_status();
+    return stacked_mma::run<stacked_mma::GptqOrder<2>>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g,
+                                                        splits, rows_per_split, st);
+  return stacked_mma::run<stacked_mma::GptqOrder<4>>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g,
+                                                      splits, rows_per_split, st);
 }
 
 // K15: x8 [M, K] int8 against layer `layer` of qweight [L, K/pf, Np] and

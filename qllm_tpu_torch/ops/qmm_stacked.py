@@ -28,7 +28,7 @@ the work outside the kernels are ``ops.qmm.qmatmul_stacked``'s.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,9 +44,31 @@ __all__ = [
     "bitplane_stacked_gemv",
     "bitplane_stacked_gemv_plain",
     "STACKED_MAX_M",
+    "tc_splits",
+    "TC_TARGET_BLOCKS",
 ]
 
 STACKED_MAX_M = 32
+# K14 / K16: the blocks of 128 output columns a launch may hold, as many as
+# the H100's 132 SMs hold at M <= 8 (K14 four an SM, K16 three: its
+# registers), so the grid runs in one wave; and the fewest word rows (K14)
+# or words of each plane (K16) a split of K takes
+TC_TARGET_BLOCKS = {"gptq_stacked_gemv": 4 * 132, "bitplane_stacked_gemv": 3 * 132}
+_TC_BLOCK_COLS = 128
+_TC_MIN_UNITS = 16
+
+
+def tc_splits(units: int, N: int, target: int) -> Tuple[int, int]:
+    """K14's and K16's split of K: (splits, units per split) for a layer
+    of ``units`` word rows (K14) or words a plane (K16) and N columns: the
+    most splits whose blocks stay within ``target`` (the kernel's entry of
+    TC_TARGET_BLOCKS). It depends on the weight's shape alone, so a row's
+    sums never depend on M; the splits cover the units, the last one
+    shorter."""
+    blocks_n = -(-N // _TC_BLOCK_COLS)
+    splits = max(1, min(target // blocks_n, units // _TC_MIN_UNITS))
+    per = -(-units // splits)
+    return -(-units // per), per
 
 
 def _group(K: int, group_size: int) -> int:
@@ -146,7 +168,9 @@ def _launch_dot(name, fn, x, qweight, scales, zs, layer, bits, group_size, fused
     Np, s_type = _check(name, x, qweight, scales, zs if fused else None, layer, words, K, g,
                         (torch.bfloat16, torch.float32))
     x = x.contiguous()
-    splits, per = _gemv_splits(splits_rows, Np)
+    if x.data_ptr() % 16:  # the kernels stage x by 16-byte copies
+        x = x.clone()
+    splits, per = tc_splits(splits_rows, Np, TC_TARGET_BLOCKS[name])
     part = torch.empty((splits, M, Np), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((M, Np), dtype=torch.bfloat16 if fused else torch.float32, device=x.device)
     code = fn(

@@ -361,15 +361,95 @@ def test_k16_bitplane_stacked_gemv_matches_plain(gen, bits, K, Np, g, M, fused):
 
 def test_stacked_gemv_rows_do_not_depend_on_m(gen):
     """Batch invariance of K14 and K16, as K9's: a row alone and inside M =
-    8 give the same bits (their K splits depend on K and N alone)."""
+    8 and M = 32 give the same bits, fused and unfused (their K splits
+    depend on K and N alone, and a tensor-core product's column depends on
+    its own B column only)."""
     from qllm_tpu_torch.ops import qmm_stacked as qs
 
-    x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    x = torch.randn((32, 4096), device="cuda", generator=gen).to(torch.bfloat16)
     for bits, fn in ((2, qs.gptq_stacked_gemv), (3, qs.bitplane_stacked_gemv)):
         qw, sc, zs = _packed_stack(gen, bits, 4096, 4096, 128, dtype=torch.bfloat16)
-        y8 = fn(x, qw, sc, zs, 1, bits, 128, True)
-        for m in (0, 5):
-            assert torch.equal(fn(x[m : m + 1], qw, sc, zs, 1, bits, 128, True)[0], y8[m]), (bits, m)
+        for fused in (True, False):
+            y8 = fn(x[:8], qw, sc, zs, 1, bits, 128, fused)
+            y32 = fn(x, qw, sc, zs, 1, bits, 128, fused)
+            for m in (0, 5, 31):
+                alone = fn(x[m : m + 1], qw, sc, zs, 1, bits, 128, fused)[0]
+                assert torch.equal(alone, y32[m]), (bits, fused, m)
+                if m < 8:
+                    assert torch.equal(alone, y8[m]), (bits, fused, m)
+
+
+def _stacked_tight(y, ref, x, qw, sc, layer, bits, g, fused):
+    """K14 / K16 against their plain version at the tensor cores' rounding:
+    fused (bf16) outputs within one bf16 ulp of max|plain|; unfused (f32)
+    outputs within 1e-4 * max|plain|, which the product with the weight q
+    * s rounded to bf16 first (a dequantize-then-dot kernel) misses."""
+    from qllm_tpu_torch.quant.qtensor import unpack_rows
+
+    y, ref = y.float(), ref.float()
+    if fused:
+        assert float((y - ref).abs().max()) <= _bf16_ulp(ref)
+        return
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(y, ref, atol=1e-4 * scale, rtol=0)
+    K, Np = x.shape[1], qw.shape[-1]
+    w = unpack_rows(qw[layer], bits, K).float().reshape(K // g, g, Np) * sc[layer].float()[:, None]
+    w = w.reshape(K, Np).to(torch.bfloat16)
+    assert float((x.float() @ w.float() - ref).abs().max()) > 1e-4 * scale
+
+
+# (bits, K, Np, g, M, fused, x dtype, layer): M = 16 / 32 at every width,
+# groups that end inside one MMA step (K14 4-bit g = 8, 2-bit g = 16, K16
+# g = 8 and 16), g = K, f32 x whose values are not bf16, a layer other
+# than 1, Np not a multiple of 64 (and not of 4: the scalar-load path)
+_K14_TC = [
+    (2, 1024, 640, 128, 16, False, torch.bfloat16, 1), (2, 1024, 640, 128, 32, True, torch.bfloat16, 1),
+    (4, 1024, 512, 128, 16, True, torch.bfloat16, 1), (4, 1024, 512, 128, 32, False, torch.bfloat16, 1),
+    (4, 512, 384, 8, 8, False, torch.bfloat16, 1), (4, 512, 384, 8, 32, True, torch.bfloat16, 1),
+    (2, 512, 384, 16, 8, True, torch.bfloat16, 1), (2, 512, 384, 16, 32, False, torch.bfloat16, 1),
+    (2, 2048, 256, 2048, 5, False, torch.bfloat16, 1), (4, 2048, 256, 2048, 32, True, torch.bfloat16, 1),
+    (2, 1024, 512, 64, 8, False, torch.float32, 1), (4, 768, 256, 32, 32, True, torch.float32, 1),
+    (2, 1024, 200, 128, 8, True, torch.bfloat16, 2), (4, 512, 202, 64, 17, False, torch.bfloat16, 0),
+    (2, 768, 202, 48, 3, True, torch.float32, 2),
+]
+_K16_TC = [
+    (b, 1024, 384, 128, M, fused, torch.bfloat16, 1) for b in (3, 5, 6, 7) for M, fused in ((16, False), (32, True))
+] + [
+    (3, 512, 384, 8, 8, False, torch.bfloat16, 1), (5, 512, 384, 8, 32, True, torch.bfloat16, 1),
+    (7, 512, 256, 16, 1, True, torch.bfloat16, 1), (6, 512, 256, 16, 32, False, torch.bfloat16, 1),
+    (3, 1024, 256, 1024, 32, False, torch.bfloat16, 1), (7, 2048, 256, 2048, 8, True, torch.bfloat16, 1),
+    (3, 1024, 512, 64, 8, False, torch.float32, 1), (6, 768, 256, 24, 32, True, torch.float32, 1),
+    (3, 1024, 200, 128, 8, True, torch.bfloat16, 2), (5, 640, 202, 40, 12, False, torch.bfloat16, 0),
+]
+
+
+def _tc_case(gen, bits, K, Np, g, M, fused, xdtype, layer, fn, plain):
+    dtype = torch.bfloat16 if fused else torch.float32
+    qw, sc, zs = _packed_stack(gen, bits, K, Np, g, L=4, dtype=dtype)
+    x = torch.randn((M, K), device="cuda", generator=gen, dtype=torch.float32)
+    if xdtype == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    else:  # values that bf16 cannot hold: the kernel's three-way split
+        assert not torch.equal(x, x.to(torch.bfloat16).float())
+    y = fn(x, qw, sc, zs, layer, bits, g, fused)
+    assert y.dtype == (torch.bfloat16 if fused else torch.float32)
+    ref = plain(x, qw, sc, zs, layer, bits, g, fused)
+    _close_to_plain_not_to_next_layer(y, ref, plain(x, qw, sc, zs, layer + 1, bits, g, fused))
+    _stacked_tight(y, ref, x, qw, sc, layer, bits, g, fused)
+
+
+@pytest.mark.parametrize("bits,K,Np,g,M,fused,xdtype,layer", _K14_TC)
+def test_k14_tensor_cores_match_plain(gen, bits, K, Np, g, M, fused, xdtype, layer):
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    _tc_case(gen, bits, K, Np, g, M, fused, xdtype, layer, qs.gptq_stacked_gemv, qs.gptq_stacked_gemv_plain)
+
+
+@pytest.mark.parametrize("bits,K,Np,g,M,fused,xdtype,layer", _K16_TC)
+def test_k16_tensor_cores_match_plain(gen, bits, K, Np, g, M, fused, xdtype, layer):
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    _tc_case(gen, bits, K, Np, g, M, fused, xdtype, layer, qs.bitplane_stacked_gemv, qs.bitplane_stacked_gemv_plain)
 
 
 def _f32s_stack(gen, K, Np, g, L=3):

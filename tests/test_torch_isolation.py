@@ -1,6 +1,6 @@
 """The port stands alone: importing every qllm_tpu_torch module (and
-chip_smoke.py) loads neither jax nor qllm_tpu, and the entry points run
-on the card unless the caller asks for the CPU."""
+chip_smoke.py, chip_stacked_ab.py) loads neither jax nor qllm_tpu, and
+the entry points run on the card unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -19,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(qllm_tpu_torch.__path__, "qllm_tp
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import chip_stacked_ab
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "qllm_tpu" or m.startswith("qllm_tpu."))
