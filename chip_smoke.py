@@ -359,6 +359,7 @@ A8_GPTQ_CASES = (
     (1, "gate/up", 4096, 11008, 4, False),
     (8, "gate/up", 4096, 11008, 4, False),
     (8, "gate/up", 4096, 11008, 2, False),
+    (8, "q/k/v/o", 4096, 4096, 4, False),
     (8, "q/k/v/o", 4096, 4096, 4, True),
 )
 # the W4A8 decode leg (bench.py:653-691): batch, prompt, steps per leg,
@@ -1124,7 +1125,8 @@ def split_ab(torch, timer, gen):
 def gptq_rows(torch, timer, gen):
     """K9 / K10 on random GPTQ-order weights (fp16 scales, mid-range
     zeros, as the loaders give them) against their plain versions; the
-    library time is torch.matmul on the pre-dequantized bf16 weight. Each
+    library time is torch.matmul on the pre-dequantized bf16 weight (after
+    the same gather of x for the act-order row). Each
     row also gives a call's device time and the library call's
     (torch.profiler), since an event pair holds the wrapper's host time."""
     from qllm_tpu_torch.ops import qmm2d
@@ -1143,9 +1145,12 @@ def gptq_rows(torch, timer, gen):
             qt = dataclasses.replace(qt, perm=perm)
             run = lambda: qmm2d.qmatmul_2d(x, qt)  # noqa: E731
             xp = x.index_select(1, perm.long())
+            # the library call gathers x by the perm too (like for like)
+            xl = lambda: torch.index_select(x, 1, perm.long())  # noqa: E731
         else:
             run = lambda: fn(x, *w_args)  # noqa: E731
             xp = x
+            xl = lambda: x  # noqa: E731
         y = run()
         torch.cuda.synchronize()
         y_ref = plain(xp, *w_args)
@@ -1153,8 +1158,8 @@ def gptq_rows(torch, timer, gen):
         err = float((y.float() - y_ref.float()).abs().max())
         ok = torch.allclose(y.float(), y_ref.float(), atol=QMM_TOL * scale, rtol=QMM_TOL)
         w = dequant_ref(qt, torch.bfloat16)
-        lib_ms = timer(lambda: torch.matmul(xp, w))
-        lib_device_ms = launch_us(torch, lambda: torch.matmul(xp, w), key="") / 1e3
+        lib_ms = timer(lambda: torch.matmul(xl(), w))
+        lib_device_ms = launch_us(torch, lambda: torch.matmul(xl(), w), key="") / 1e3
         del w
         ms = timer(run)
         plain_ms = timer(lambda: plain(xp, *w_args), reps=5, warmup=1)
@@ -1165,7 +1170,8 @@ def gptq_rows(torch, timer, gen):
         # split launch, the segments' sum), beside the event pair
         dev = {"device_ms": launch_us(torch, run, key="") / 1e3, "library_device_ms": lib_device_ms}
         rows.append(dict(kernel=kname, case=f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
-                         max_abs_err=err, tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok), ms=ms,
+                         max_abs_err=err, max_err_ulps_of_max=err / bf16_ulp(y_ref),
+                         tol=f"atol {QMM_TOL}*{scale:.4g} rtol {QMM_TOL}", ok=bool(ok), ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **dev))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
@@ -1249,9 +1255,12 @@ def a8_rows(torch, timer, gen, stack, dequant):
             qt = dataclasses.replace(qt, perm=perm)
             run = lambda: qmm2d.qmatmul_2d(x, qt, w4a8=True)  # noqa: E731
             xp = x.index_select(1, perm.long())
+            # the library call gathers x by the perm too (like for like)
+            lib = lambda: torch.matmul(torch.index_select(x, 1, perm.long()), w)  # noqa: E731
         else:
             run = lambda: qmm2d.gptq_w4a8_gemv(x, *w_args)  # noqa: E731
             xp = x
+            lib = lambda: torch.matmul(x, w)  # noqa: E731
         y = run()
         torch.cuda.synchronize()
         if M == 8 and not act_order:  # batch invariance: rows 0 and 5 alone
@@ -1264,7 +1273,7 @@ def a8_rows(torch, timer, gen, stack, dequant):
         nbytes += Kf * 4 if act_order else 0
         record("gptq_w4a8_gemv", f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
                y, qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), quant_equal(xp, 128), run,
-               lambda: qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), lambda: torch.matmul(x, w), nbytes,
+               lambda: qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), lib, nbytes,
                2.0 * M * Kf * N, extra)
         del qt, w
     torch.cuda.empty_cache()
@@ -1781,8 +1790,10 @@ def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: boo
     )
 
 
-def profile_run(torch, run, steps: int):
-    """profile_decode's reading of ``run``, which takes ``steps`` steps."""
+def profile_run(torch, run, steps: int, watch=None):
+    """profile_decode's reading of ``run``, which takes ``steps`` steps;
+    ``watch``: {name: substrings of the CUDA kernel names} whose kernels'
+    device ms and count per step to report as well."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1799,12 +1810,17 @@ def profile_run(torch, run, steps: int):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"[profile] {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  x{e.count // steps:4d}  {e.key[:90]}")
-    return {
+    res = {
         "profiled_steps": steps,
         "profiled_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms,
     }
+    for name, keys in (watch or {}).items():
+        mine = [e for e in kernels if any(k in e.key for k in keys)]
+        res[f"{name}_device_ms_per_step"] = sum(e.self_device_time_total for e in mine) / 1e3 / steps
+        res[f"{name}_kernels_per_step"] = sum(e.count for e in mine) / steps
+    return res
 
 
 def delta(a, b):
@@ -2666,7 +2682,10 @@ def profile_engine(torch, mod, params, cfg, speculative, steps=4, w4a8=False):
         for _ in range(steps):
             engine.step()
 
-    res = profile_run(torch, run, steps)
+    # a plain step of per-layer weights runs K9 (the tensor-core body and its
+    # split sum) and nothing else there: its device ms per step
+    k9 = {"gptq_gemv": ("stacked_mma_kernel", "split_sum_out_kernel")}
+    res = profile_run(torch, run, steps, {} if speculative or w4a8 else k9)
     # a step attends over rows [0, position]: the mean over the profiled steps
     res["kv_rows_per_slot"] = (rows0 + float(engine.positions.mean())) / 2 + 1
     return res
@@ -3024,6 +3043,7 @@ def stacked_rows(torch, timer, gen):
     hold their tensor cores' rounding: fused (bf16) outputs within one bf16
     ulp of max|plain|; unfused (f32) outputs within F32S_TIGHT of
     max|plain|, which x @ the weight q * s rounded to bf16 first must miss.
+    K15 also holds A8_TOL (a8_close: its s32 dots are exact).
     Library time: torch.matmul on the layer dequantized to bf16. Each
     reading also gives a call's device time (the split sum included) and
     the library call's, from torch.profiler."""
@@ -3068,7 +3088,11 @@ def stacked_rows(torch, timer, gen):
                 limit = STACKED_TOL * scale
                 ok = err <= limit < control
                 extra = {}
-                if tight and fused:
+                if not tight:  # K15: exact s32 dots, only the f32 order differs
+                    _, a8_ok = a8_close(yf, ref)
+                    extra = dict(a8_tol=f"1 bf16 ulp + {A8_TOL}*max|plain|", a8_ok=a8_ok)
+                    ok = ok and a8_ok
+                elif tight and fused:
                     extra = dict(tight_tol=f"one bf16 ulp: {bf16_ulp(ref):.4g}")
                     ok = ok and err <= bf16_ulp(ref)
                 elif tight:
@@ -3870,7 +3894,7 @@ KERNEL_META = {
     "kv_ring_flush": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1423"),
     "w4_grouped_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:1843"),
     # at M <= 32 the TPU runs _qmm_kernel_v3 (:177) for 2/4 bits, _qmm_kernel (:119) for 8
-    "gptq_gemv": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:177"),
+    "gptq_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:177"),
     "gptq_gemm": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:119"),
     # the a8 branch (:871-873, :932-942) of the full-K planar kernel
     "w4a8_planar_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
@@ -3990,7 +4014,7 @@ def main() -> int:
     blog = _build.build_dir() / "build.log"
     if blog.exists():
         for line in blog.read_text().splitlines():
-            if ("Used" in line or "Compiling entry function" in line
+            if ("Used" in line or "Compiling entry function" in line or line.startswith("[build seconds]")
                     or ("spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line)):
                 log(f"[build] {line.strip()}")
 

@@ -23,19 +23,7 @@
 // 0x43 by a byte permute: an exact bf16 pair 128 + q, less 128. No repack
 // to wider words.
 
-#include "common.cuh"
-#include "stacked_mma.cuh"
-
-namespace {
-
-template <int BITS>
-int run_bits(const void* x, int x_f32, const uint32_t* qw, const void* sc, const void* zs, int s_type, void* part,
-             void* out, int fused, int M, int K, int Np, int g, int splits, int wps, cudaStream_t st) {
-  return stacked_mma::run<stacked_mma::BitPlane<BITS>>(x, x_f32, qw, sc, zs, s_type, part, out, fused, M, K, Np, g,
-                                                       splits, wps, st);
-}
-
-}  // namespace
+#include "bitplane_run.cuh"
 
 // K16: layer `layer` of qweight [L, bits * K/32, Np] and scales / zs
 // [L, G, Np]; fused = 1: bf16 out with the zero-point term in-kernel, 0:
@@ -58,12 +46,12 @@ QLLM_API int qllm_bitplane_stacked_gemv(const void* x, int x_f32, const void* qw
   const void* zz = fused ? param_offset(zs, s_type, layer * ls) : nullptr;
   switch (bits) {
     case 3:
-      return run_bits<3>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
+      return bitplane_run<3>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
     case 5:
-      return run_bits<5>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
+      return bitplane_run<5>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
     case 6:
-      return run_bits<6>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
+      return bitplane_run<6>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
     default:
-      return run_bits<7>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
+      return bitplane_run<7>(x, x_f32, qw, sc, zz, s_type, part, out, fused, M, K, Np, g, splits, words_per_split, st);
   }
 }

@@ -1,176 +1,16 @@
-// K9 gptq_gemv and K10 gptq_gemm: the per-layer quantized matmul
-// y = x @ dequant(W) on GPTQ-order packed words (the counterpart of
-// _qmm_2d, qllm_tpu/ops/pallas_qmm.py:300). Word row r of qweight
-// [K/pf, N] (pf = 32 / bits, bits in {2, 4, 8}) holds k = r * pf + s at
-// bit offset bits * s; scales and zeros [G, N] are read in the dtype they
-// are stored in (0 = f32, 1 = fp16, 2 = bf16) and converted in registers.
-// Both kernels leave the output in bf16 [M, N].
+// K10 gptq_gemm: the per-layer quantized matmul y = x @ dequant(W) at M >
+// 32 on GPTQ-order packed words (the counterpart of _qmm_2d,
+// qllm_tpu/ops/pallas_qmm.py:300). Word row r of qweight [K/pf, N] (pf =
+// 32 / bits, bits in {2, 4, 8}) holds k = r * pf + s at bit offset bits *
+// s; scales and zeros [G, N] are read in the dtype they are stored in (0 =
+// f32, 1 = fp16, 2 = bf16) and converted in registers. The output is bf16
+// [M, N]. Its decode counterpart K9 gptq_gemv (M <= 32) runs the
+// tensor-core body of csrc/stacked_mma.cuh (entry in gptq_stacked.cu).
 //
-// Neither kernel splits its sums with atomics: a row's result depends
-// only on that row of x and the weights, never on M or on the run.
+// The kernel splits its sums without atomics: a row's result depends only
+// on that row of x and the weights, never on M or on the run.
 
 #include "wgmma.cuh"
-
-namespace {
-
-// ---------------------------------------------------------------------------
-// K9 gptq_gemv (decode, M <= 32).
-//
-// Replaces _qmm_kernel_v3 (pallas_qmm.py:177) and the f32-dot branch of
-// _qmm_kernel (:119) as _qmm_2d runs them at M <= 32: x in f32,
-//   y[m, n] = sum_g s_g[n] * sum_{k in g} x[m, k] * (q[k, n] - z_g[n])
-// in f32, rounded to bf16. The TPU kernel subtracts the zero-point term
-// xsum_g @ (z * s) outside the kernel; here it is folded into the dot as
-// q - z (the same function, another f32 rounding).
-//
-// Bound on the H100: bytes (the packed words, read once). Design: one
-// thread per output column, so a warp reads one 128-byte run of a word
-// row (coalesced), loads 8 word rows ahead of its arithmetic, and keeps
-// MT rows of f32 sums in registers (MT = the smallest of 1, 4, 8, 16, 32
-// that holds M; each row's sums run the same way at any MT); x tiles of
-// 256 k live in shared memory as f32 and every lane reads the same x
-// value (a broadcast). At decode shapes one block per 128 columns gives
-// 32 blocks at N = 4096, so K is split over gridDim.y (a count chosen
-// from K and N alone); each split writes its f32 partial sums, and a
-// second kernel adds them in split order.
-// ---------------------------------------------------------------------------
-
-constexpr int kGemvThreads = 128;
-constexpr int kGemvKT = 256;  // k per x tile in shared memory
-constexpr int kGemvPre = 8;   // word rows a thread loads ahead
-
-template <int BITS, int MT>
-__global__ void __launch_bounds__(kGemvThreads)
-    gptq_gemv_kernel(const void* __restrict__ x, int x_f32,  // [M, K]
-                     const uint32_t* __restrict__ qw,        // [K/pf, N]
-                     const void* __restrict__ sc, const void* __restrict__ zr, int s_type,  // [G, N]
-                     int M, int K, int N, int g, int rows_per_split,
-                     float* __restrict__ part,               // [splits, M, N] when split
-                     __nv_bfloat16* __restrict__ out) {      // [M, N] when not
-  constexpr int PF = 32 / BITS;
-  constexpr uint32_t kMask = (1u << BITS) - 1u;
-  __shared__ float xs[MT][kGemvKT];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * kGemvThreads + tid;
-  const bool col = n < N;
-  const int rows = K / PF;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(rows, r0 + rows_per_split);
-
-  float y[MT], dot[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) y[m] = dot[m] = 0.f;
-  float s = 0.f, z = 0.f;
-
-  for (int k0 = r0 * PF; k0 < r1 * PF; k0 += kGemvKT) {
-    const int kn = min(kGemvKT, r1 * PF - k0);
-    __syncthreads();
-    for (int i = tid; i < MT * kGemvKT; i += kGemvThreads) {
-      const int m = i / kGemvKT, kk = i % kGemvKT;
-      xs[m][kk] = (m < M && kk < kn) ? load_x(x, x_f32, static_cast<size_t>(m) * K + k0 + kk) : 0.f;
-    }
-    __syncthreads();
-    if (col) {
-      const int ra = k0 / PF, rb = (k0 + kn) / PF;
-      for (int rc = ra; rc < rb; rc += kGemvPre) {
-        // kGemvPre words in flight before any is used
-        uint32_t wb[kGemvPre];
-#pragma unroll
-        for (int i = 0; i < kGemvPre; ++i)
-          wb[i] = rc + i < rb ? __ldcs(qw + static_cast<size_t>(rc + i) * N + n) : 0u;
-#pragma unroll
-        for (int i = 0; i < kGemvPre; ++i) {
-          const int r = rc + i;
-          if (r >= rb) break;
-          if ((r * PF) % g == 0 || r == r0) {  // a group starts: close the last one
-#pragma unroll
-            for (int m = 0; m < MT; ++m) {
-              y[m] = fmaf(dot[m], s, y[m]);
-              dot[m] = 0.f;
-            }
-            const size_t gi = static_cast<size_t>((r * PF) / g) * N + n;
-            s = load_param(sc, s_type, gi);
-            z = load_param(zr, s_type, gi);
-          }
-          const float* xr = &xs[0][(r - ra) * PF];
-#pragma unroll
-          for (int f = 0; f < PF; ++f) {
-            const float q = static_cast<float>((wb[i] >> (BITS * f)) & kMask) - z;
-#pragma unroll
-            for (int m = 0; m < MT; ++m) dot[m] = fmaf(xr[m * kGemvKT + f], q, dot[m]);
-          }
-        }
-      }
-    }
-  }
-  if (!col) return;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    y[m] = fmaf(dot[m], s, y[m]);
-    if (m < M) {
-      if (part != nullptr)
-        part[(static_cast<size_t>(blockIdx.y) * M + m) * N + n] = y[m];
-      else
-        out[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(y[m]);
-    }
-  }
-}
-
-template <int BITS, int MT>
-void launch_gemv_mt(dim3 grid, cudaStream_t st, const void* x, int x_f32, const uint32_t* qw, const void* sc,
-                    const void* zr, int s_type, int M, int K, int N, int g, int rps, float* part,
-                    __nv_bfloat16* out) {
-  gptq_gemv_kernel<BITS, MT><<<grid, kGemvThreads, 0, st>>>(x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part,
-                                                            out);
-}
-
-template <int BITS>
-void launch_gemv_bits(dim3 grid, cudaStream_t st, const void* x, int x_f32, const uint32_t* qw, const void* sc,
-                      const void* zr, int s_type, int M, int K, int N, int g, int rps, float* part,
-                      __nv_bfloat16* out) {
-  if (M <= 1)
-    launch_gemv_mt<BITS, 1>(grid, st, x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 4)
-    launch_gemv_mt<BITS, 4>(grid, st, x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 8)
-    launch_gemv_mt<BITS, 8>(grid, st, x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 16)
-    launch_gemv_mt<BITS, 16>(grid, st, x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else
-    launch_gemv_mt<BITS, 32>(grid, st, x, x_f32, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-}
-
-}  // namespace
-
-// splits: the blocks along K (1 = no partial sums; else `part` holds
-// splits * M * N floats); rows_per_split: word rows each split covers
-QLLM_API int qllm_gptq_gemv(const void* x, int x_f32, const void* qweight, const void* scales,
-                            const void* zeros, int s_type, void* part, void* out, int bits, int M,
-                            int K, int N, int g, int splits, int rows_per_split, void* stream) {
-  const int pf = bits > 0 ? 32 / bits : 0;
-  if ((bits != 2 && bits != 4 && bits != 8) || M < 1 || M > 32 || N < 1 || K % pf != 0 || g < pf ||
-      g % pf != 0 || K % g != 0 || splits < 1 || splits > 65535 || rows_per_split < 1 ||
-      static_cast<long long>(splits) * rows_per_split < K / pf || (splits > 1 && part == nullptr) ||
-      s_type < 0 || s_type > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kGemvThreads - 1) / kGemvThreads, splits);
-  const auto* qw = static_cast<const uint32_t*>(qweight);
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  if (bits == 2)
-    launch_gemv_bits<2>(grid, st, x, x_f32, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
-  else if (bits == 4)
-    launch_gemv_bits<4>(grid, st, x, x_f32, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
-  else
-    launch_gemv_bits<8>(grid, st, x, x_f32, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
-  if (splits > 1) {
-    const int MN = M * N;
-    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, 1, o);
-  }
-  return qllm_launch_status();
-}
 
 // ---------------------------------------------------------------------------
 // K10 gptq_gemm (prefill and speculative verify, M > 32).

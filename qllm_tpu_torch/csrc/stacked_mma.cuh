@@ -1,45 +1,55 @@
-// The tensor-core body shared by K14 gptq_stacked_gemv (csrc/gptq_stacked.cu)
-// and K16 bitplane_stacked_gemv (csrc/bitplane.cu): the decode matmul
-// (M <= 32) on one layer of an [L]-stacked 2/4-bit GPTQ-order or
-// 3/5/6/7-bit bit-plane weight, with x in bf16 or f32. With q the unsigned
-// field, both compute
+// The tensor-core body shared by the GPTQ-order and bit-plane decode GEMVs
+// (M <= 32): K14 gptq_stacked_gemv, K15 gptq_stacked_w4a8_gemv and K9
+// gptq_gemv (csrc/gptq_stacked.cu), K16 bitplane_stacked_gemv
+// (csrc/bitplane.cu). Each reads one layer of 2/4/8-bit GPTQ-order or
+// 3/5/6/7-bit bit-plane words (a per-layer weight is layer 0), with x in
+// bf16 or f32 (K15: int8). With q the unsigned field, the bf16 kernel
+// (stacked_mma_kernel) computes
 //   unfused: y[m, n] = sum_g s_g[n] * (x_g . q_g[:, n]), f32 out (the
 //            caller takes off xsum_g @ zs_g outside, as JAX does);
 //   fused:   y[m, n] = sum_g (s_g[n] * (x_g . q_g[:, n]) - sum(x_g) * zs_g[n]),
-//            rounded to bf16,
+//            rounded to bf16, zs_g read prefolded (K14, K16) or formed as
+//            z_g * s_g in f32 from the zero points (K9),
 // as the TPU kernels do: an f32 dot per group, scaled at the group's end.
+// The int8 kernel (stacked_s8_kernel, K15) computes y = sum_g s_g * d_g
+// with d_g = x8_g . q_g an exact s32 dot, f32 out.
 //
 // Bound on the H100: bytes (the layer's words, scales and zs, read once).
 // The dots run on the tensor cores: mma.sync m16n8k16 bf16 with f32
-// accumulators, 16 output columns as the A operand and 8 rows of x as the
-// B operand (the swapped product of K1, planar_gemv.cuh). A field q is
-// OR-ed into the mantissa of 128.0: the bf16 value 128 + q, exact (q <
-// 128), with no conversion and no subtraction. A bf16 x is exact too, so
-// every product is exact; the MMA sums (128 + q) x in f32, and a second
-// MMA with A all ones sums x over the same k (the group sum: masked and
-// ordered like the dot). At the group's end, dot = sum (128 + q) x - 128 *
-// sum x, then y += dot * s (- sum x * zs when fused). An f32 x is split
-// into three bf16 parts hi + mid + lo, which hold its 24 bits (outside
-// subnormals), and each part runs its own MMAs on the same A.
+// accumulators (m16n8k32 s8 with s32 accumulators for K15), 16 output columns as
+// the A operand and 8 rows of x as the B operand (the swapped product of
+// K1, planar_gemv.cuh). A field q is OR-ed into the mantissa of 128.0: the
+// bf16 value 128 + q, exact (q < 128), with no conversion and no
+// subtraction. An 8-bit field is two such values, 16 * (128 + hi) (its
+// high nibble OR-ed into 2048.0) and 128 + lo, run as two MMAs into one
+// accumulator. A bf16 x is exact too, so every product is exact; the MMA
+// sums (bias + q) x in f32, and a second MMA with A all ones sums x over
+// the same k (the group sum: masked and ordered like the dot). At the
+// group's end, dot = sum (bias + q) x - bias * sum x, then y += dot * s (-
+// sum x * zs when fused). An f32 x is split into three bf16 parts hi + mid
+// + lo, which hold its 24 bits (outside subnormals), and each part runs its
+// own MMAs on the same A. K15's fields are exact s8 values below 2^bits:
+// a shift and a per-byte mask place four of them in a register (K12's
+// trick), against x8 staged in the same k order.
 //
 // Layout. The order of k inside one MMA is free as long as A and B agree,
 // and so is the order of the output columns inside a tile. A lane (gq =
 // lane / 4, c = lane % 4) owns 4 adjacent columns and, in each step, one
-// "unit" of the weight: a word row of 32/bits k (K14) or a word index of
-// 32 k in every bit plane (K16); the four lanes of a quad take four
-// consecutive units (rows of the stage). The unit's k are paired
-// (k_a, k_b) so that a shift and a mask (K14) or a byte permute of the
-// plane sum (K16) give the bf16 pair; columns n + 2i and n + 2i + 1 are A
-// rows gq and gq + 8 of one MMA, and the lane reads x for its B registers
-// from a tile in shared memory at the k its own fields hold.
+// "unit" of the weight: a word row of 32/bits k (GPTQ order) or a word
+// index of 32 k in every bit plane (K16); the four lanes of a quad take
+// four consecutive units (rows of the stage). The unit's k are paired
+// (k_a, k_b) so that a shift and a mask (GPTQ order) or a byte permute of
+// the plane sum (K16) give the bf16 pair; columns n + 2i and n + 2i + 1 are
+// A rows gq and gq + 8 of one MMA, and the lane reads x for its B
+// registers from a tile in shared memory at the k its own fields hold.
 //
 // Groups close as the JAX kernels close them: an f32 accumulator per
 // group, y += acc * s (- xsum * zs) at its end. A step whose k span holds
 // a group end runs once per group it touches, with the other groups' k
-// zeroed in B (as K18 does). K is split over gridDim.y by a count
-// the wrapper takes from K and N alone, each split writes its partial
-// sums and split_sum_out_kernel adds them in split order, so a row's bits
-// depend neither on M nor on the other rows nor on the run.
+// zeroed in B (as K18 does). K is split over gridDim.y by a count the
+// wrapper takes from K and N alone, each split writes its partial sums and
+// split_sum_out_kernel adds them in split order in a second launch.
+// A row's bits depend neither on M nor on the other rows nor on the run.
 //
 // Bytes in flight: a producer warp keeps the next S steps' weight rows of
 // the block in a ring in shared memory, one bulk copy (cp.async.bulk, the
@@ -48,9 +58,8 @@
 // mbarriers, so the four consumer warps spend no issue slots on loads and
 // do not wait for them (a ring filled by the consumers' own cp.async held
 // K14 at twice this time: their loads and products did not overlap); the
-// block's x tile and its scales (and zs) are staged by the consumers'
-// cp.async once per chunk of its split (one chunk unless they would pass
-// kXBudget).
+// block's x tile and its scales (and zs) are staged by the consumers once
+// per chunk of its split (one chunk unless they would pass kXBudget).
 #pragma once
 
 #include "common.cuh"
@@ -112,25 +121,33 @@ __device__ __forceinline__ uint32_t and_or(uint32_t x, uint32_t c) {
   return d;
 }
 
-// K14's words: word row r holds k = r * pf + f at bit offset bits * f; pair
-// s (s < pf / 2) is fields (s, s + pf / 2), which one shift and one mask
-// place in the two halves of a word
+// GPTQ-order words (K9, K14, K15): word row r holds k = r * pf + f at bit
+// offset bits * f; pair s (s < pf / 2) is fields (s, s + pf / 2), which one
+// shift and one mask place in the two halves of a word. An 8-bit pair is
+// two parts: the low nibbles as 128 + lo, the high as 16 * (128 + hi)
 template <int BITS>
 struct GptqOrder {
   static constexpr int kUnitK = 32 / BITS;
   static constexpr int kHalf = kUnitK;  // a half of kHalf k holds pairs (s, s + kHalf / 2)
   static constexpr int kPlanes = 1;
   static constexpr int kStages = 8;
+  static constexpr int kParts = BITS == 8 ? 2 : 1;                // A values a field
+  static constexpr float kBias = BITS == 8 ? 2176.f : 128.f;     // what the parts add to q
   // the blocks an SM the registers must leave room for (__launch_bounds__),
   // n-tiles by n-tiles, as measured fastest on the H100
   __host__ __device__ static constexpr int min_blocks(int nt) { return nt == 1 ? 4 : 2; }
   __device__ static size_t row(int, int unit, int) { return static_cast<size_t>(unit); }
   // the material a pair needs (none: the word itself)
   __device__ static void material(const uint32_t (&)[kPlanes][4], int, int, uint32_t (&)[2]) {}
-  // pair s of column col as bf16 (128 + q_a, 128 + q_b)
-  __device__ static uint32_t pair(const uint32_t (&w)[kPlanes][4], const uint32_t (&)[2], int col, int s) {
-    constexpr uint32_t m = (1u << BITS) - 1u;
-    return and_or<m | (m << 16)>(w[0][col] >> (BITS * s), 0x43004300u);
+  // part `part` of pair s of column col as bf16 (bias + q_a, bias + q_b)
+  __device__ static uint32_t pair(const uint32_t (&w)[kPlanes][4], const uint32_t (&)[2], int col, int s, int part) {
+    if constexpr (BITS == 8) {
+      return part == 0 ? and_or<0x000F000Fu>(w[0][col] >> (8 * s), 0x43004300u)
+                       : and_or<0x000F000Fu>(w[0][col] >> (8 * s + 4), 0x45004500u);
+    } else {
+      constexpr uint32_t m = (1u << BITS) - 1u;
+      return and_or<m | (m << 16)>(w[0][col] >> (BITS * s), 0x43004300u);
+    }
   }
 };
 
@@ -146,6 +163,8 @@ struct BitPlane {
   static constexpr int kHalf = 16;
   static constexpr int kPlanes = BITS;
   static constexpr int kStages = 4;
+  static constexpr int kParts = 1;
+  static constexpr float kBias = 128.f;
   // as K14's; at 4 n-tiles a cap of two blocks (204 registers) spills and is slower
   __host__ __device__ static constexpr int min_blocks(int nt) { return nt == 1 ? 3 : nt == 2 ? 2 : 1; }
   __device__ static size_t row(int b, int unit, int W) { return static_cast<size_t>(b) * W + unit; }
@@ -164,20 +183,32 @@ struct BitPlane {
       v[i] = a;
     }
   }
-  __device__ static uint32_t pair(const uint32_t (&)[kPlanes][4], const uint32_t (&v)[2], int, int s) {
+  __device__ static uint32_t pair(const uint32_t (&)[kPlanes][4], const uint32_t (&v)[2], int, int s, int) {
     return __byte_perm(v[s & 1], 0x43434343u, s < 8 ? 0x4140 : 0x4342);
   }
 };
 
+// bytes of a ring row: every plane's kCols words (the pad spreads the quad's rows over banks)
+template <class P>
+__host__ __device__ constexpr int ring_row_bytes() {
+  return P::kPlanes * kCols * 4 + 32;
+}
+
 // The x tile: row m of a chunk at m * row_bytes, unit u at u * kUnitK *
-// esize, its 16-byte pieces j at 16 * (j ^ swizzle(u)); the row pitch
-// and the swizzle keep the lanes' 16-byte reads of one B load in distinct
-// bank groups for bf16 x
+// esize, its pieces j (16 bytes, 8 where a unit holds 8) at piece * (j ^
+// swizzle(u)); the row pitch and the swizzle keep the lanes' reads of one
+// B load in distinct bank groups for bf16 x
 template <int UNIT_K>
 __host__ __device__ inline int x_row_bytes(int kc, int esize) {
   const int pieces = UNIT_K * esize / 16;
   const int off = esize == 2 ? (pieces == 1 ? 4 : pieces == 2 ? 1 : 2) : 1;
   return (kc * esize + 127) / 128 * 128 + 16 * off;
+}
+// K15's x8 tile: a unit's kUnitK bytes, a quad's four units a row
+// (32 or 64 bytes) apart by the pitch's pad from the next row's
+template <int UNIT_K>
+__host__ __device__ inline int x8_row_bytes(int kc) {
+  return (kc + 127) / 128 * 128 + 4 * UNIT_K;
 }
 
 // the groups a chunk of kc k can touch (it need not start at a group's start)
@@ -214,45 +245,11 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t (&b)[3]) {
   b[2] = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
-// P: GptqOrder<BITS> or BitPlane<BITS>; NT: n-tiles of 8 rows of x (M <=
-// 8 NT); XF32: x stored f32 (three MMAs a product); FUSE: the zero-point
-// term in the kernel, bf16 out. units_per_split: units (word rows / word
-// indices) of each split; kc: k staged per chunk (a multiple of 4 units);
-// vec: Np % 4 == 0 and every pointer 16-byte aligned
-template <class P, int NT, bool XF32, bool FUSE>
-__global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
-    stacked_mma_kernel(const void* __restrict__ x,        // [M, K]
-                       const uint32_t* __restrict__ qw,   // the layer's words
-                       const void* __restrict__ sc, const void* __restrict__ zs, int s_type,  // [G, Np]
-                       int M, int K, int Np, int g, int units_per_split, int kc, int vec,
-                       float* __restrict__ part,   // [splits, M, Np] when split
-                       void* __restrict__ out) {   // [M, Np] f32 (unfused) or bf16 (fused) when not
-  constexpr int UK = P::kUnitK, HS = P::kHalf, PL = P::kPlanes, S = P::kStages;
-  constexpr int STEP = 4 * UK;      // k of one step of a warp
-  constexpr int NH = UK / HS;       // halves of a unit
-  constexpr int JH = HS / 4;        // MMAs of a half (two pairs each)
-  constexpr int ES = XF32 ? 4 : 2;  // bytes of an x element
-  constexpr int XP = XF32 ? 3 : 1;  // bf16 parts of an x element
-  constexpr int RS = PL * kCols * 4 + 32;  // bytes of a stage row (the pad spreads the quad's rows over banks)
-  static_assert((S & (S - 1)) == 0 && 2 * S * 8 <= kBarBytes, "ring stages: a power of two");
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [S]: a stage's rows have landed
-  uint64_t* empty = full + S;                          // [S]: the consumers are done with a stage
-  unsigned char* ring = smem + kBarBytes;              // [S][4 rows][RS]
-  unsigned char* xt = ring + S * 4 * RS;
-  const int rb = x_row_bytes<UK>(kc, ES);
-  const int ps = s_type == 0 ? 4 : 2;  // bytes of a parameter
-  const int ngc = groups_of_chunk(kc, g);
-  unsigned char* pt = xt + M * rb;  // [FUSE ? 2 : 1][ngc][kCols] scales, then zs
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, c = lane & 3;
-  const int n0 = blockIdx.x * kCols;
-  const int W = K / UK;
-  const int u0 = blockIdx.y * units_per_split, u1 = min(W, u0 + units_per_split);
-  const int k0 = u0 * UK, k1 = u1 * UK;
-  const int T = (u1 - u0 + 3) / 4;  // steps
-
+// the ring's barriers: full[i] completes when stage i's rows have landed
+// (one arrival and the bulk copies' bytes, or the 32 producer lanes'
+// cp.async), empty[i] when the four consumer warps are done with it
+template <int S>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int vec) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(full + i, vec ? 1 : 32);
@@ -261,88 +258,208 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+}
 
-  if (warp == kWarps) {
-    // the producer: stage t holds rows u0 + 4t .. + 3 of every plane, the
-    // block's kCols columns each
-    const int seg = min(kCols, Np - n0) * 4;  // bytes of a row in range
+// The producer warp: stage t of the ring holds units u0 + 4t .. + 3 of
+// every plane, the block's kCols columns each (units past u1 are left as
+// they are: the consumers' x is zero there)
+template <class P>
+__device__ __forceinline__ void produce(const uint32_t* __restrict__ qw, uint64_t* full, uint64_t* empty,
+                                        unsigned char* ring, int lane, int n0, int Np, int u0, int u1, int W,
+                                        int vec) {
+  constexpr int PL = P::kPlanes, S = P::kStages, RS = ring_row_bytes<P>();
+  const int T = (u1 - u0 + 3) / 4;
+  const int seg = min(kCols, Np - n0) * 4;  // bytes of a row in range
 #pragma unroll 1
-    for (int t = 0; t < T; ++t) {
-      const int st = t & (S - 1);
-      if (t >= S) mbar_wait(empty + st, ((t / S) - 1) & 1);
-      unsigned char* dst = ring + st * 4 * RS;
-      const int rows = min(4, u1 - u0 - 4 * t);
-      if (vec) {
-        if (lane == 0) {
-          mbar_expect(full + st, static_cast<uint32_t>(rows * PL * seg));
-          for (int r = 0; r < rows; ++r)
-            for (int b = 0; b < PL; ++b)
-              bulk_copy(dst + r * RS + b * kCols * 4, qw + P::row(b, u0 + 4 * t + r, W) * Np + n0, seg, full + st);
-        }
-      } else {
-        for (int i = lane; i < 4 * PL * kCols; i += 32) {
-          const int r = i / (PL * kCols), b = (i / kCols) % PL, col = i % kCols;
-          const bool on = r < rows && n0 + col < Np;
-          const uint32_t* src = on ? qw + P::row(b, u0 + 4 * t + r, W) * Np + n0 + col : qw;
-          cp_async4(dst + r * RS + (b * kCols + col) * 4, src, on);
-        }
-        cp_async_arrive(full + st);
+  for (int t = 0; t < T; ++t) {
+    const int st = t & (S - 1);
+    if (t >= S) mbar_wait(empty + st, ((t / S) - 1) & 1);
+    unsigned char* dst = ring + st * 4 * RS;
+    const int rows = min(4, u1 - u0 - 4 * t);
+    if (vec) {
+      if (lane == 0) {
+        mbar_expect(full + st, static_cast<uint32_t>(rows * PL * seg));
+        for (int r = 0; r < rows; ++r)
+          for (int b = 0; b < PL; ++b)
+            bulk_copy(dst + r * RS + b * kCols * 4, qw + P::row(b, u0 + 4 * t + r, W) * Np + n0, seg, full + st);
+      }
+    } else {
+      for (int i = lane; i < 4 * PL * kCols; i += 32) {
+        const int r = i / (PL * kCols), b = (i / kCols) % PL, col = i % kCols;
+        const bool on = r < rows && n0 + col < Np;
+        const uint32_t* src = on ? qw + P::row(b, u0 + 4 * t + r, W) * Np + n0 + col : qw;
+        cp_async4(dst + r * RS + (b * kCols + col) * 4, src, on);
+      }
+      cp_async_arrive(full + st);
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// a consumer's step t: wait for its stage, read the lane's row c (four
+// columns of every plane) and release the stage to the producer
+template <class P>
+__device__ __forceinline__ void take_stage(uint64_t* full, uint64_t* empty, const unsigned char* ring, int t, int c,
+                                           int lcol, int lane, uint32_t (&w)[P::kPlanes][4]) {
+  constexpr int S = P::kStages, RS = ring_row_bytes<P>();
+  const int st = t & (S - 1);
+  mbar_wait(full + st, (t / S) & 1);  // the stage's rows have landed
+  const unsigned char* src = ring + st * 4 * RS + c * RS + lcol * 4;
+#pragma unroll
+  for (int b = 0; b < P::kPlanes; ++b) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src + b * kCols * 4);
+    w[b][0] = v.x;
+    w[b][1] = v.y;
+    w[b][2] = v.z;
+    w[b][3] = v.w;
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty + st);  // the producer may refill it
+}
+
+// The block's parameters of groups [gf, gf + ng) into pt [nf][ngc][kCols]
+// (ps bytes each; nf = 2: the scales, then zs or the zero points), by the
+// consumers' cp.async (committed by the caller); zero past Np
+__device__ __forceinline__ void stage_params(unsigned char* pt, const void* sc, const void* zs, int nf, int ngc,
+                                             int gf, int ng, int n0, int Np, int ps, int vec) {
+  for (int i = threadIdx.x; i < nf * ng * (kCols / 4); i += kThreads) {
+    const int f = i / (ng * (kCols / 4)), r = i - f * (ng * (kCols / 4));
+    const int gl = r / (kCols / 4), col = 4 * (r - gl * (kCols / 4));
+    const unsigned char* src =
+        static_cast<const unsigned char*>(f ? zs : sc) + (static_cast<size_t>(gf + gl) * Np + n0 + col) * ps;
+    unsigned char* dst = pt + ((f * ngc + gl) * kCols + col) * ps;
+    const int left = Np - n0 - col;
+    if (vec) {
+      if (ps == 4)
+        cp_async16(dst, left > 0 ? src : sc, left > 0);
+      else
+        cp_async8(dst, left > 0 ? src : sc, left > 0);
+    } else {
+      for (int j = 0; j < 4; ++j) {
+        if (ps == 4)
+          reinterpret_cast<uint32_t*>(dst)[j] = j < left ? __ldg(reinterpret_cast<const uint32_t*>(src) + j) : 0u;
+        else
+          reinterpret_cast<unsigned short*>(dst)[j] =
+              j < left ? __ldg(reinterpret_cast<const unsigned short*>(src) + j) : static_cast<unsigned short>(0);
       }
     }
-    asm volatile("cp.async.wait_all;" ::: "memory");
+  }
+}
+
+// The lane's outputs: rows mt * 8 + 2c + r, its four columns, from the
+// accumulator layout (y[mt][pr][e]: column 2pr + (e >> 1), row 2c + (e &
+// 1)), to the split's partial sums, or (no split) to out in f32 or bf16
+template <int NT>
+__device__ __forceinline__ void write_out(const float (&y)[NT][2][4], int c, int M, int Np, int n, int vec,
+                                          float* part, void* out, bool out_bf16) {
+  const int nv = Np - n;  // the lane's valid columns, if below 4
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = mt * 8 + 2 * c + r;
+      if (m >= M || nv <= 0) continue;
+      const float v[4] = {y[mt][0][r], y[mt][0][2 + r], y[mt][1][r], y[mt][1][2 + r]};
+      if (part != nullptr || !out_bf16) {
+        float* dst = part != nullptr ? part + (static_cast<size_t>(blockIdx.y) * M + m) * Np + n
+                                     : static_cast<float*>(out) + static_cast<size_t>(m) * Np + n;
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < nv) dst[j] = v[j];
+        }
+      } else {
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + static_cast<size_t>(m) * Np + n;
+        if (vec) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(bf16x2_bits(__floats2bfloat162_rn(v[0], v[1])),
+                                                      bf16x2_bits(__floats2bfloat162_rn(v[2], v[3])));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < nv) dst[j] = __float2bfloat16_rn(v[j]);
+        }
+      }
+    }
+  }
+}
+
+// P: GptqOrder<BITS> or BitPlane<BITS>; NT: n-tiles of 8 rows of x (M <=
+// 8 NT); XF32: x stored f32 (three MMAs a product); FUSE: the zero-point
+// term in the kernel, bf16 out (zeros = 1: zs holds the zero points z,
+// and z * s is formed at each group's end). units_per_split: units (word
+// rows / word indices) of each split; kc: k staged per chunk (a multiple
+// of 4 units); vec: Np % 4 == 0 and every pointer 16-byte aligned
+template <class P, int NT, bool XF32, bool FUSE>
+__global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
+    stacked_mma_kernel(const void* __restrict__ x,        // [M, K]
+                       const uint32_t* __restrict__ qw,   // the layer's words
+                       const void* __restrict__ sc, const void* __restrict__ zs, int s_type,  // [G, Np]
+                       int zeros, int M, int K, int Np, int g, int units_per_split, int kc, int vec,
+                       float* __restrict__ part,   // [splits, M, Np] when split
+                       void* __restrict__ out) {   // [M, Np] f32 (unfused) or bf16 (fused)
+  constexpr int UK = P::kUnitK, HS = P::kHalf, PL = P::kPlanes, S = P::kStages;
+  constexpr int STEP = 4 * UK;      // k of one step of a warp
+  constexpr int NH = UK / HS;       // halves of a unit
+  constexpr int JH = HS / 4;        // MMAs of a half (two pairs each)
+  constexpr int ES = XF32 ? 4 : 2;  // bytes of an x element
+  constexpr int XP = XF32 ? 3 : 1;  // bf16 parts of an x element
+  constexpr int PB = UK * ES < 16 ? UK * ES : 16;  // bytes of an x piece
+  static_assert((S & (S - 1)) == 0 && 2 * S * 8 <= kBarBytes, "ring stages: a power of two");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [S]: a stage's rows have landed
+  uint64_t* empty = full + S;                          // [S]: the consumers are done with a stage
+  unsigned char* ring = smem + kBarBytes;              // [S][4 rows][ring_row_bytes]
+  unsigned char* xt = ring + S * 4 * ring_row_bytes<P>();
+  const int rb = x_row_bytes<UK>(kc, ES);
+  const int ps = s_type == 0 ? 4 : 2;  // bytes of a parameter
+  const int ngc = groups_of_chunk(kc, g);
+  unsigned char* pt = xt + M * rb;  // [FUSE ? 2 : 1][ngc][kCols] scales, then zs (or z)
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, c = lane & 3;
+  const int n0 = blockIdx.x * kCols;
+  const int W = K / UK;
+  const int u0 = blockIdx.y * units_per_split, u1 = min(W, u0 + units_per_split);
+  const int k0 = u0 * UK, k1 = u1 * UK;
+
+  init_ring<S>(full, empty, vec);
+  if (warp == kWarps) {
+    produce<P>(qw, full, empty, ring, lane, n0, Np, u0, u1, W, vec);
     return;
   }
 
   const int lcol = warp * 32 + 4 * gq;  // the lane's first column in the block
   const int n = n0 + lcol;              // and in the layer
-  const int nv = Np - n;                // its valid columns, if below 4
 
   // x[:, ch0:ch1) into the tile, zero past ch1 up to a whole step, and
   // the block's scales (and zs) of every group the chunk touches
   auto stage_chunk = [&](int ch0, int ch1) {
-    const int gf = ch0 / g, ng = (ch1 - 1) / g - gf + 1;
-    const int nf = FUSE ? 2 : 1;
-    for (int i = threadIdx.x; i < nf * ng * (kCols / 4); i += kThreads) {
-      const int f = i / (ng * (kCols / 4)), r = i - f * (ng * (kCols / 4));
-      const int gl = r / (kCols / 4), col = 4 * (r - gl * (kCols / 4));
-      const unsigned char* src = static_cast<const unsigned char*>(f ? zs : sc) +
-                                 (static_cast<size_t>(gf + gl) * Np + n0 + col) * ps;
-      unsigned char* dst = pt + ((f * ngc + gl) * kCols + col) * ps;
-      const int left = Np - n0 - col;
-      if (vec) {
-        if (ps == 4)
-          cp_async16(dst, left > 0 ? src : sc, left > 0);
-        else
-          cp_async8(dst, left > 0 ? src : sc, left > 0);
-      } else {
-        for (int j = 0; j < 4; ++j) {
-          if (ps == 4)
-            reinterpret_cast<uint32_t*>(dst)[j] = j < left ? __ldg(reinterpret_cast<const uint32_t*>(src) + j) : 0u;
-          else
-            reinterpret_cast<unsigned short*>(dst)[j] =
-                j < left ? __ldg(reinterpret_cast<const unsigned short*>(src) + j) : static_cast<unsigned short>(0);
-        }
-      }
-    }
-    constexpr int CE = 16 / ES;       // elements of a 16-byte piece
-    constexpr int JC = UK * ES / 16;  // pieces of a unit
+    stage_params(pt, sc, zs, FUSE ? 2 : 1, ngc, ch0 / g, (ch1 - 1) / g - ch0 / g + 1, n0, Np, ps, vec);
+    constexpr int CE = PB / ES;       // elements of a piece
+    constexpr int JC = UK * ES / PB;  // pieces of a unit
     const int U = (ch1 - ch0 + STEP - 1) / STEP * 4;
     const int per_row = U * JC;
     for (int i = threadIdx.x; i < M * per_row; i += kThreads) {
       const int m = i / per_row, r = i - m * per_row;
       const int ul = r / JC, j = r - ul * JC;
       const int e = ch0 + ul * UK + j * CE;
-      unsigned char* dst = xt + m * rb + ul * UK * ES + 16 * (j ^ x_swizzle<UK, XF32>(ul));
+      unsigned char* dst = xt + m * rb + ul * UK * ES + PB * (j ^ x_swizzle<UK, XF32>(ul));
       const bool on = e < ch1;
-      cp_async16(dst, on ? static_cast<const unsigned char*>(x) + (static_cast<size_t>(m) * K + e) * ES : x, on);
+      const void* src = on ? static_cast<const unsigned char*>(x) + (static_cast<size_t>(m) * K + e) * ES : x;
+      if constexpr (PB == 16)
+        cp_async16(dst, src, on);
+      else
+        cp_async8(dst, src, on);
     }
     cp_async_commit();
     cp_async_wait<0>();
     consumers_sync();
   };
 
-  // acc: sum (128 + q) x of the open group; xs: sum x (the ones MMA); y: the
-  // scaled groups so far
+  // acc: sum (bias + q) x of the open group; xs: sum x (the ones MMA); y:
+  // the scaled groups so far
   float acc[NT][2][4], y[NT][2][4], xs[NT][4];
 #pragma unroll
   for (int mt = 0; mt < NT; ++mt) {
@@ -363,7 +480,7 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
     for (int mt = 0; mt < NT; ++mt) {
       const int m = mt * 8 + gq;
       const unsigned char* xr = xt + m * rb + ul * UK * ES;
-      if constexpr (!XF32) {
+      if constexpr (!XF32 && UK >= 8) {
 #pragma unroll
         for (int i = 0; i < UK / 8; ++i) {
           const uint4 v = m < M ? *reinterpret_cast<const uint4*>(xr + 16 * (i ^ x_swizzle<UK, XF32>(ul)))
@@ -373,6 +490,10 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
           xb[mt][4 * i + 2] = v.z;
           xb[mt][4 * i + 3] = v.w;
         }
+      } else if constexpr (!XF32) {
+        const uint2 v = m < M ? *reinterpret_cast<const uint2*>(xr) : make_uint2(0u, 0u);
+        xb[mt][0] = v.x;
+        xb[mt][1] = v.y;
       } else {
 #pragma unroll
         for (int i = 0; i < UK / 4; ++i) {
@@ -399,39 +520,42 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
           const int ka = kunit + h * HS, kb = ka + HS / 2;
           keep = (ka >= lo && ka < hi ? 0x0000FFFFu : 0u) | (kb >= lo && kb < hi ? 0xFFFF0000u : 0u);
         }
-        uint32_t a[2][4];
 #pragma unroll
-        for (int pr = 0; pr < 2; ++pr) {
-          a[pr][0] = P::pair(w, mat[2 * pr], 2 * pr, s0);
-          a[pr][1] = P::pair(w, mat[2 * pr + 1], 2 * pr + 1, s0);
-          a[pr][2] = P::pair(w, mat[2 * pr], 2 * pr, s0 + 1);
-          a[pr][3] = P::pair(w, mat[2 * pr + 1], 2 * pr + 1, s0 + 1);
-        }
+        for (int pa = 0; pa < P::kParts; ++pa) {
+          uint32_t a[2][4];
 #pragma unroll
-        for (int mt = 0; mt < NT; ++mt) {
-          uint32_t b0[XP], b1[XP];
-          if constexpr (!XF32) {
-            const uint32_t lo_w = xb[mt][h * (HS / 2) + p2], hi_w = xb[mt][h * (HS / 2) + HS / 4 + p2];
-            b0[0] = __byte_perm(lo_w, hi_w, 0x5410) & keep;
-            b1[0] = __byte_perm(lo_w, hi_w, 0x7632) & keep;
-          } else {
-            const bool kl = keep & 1u, kh = keep >> 31;
-            const float* v = xf[mt] + h * HS;
-            uint32_t p0[3], p1[3];
-            split3(kl ? v[2 * p2] : 0.f, kh ? v[HS / 2 + 2 * p2] : 0.f, p0);
-            split3(kl ? v[2 * p2 + 1] : 0.f, kh ? v[HS / 2 + 2 * p2 + 1] : 0.f, p1);
-#pragma unroll
-            for (int q = 0; q < 3; ++q) {
-              b0[q] = p0[q];
-              b1[q] = p1[q];
-            }
+          for (int pr = 0; pr < 2; ++pr) {
+            a[pr][0] = P::pair(w, mat[2 * pr], 2 * pr, s0, pa);
+            a[pr][1] = P::pair(w, mat[2 * pr + 1], 2 * pr + 1, s0, pa);
+            a[pr][2] = P::pair(w, mat[2 * pr], 2 * pr, s0 + 1, pa);
+            a[pr][3] = P::pair(w, mat[2 * pr + 1], 2 * pr + 1, s0 + 1, pa);
           }
 #pragma unroll
-          for (int q = 0; q < XP; ++q) {
+          for (int mt = 0; mt < NT; ++mt) {
+            uint32_t b0[XP], b1[XP];
+            if constexpr (!XF32) {
+              const uint32_t lo_w = xb[mt][h * (HS / 2) + p2], hi_w = xb[mt][h * (HS / 2) + HS / 4 + p2];
+              b0[0] = __byte_perm(lo_w, hi_w, 0x5410) & keep;
+              b1[0] = __byte_perm(lo_w, hi_w, 0x7632) & keep;
+            } else {
+              const bool kl = keep & 1u, kh = keep >> 31;
+              const float* v = xf[mt] + h * HS;
+              uint32_t p0[3], p1[3];
+              split3(kl ? v[2 * p2] : 0.f, kh ? v[HS / 2 + 2 * p2] : 0.f, p0);
+              split3(kl ? v[2 * p2 + 1] : 0.f, kh ? v[HS / 2 + 2 * p2 + 1] : 0.f, p1);
 #pragma unroll
-            for (int pr = 0; pr < 2; ++pr)
-              mma_bf16_16816(acc[mt][pr], a[pr][0], a[pr][1], a[pr][2], a[pr][3], b0[q], b1[q]);
-            mma_bf16_16816(xs[mt], kOnes, kOnes, kOnes, kOnes, b0[q], b1[q]);
+              for (int q = 0; q < 3; ++q) {
+                b0[q] = p0[q];
+                b1[q] = p1[q];
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < XP; ++q) {
+#pragma unroll
+              for (int pr = 0; pr < 2; ++pr)
+                mma_bf16_16816(acc[mt][pr], a[pr][0], a[pr][1], a[pr][2], a[pr][3], b0[q], b1[q]);
+              if (pa == 0) mma_bf16_16816(xs[mt], kOnes, kOnes, kOnes, kOnes, b0[q], b1[q]);
+            }
           }
         }
       }
@@ -454,13 +578,17 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
         // C registers: (column 2pr: rows 2c, 2c+1), (column 2pr+1: rows 2c, 2c+1)
         const int col = 2 * pr + half;
         const float s = param_at(srow, s_type, col);
-        const float z = FUSE ? param_at(zrow, s_type, col) : 0.f;
+        float z = 0.f;
+        if (FUSE) {
+          z = param_at(zrow, s_type, col);
+          if (zeros) z *= s;
+        }
 #pragma unroll
         for (int mt = 0; mt < NT; ++mt) {
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int e = 2 * half + r;
-            const float dot = fmaf(-128.f, xs[mt][r], acc[mt][pr][e]);
+            const float dot = fmaf(-P::kBias, xs[mt][r], acc[mt][pr][e]);
             const float t = fmaf(dot, s, y[mt][pr][e]);
             y[mt][pr][e] = FUSE ? fmaf(-xs[mt][r], z, t) : t;
             acc[mt][pr][e] = 0.f;
@@ -483,20 +611,8 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
   while (true) {
 #pragma unroll 1
     for (int ka = ch0; ka < ch1; ka += STEP, ++t) {
-      const int st = t & (S - 1);
-      mbar_wait(full + st, (t / S) & 1);  // the stage's rows have landed
       uint32_t w[PL][4];
-      const unsigned char* src = ring + st * 4 * RS + c * RS + lcol * 4;
-#pragma unroll
-      for (int b = 0; b < PL; ++b) {
-        const uint4 v = *reinterpret_cast<const uint4*>(src + b * kCols * 4);
-        w[b][0] = v.x;
-        w[b][1] = v.y;
-        w[b][2] = v.z;
-        w[b][3] = v.w;
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + st);  // the producer may refill it
+      take_stage<P>(full, empty, ring, t, c, lcol, lane, w);
       const int ul = (ka - ch0) / UK + c, kunit = ka + c * UK;
       const int kz = min(ka + STEP, k1);
       if (kz <= kend) {  // one group: uniform across the block
@@ -522,105 +638,300 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
     stage_chunk(ch0, ch1);
   }
 
-#pragma unroll
-  for (int mt = 0; mt < NT; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = mt * 8 + 2 * c + r;
-      if (m >= M || nv <= 0) continue;
-      const float v[4] = {y[mt][0][r], y[mt][0][2 + r], y[mt][1][r], y[mt][1][2 + r]};
-      if (part != nullptr || !FUSE) {
-        float* dst = part != nullptr ? part + (static_cast<size_t>(blockIdx.y) * M + m) * Np + n
-                                     : static_cast<float*>(out) + static_cast<size_t>(m) * Np + n;
-        if (vec) {
-          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (j < nv) dst[j] = v[j];
-        }
+  write_out<NT>(y, c, M, Np, n, vec, part, out, FUSE);
+}
+
+// K15's consumer: x8 (int8) against GPTQ-order 2/4-bit fields on
+// mma.sync m16n8k32 s8. A unit (a word row of UK = 32 / BITS k) holds
+// NPAR = 8 / BITS parities: (w >> BITS p) & 0x0101..01 * (2^BITS - 1) is
+// fields p + NPAR b (b = 0..3) as four s8 values. The unit's x8 is staged
+// parity by parity (word p: k = p + NPAR b of the unit), so MMA j of a
+// unit takes parities 2j (A k 4c..4c+3) and 2j + 1 (A k 4c+16..+19) and
+// its B words are the staged words 2j and 2j + 1. Every dot is exact in
+// s32; at a group's end y += float(d) * s. units_per_split, kc, vec as
+// stacked_mma_kernel's; out f32 (or the split's partial sums).
+template <int BITS, int NT>
+__global__ void __launch_bounds__(kBlock, GptqOrder<BITS>::min_blocks(NT))
+    stacked_s8_kernel(const int8_t* __restrict__ x8,     // [M, K]
+                      const uint32_t* __restrict__ qw,   // the layer's words
+                      const void* __restrict__ sc, int s_type,  // [G, Np]
+                      int M, int K, int Np, int g, int units_per_split, int kc, int vec,
+                      float* __restrict__ part,   // [splits, M, Np] when split
+                      float* __restrict__ out) {  // [M, Np] when not
+  using P = GptqOrder<BITS>;
+  constexpr int UK = P::kUnitK, S = P::kStages;
+  constexpr int STEP = 4 * UK;
+  constexpr int NPAR = 8 / BITS;
+  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  unsigned char* ring = smem + kBarBytes;
+  unsigned char* xt = ring + S * 4 * ring_row_bytes<P>();
+  const int rb = x8_row_bytes<UK>(kc);
+  const int ps = s_type == 0 ? 4 : 2;
+  const int ngc = groups_of_chunk(kc, g);
+  unsigned char* pt = xt + M * rb;  // [ngc][kCols] scales
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, c = lane & 3;
+  const int n0 = blockIdx.x * kCols;
+  const int W = K / UK;
+  const int u0 = blockIdx.y * units_per_split, u1 = min(W, u0 + units_per_split);
+  const int k0 = u0 * UK, k1 = u1 * UK;
+
+  init_ring<S>(full, empty, vec);
+  if (warp == kWarps) {
+    produce<P>(qw, full, empty, ring, lane, n0, Np, u0, u1, W, vec);
+    return;
+  }
+  const int lcol = warp * 32 + 4 * gq;
+
+  // x8[:, ch0:ch1) into the tile unit by unit, its bytes by parity (zero
+  // past ch1 up to a whole step), and the block's scales of the chunk
+  auto stage_chunk = [&](int ch0, int ch1) {
+    stage_params(pt, sc, nullptr, 1, ngc, ch0 / g, (ch1 - 1) / g - ch0 / g + 1, n0, Np, ps, vec);
+    cp_async_commit();
+    const int U = (ch1 - ch0 + STEP - 1) / STEP * 4;
+    for (int i = threadIdx.x; i < M * U; i += kThreads) {
+      const int m = i / U, ul = i - m * U;
+      const int e = ch0 + ul * UK;
+      unsigned char* dst = xt + m * rb + ul * UK;
+      const int8_t* src = x8 + static_cast<size_t>(m) * K + e;
+      if constexpr (BITS == 4) {
+        const uint2 v = e < ch1 ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(__byte_perm(v.x, v.y, 0x6420), __byte_perm(v.x, v.y, 0x7531));
       } else {
-        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + static_cast<size_t>(m) * Np + n;
-        if (vec) {
-          *reinterpret_cast<uint2*>(dst) = make_uint2(bf16x2_bits(__floats2bfloat162_rn(v[0], v[1])),
-                                                      bf16x2_bits(__floats2bfloat162_rn(v[2], v[3])));
-        } else {
+        const uint4 v = e < ch1 ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0u, 0u, 0u, 0u);
+        // a 4 x 4 byte transpose: parity p is byte p of each word
+        const uint32_t t0 = __byte_perm(v.x, v.y, 0x5140), t1 = __byte_perm(v.z, v.w, 0x5140);
+        const uint32_t t2 = __byte_perm(v.x, v.y, 0x7362), t3 = __byte_perm(v.z, v.w, 0x7362);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                                                    __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+      }
+    }
+    cp_async_wait<0>();
+    consumers_sync();
+  };
+
+  int acc[NT][2][4];
+  float y[NT][2][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (j < nv) dst[j] = __float2bfloat16_rn(v[j]);
+  for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[mt][0][e] = acc[mt][1][e] = 0;
+      y[mt][0][e] = y[mt][1][e] = 0.f;
+    }
+
+  // one step's products of this lane's unit ul (B zero unless keep: the
+  // unit lies in the group being summed)
+  auto compute = [&](const uint32_t (&w)[1][4], int ul, bool keep) {
+    uint32_t xb[NT][NPAR];
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      const int m = mt * 8 + gq;
+      const unsigned char* xr = xt + m * rb + ul * UK;
+      const bool on = keep && m < M;
+      if constexpr (NPAR == 2) {
+        const uint2 v = on ? *reinterpret_cast<const uint2*>(xr) : make_uint2(0u, 0u);
+        xb[mt][0] = v.x;
+        xb[mt][1] = v.y;
+      } else {
+        const uint4 v = on ? *reinterpret_cast<const uint4*>(xr) : make_uint4(0u, 0u, 0u, 0u);
+        xb[mt][0] = v.x;
+        xb[mt][1] = v.y;
+        xb[mt][2] = v.z;
+        xb[mt][3] = v.w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NPAR / 2; ++j) {
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const uint32_t a0 = (w[0][2 * pr] >> (BITS * 2 * j)) & kMask;
+        const uint32_t a1 = (w[0][2 * pr + 1] >> (BITS * 2 * j)) & kMask;
+        const uint32_t a2 = (w[0][2 * pr] >> (BITS * (2 * j + 1))) & kMask;
+        const uint32_t a3 = (w[0][2 * pr + 1] >> (BITS * (2 * j + 1))) & kMask;
+#pragma unroll
+        for (int mt = 0; mt < NT; ++mt) mma_s8_16832(acc[mt][pr], a0, a1, a2, a3, xb[mt][2 * j], xb[mt][2 * j + 1]);
+      }
+    }
+  };
+
+  int gcur = k0 / g;
+  int kend = (gcur + 1) * g;
+  int gf_chunk = k0 / g;
+  auto flush = [&]() {
+    const unsigned char* srow = pt + ((gcur - gf_chunk) * kCols + lcol) * ps;
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float s = param_at(srow, s_type, 2 * pr + half);
+#pragma unroll
+        for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * half + r;
+            y[mt][pr][e] = fmaf(static_cast<float>(acc[mt][pr][e]), s, y[mt][pr][e]);
+            acc[mt][pr][e] = 0;
+          }
         }
       }
     }
+    ++gcur;
+    kend += g;
+  };
+
+  int ch0 = k0, ch1 = min(k0 + kc, k1);
+  stage_chunk(ch0, ch1);
+  int t = 0;
+#pragma unroll 1
+  while (true) {
+#pragma unroll 1
+    for (int ka = ch0; ka < ch1; ka += STEP, ++t) {
+      uint32_t w[1][4];
+      take_stage<P>(full, empty, ring, t, c, lcol, lane, w);
+      const int ul = (ka - ch0) / UK + c, kunit = ka + c * UK;
+      const int kz = min(ka + STEP, k1);
+      if (kz <= kend) {
+        compute(w, ul, true);
+        if (kz == kend || kz == k1) flush();
+      } else {
+        // a unit never straddles a group (g % (32 / BITS) == 0): the
+        // lane's unit is in the group or out of it
+#pragma unroll 1
+        for (int lo = ka; lo < kz;) {
+          const int hi = min(kend, kz);
+          compute(w, ul, kunit >= lo && kunit < hi);
+          if (hi == kend || hi == k1) flush();
+          lo = hi;
+        }
+      }
+    }
+    if (ch1 >= k1) break;
+    ch0 = ch1;
+    ch1 = min(ch0 + kc, k1);
+    gf_chunk = ch0 / g;
+    consumers_sync();
+    stage_chunk(ch0, ch1);
   }
+
+  write_out<NT>(y, c, M, Np, n0 + lcol, vec, part, out, false);
 }
 
-// the shared memory of a block: the barriers and the ring; a chunk's x rows
-// and parameter table
+// the shared memory of a block: the barriers and the ring; then a chunk's
+// x rows (row_bytes each) and parameter table (nf tables)
 template <class P>
 inline int ring_bytes() {
-  return kBarBytes + P::kStages * 4 * (P::kPlanes * kCols * 4 + 32);
+  return kBarBytes + P::kStages * 4 * ring_row_bytes<P>();
 }
-template <class P>
-inline int chunk_bytes(int M, int kc, int esize, int g, int ps, bool fused) {
-  return M * x_row_bytes<P::kUnitK>(kc, esize) + (fused ? 2 : 1) * groups_of_chunk(kc, g) * kCols * ps;
+inline int chunk_bytes(int M, int row_bytes, int kc, int g, int ps, int nf) {
+  return M * row_bytes + nf * groups_of_chunk(kc, g) * kCols * ps;
 }
 
 // The chunk (k) a block stages at once: its split's k in whole steps,
 // unless its x rows and parameters would pass kXBudget
-template <class P>
-inline int chunk_k(int M, int units_per_split, int esize, int g, int ps, bool fused) {
-  const int step = 4 * P::kUnitK;
+template <class RowBytes>
+inline int chunk_k(int M, int units_per_split, int unit_k, int g, int ps, int nf, RowBytes row_bytes) {
+  const int step = 4 * unit_k;
   int kc = (units_per_split + 3) / 4 * step;
-  while (kc > step && chunk_bytes<P>(M, kc, esize, g, ps, fused) > kXBudget) kc -= step;
+  while (kc > step && chunk_bytes(M, row_bytes(kc), kc, g, ps, nf) > kXBudget) kc -= step;
   return kc;
 }
 
 template <class P, int NT, bool XF32, bool FUSE>
 int launch(int splits, cudaStream_t st, const void* x, const uint32_t* qw, const void* sc, const void* zs,
-           int s_type, int M, int K, int Np, int g, int ups, int vec, float* part, void* out) {
+           int s_type, int zeros, int M, int K, int Np, int g, int ups, int vec, float* part, void* out) {
   static int allowed[kMaxDevices];
   constexpr int es = XF32 ? 4 : 2;
   const int ps = s_type == 0 ? 4 : 2;
-  const int kc = chunk_k<P>(M, ups, es, g, ps, FUSE);
-  const int smem = ring_bytes<P>() + chunk_bytes<P>(M, kc, es, g, ps, FUSE);
+  auto rows = [](int kc) { return x_row_bytes<P::kUnitK>(kc, es); };
+  const int kc = chunk_k(M, ups, P::kUnitK, g, ps, FUSE ? 2 : 1, rows);
+  const int smem = ring_bytes<P>() + chunk_bytes(M, rows(kc), kc, g, ps, FUSE ? 2 : 1);
   auto kern = stacked_mma_kernel<P, NT, XF32, FUSE>;
   const int e = allow_dynamic_smem(kern, smem, allowed);
   if (e != 0) return e;
   const dim3 grid((Np + kCols - 1) / kCols, splits);
-  kern<<<grid, kBlock, smem, st>>>(x, qw, sc, zs, s_type, M, K, Np, g, ups, kc, vec, part, out);
+  kern<<<grid, kBlock, smem, st>>>(x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, kc, vec, part, out);
   return 0;
 }
 
 template <class P, bool XF32, bool FUSE>
 int launch_m(int splits, cudaStream_t st, const void* x, const uint32_t* qw, const void* sc, const void* zs,
-             int s_type, int M, int K, int Np, int g, int ups, int vec, float* part, void* out) {
-  if (M <= 8) return launch<P, 1, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, part, out);
-  if (M <= 16) return launch<P, 2, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, part, out);
-  return launch<P, 4, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, part, out);
+             int s_type, int zeros, int M, int K, int Np, int g, int ups, int vec, float* part, void* out) {
+  if (M <= 8)
+    return launch<P, 1, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, vec, part, out);
+  if (M <= 16)
+    return launch<P, 2, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, vec, part, out);
+  return launch<P, 4, XF32, FUSE>(splits, st, x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, vec, part, out);
 }
 
-// the whole launch: the layer's pointers, the body for (x type, fused, M),
-// then the split sum; a cudaError_t
-template <class P>
-int run(const void* x, int x_f32, const uint32_t* qw, const void* sc, const void* zs, int s_type, void* part,
-        void* out, int fused, int M, int K, int Np, int g, int splits, int ups, cudaStream_t st) {
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// the whole launch of the bf16 body for (x type, M): the layer's pointers,
+// then the split sum in a second kernel; a cudaError_t
+template <class P, bool FUSE>
+int run_body(const void* x, int x_f32, const uint32_t* qw, const void* sc, const void* zs, int s_type, int zeros,
+             void* part, void* out, int M, int K, int Np, int g, int splits, int ups, cudaStream_t st) {
   const size_t pe = s_type == 0 ? 4 : 2;
-  auto al16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
-  const bool vec = Np % 4 == 0 && al16(qw) && (reinterpret_cast<uintptr_t>(sc) % (4 * pe)) == 0 &&
-                   (!fused || (reinterpret_cast<uintptr_t>(zs) % (4 * pe)) == 0);
-  if (!al16(x)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool vec = Np % 4 == 0 && aligned16(qw) && (reinterpret_cast<uintptr_t>(sc) % (4 * pe)) == 0 &&
+                   (!FUSE || (reinterpret_cast<uintptr_t>(zs) % (4 * pe)) == 0);
+  if (!aligned16(x)) return static_cast<int>(cudaErrorMisalignedAddress);
   float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
-  int e;
-  if (x_f32)
-    e = fused ? launch_m<P, true, true>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, p, out)
-              : launch_m<P, true, false>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, p, out);
-  else
-    e = fused ? launch_m<P, false, true>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, p, out)
-              : launch_m<P, false, false>(splits, st, x, qw, sc, zs, s_type, M, K, Np, g, ups, vec, p, out);
+  const int e = x_f32 ? launch_m<P, true, FUSE>(splits, st, x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, vec, p, out)
+                      : launch_m<P, false, FUSE>(splits, st, x, qw, sc, zs, s_type, zeros, M, K, Np, g, ups, vec, p,
+                                                 out);
   if (e != 0) return e;
   if (splits > 1) {
     const int MN = M * Np;
-    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, fused, out);
+    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, FUSE ? 1 : 0, out);
+  }
+  return qllm_launch_status();
+}
+
+// K14 / K16: fused or not, zs prefolded, the split sum in a second kernel
+template <class P>
+int run(const void* x, int x_f32, const uint32_t* qw, const void* sc, const void* zs, int s_type, void* part,
+        void* out, int fused, int M, int K, int Np, int g, int splits, int ups, cudaStream_t st) {
+  return fused ? run_body<P, true>(x, x_f32, qw, sc, zs, s_type, 0, part, out, M, K, Np, g, splits, ups, st)
+               : run_body<P, false>(x, x_f32, qw, sc, zs, s_type, 0, part, out, M, K, Np, g, splits, ups, st);
+}
+
+template <int BITS, int NT>
+int launch_s8(int splits, cudaStream_t st, const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, int M,
+              int K, int Np, int g, int ups, int vec, float* part, float* out) {
+  static int allowed[kMaxDevices];
+  using P = GptqOrder<BITS>;
+  const int ps = s_type == 0 ? 4 : 2;
+  auto rows = [](int kc) { return x8_row_bytes<P::kUnitK>(kc); };
+  const int kc = chunk_k(M, ups, P::kUnitK, g, ps, 1, rows);
+  const int smem = ring_bytes<P>() + chunk_bytes(M, rows(kc), kc, g, ps, 1);
+  auto kern = stacked_s8_kernel<BITS, NT>;
+  const int e = allow_dynamic_smem(kern, smem, allowed);
+  if (e != 0) return e;
+  const dim3 grid((Np + kCols - 1) / kCols, splits);
+  kern<<<grid, kBlock, smem, st>>>(x8, qw, sc, s_type, M, K, Np, g, ups, kc, vec, part, out);
+  return 0;
+}
+
+// K15's whole launch: the int8 body for M, then the split sum in a second
+// kernel; a cudaError_t
+template <int BITS>
+int run_s8(const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, void* part, float* out, int M, int K,
+           int Np, int g, int splits, int ups, cudaStream_t st) {
+  const size_t pe = s_type == 0 ? 4 : 2;
+  const bool vec = Np % 4 == 0 && aligned16(qw) && (reinterpret_cast<uintptr_t>(sc) % (4 * pe)) == 0;
+  if (!aligned16(x8)) return static_cast<int>(cudaErrorMisalignedAddress);
+  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
+  const int e = M <= 8 ? launch_s8<BITS, 1>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out)
+                : M <= 16 ? launch_s8<BITS, 2>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out)
+                          : launch_s8<BITS, 4>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out);
+  if (e != 0) return e;
+  if (splits > 1) {
+    const int MN = M * Np;
+    split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, 0, out);
   }
   return qllm_launch_status();
 }

@@ -194,20 +194,6 @@ constexpr int kA8W = 2 * kA8NT;        // consecutive words of a word row per th
 constexpr uint32_t kLowNibbles = 0x0F0F0F0Fu;
 constexpr int kOnes = 0x01010101;
 
-// D += A * B: A 16x32 s8 (row-major fragments), B 32x8 s8 (column-major),
-// D 16x8 s32. With gq = lane / 4 and c = lane % 4: a0 = A[gq][4c..4c+3],
-// a1 = A[gq+8][4c..], a2 = A[gq][16+4c..], a3 = A[gq+8][16+4c..];
-// b0 = B[4c..4c+3][gq], b1 = B[16+4c..][gq]; d0, d1 = D[gq][2c, 2c+1],
-// d2, d3 = D[gq+8][2c, 2c+1]. The lowest byte holds the lowest index.
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 template <int MT, int P, bool GENERIC>
 __global__ void __launch_bounds__(kA8MaxWarps * 32)
     w4a8_planar_gemv_kernel(const int8_t* __restrict__ x8,         // [M, K]

@@ -23,6 +23,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -97,25 +99,38 @@ def _nvcc() -> str:
 
 
 def _run_all(cmds: List[List[str]], log: Path) -> None:
-    """Run the commands concurrently; raise naming the first that fails."""
+    """Run the commands concurrently; log each one's output and the
+    seconds from the start until it ended; raise naming the first that
+    fails."""
+    t0 = time.perf_counter()
     procs = []
     for cmd in cmds:
+        out = tempfile.TemporaryFile()
         try:
-            procs.append(
-                (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-            )
+            procs.append((cmd, out, subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)))
         except FileNotFoundError as e:
-            for _, p in procs:
+            out.close()
+            for _, o, p in procs:
                 p.kill()
                 p.wait()
+                o.close()
             raise RuntimeError(f"nvcc not found; tried: {' '.join(cmd)}") from e
+    ended = {}
+    while len(ended) < len(procs):
+        for i, (_, _, p) in enumerate(procs):
+            if i not in ended and p.poll() is not None:
+                ended[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     failed = None
     with open(log, "ab") as f:
-        for cmd, p in procs:
-            out, _ = p.communicate()
-            f.write(f"$ {' '.join(cmd)}\n".encode() + out)
+        for i, (cmd, out, p) in enumerate(procs):
+            out.seek(0)
+            text = out.read()
+            out.close()
+            what = Path(cmd[cmd.index("-c") + 1]).name if "-c" in cmd else "link"
+            f.write(f"$ {' '.join(cmd)}\n".encode() + text + f"[build seconds] {what} {ended[i]:.1f}\n".encode())
             if p.returncode != 0 and failed is None:
-                failed = (cmd, out.decode(errors="replace"))
+                failed = (cmd, text.decode(errors="replace"))
     if failed is not None:
         cmd, out = failed
         raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{out[-4000:]}")

@@ -5,10 +5,11 @@ of ``_qmm_2d`` / ``qmatmul_pallas`` in ``qllm_tpu/ops/pallas_qmm.py``).
 (per-layer) ``QuantizedTensor`` of 2, 4 or 8 bits, as the JAX package
 does branch by branch:
 
-  * M <= 32 (decode): x in f32, ``y = bf16(sum_k x_k q_k s_g(k) -
+  * M <= 32 (decode): x in f32, ``y = bf16(sum_g s_g (x_g . q_g) -
     xsum_g @ (z * s))`` with f32 sums. CUDA kernel K9 ``gptq_gemv``
-    (csrc/gptq_mm.cu), the counterpart of ``_qmm_kernel_v3`` (:177) and
-    of ``_qmm_kernel``'s f32-dot branch (:119).
+    (csrc/gptq_stacked.cu, on the tensor-core body of
+    csrc/stacked_mma.cuh), the counterpart of ``_qmm_kernel_v3`` (:177)
+    and of ``_qmm_kernel``'s f32-dot branch (:119).
   * M > 32 (prefill, speculative verify): x in bf16, ``w = bf16(q * s)``
     (the zero point is NOT in the rounded weight), a bf16 product with f32
     sums, then the zero-point term ``xsum_g @ (z * s)`` taken off in f32.
@@ -39,6 +40,7 @@ import torch
 from . import _build
 from ..quant.qtensor import QuantizedTensor, unpack_rows
 from .qmm import _per_group_branch, _sm_count, quantize_rows_int8_plain
+from .tc_plan import PARAM_TYPES, TC_TARGET_BLOCKS, tc_splits
 
 __all__ = [
     "qmatmul_2d",
@@ -54,9 +56,7 @@ __all__ = [
 
 GEMV_MAX_M = 32
 _BITS = (2, 4, 8)
-# scales / zeros dtypes the kernels read, by the code the C entry points take
-_PARAM_TYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# K9: blocks aimed at (about four 128-thread blocks per SM on 132 SMs)
+# K12: blocks aimed at (about four 128-thread blocks per SM on 132 SMs)
 _GEMV_TARGET_BLOCKS = 528
 _GEMV_MIN_ROWS = 16  # word rows per K split, at least
 
@@ -109,8 +109,8 @@ def gptq_gemv_plain(
 
 
 def _gemv_splits(rows: int, N: int) -> Tuple[int, int]:
-    """(splits of K, word rows per split) from the weight's shape alone, so
-    that a row's sums never depend on M."""
+    """K12's (splits of K, word rows per split) from the weight's shape
+    alone, so that a row's sums never depend on M."""
     blocks_n = -(-N // 128)
     splits = max(1, min(-(-_GEMV_TARGET_BLOCKS // blocks_n), rows // _GEMV_MIN_ROWS))
     per = -(-rows // splits)
@@ -118,9 +118,9 @@ def _gemv_splits(rows: int, N: int) -> Tuple[int, int]:
 
 
 def _param_type(name: str, scales: torch.Tensor, zeros: torch.Tensor) -> int:
-    if scales.dtype != zeros.dtype or scales.dtype not in _PARAM_TYPES:
+    if scales.dtype != zeros.dtype or scales.dtype not in PARAM_TYPES:
         raise ValueError(f"{name}: scales and zeros must share one of f32/fp16/bf16, got {scales.dtype}, {zeros.dtype}")
-    return _PARAM_TYPES[scales.dtype]
+    return PARAM_TYPES[scales.dtype]
 
 
 def _check_weight(name, x, qweight, scales, zeros, bits, K, g):
@@ -145,7 +145,8 @@ def gptq_gemv(
     """K9: x [M <= 32, K] bf16 or f32 -> y [M, N] bf16 (see the plain version).
     Replaces ``_qmm_kernel_v3`` (pallas_qmm.py:177) and ``_qmm_kernel``'s
     f32-dot branch (:119). Bound: bytes (words + scales + zeros + x + y)
-    over 3.35 TB/s."""
+    over 3.35 TB/s. K splits by ``tc_splits`` of the word rows and N
+    (never M); a second kernel adds the splits in split order."""
     _check_bits(bits)
     if not _build.use_kernel(x, "gptq_gemv"):
         return gptq_gemv_plain(x, qweight, scales, zeros, bits, group_size)
@@ -155,11 +156,12 @@ def gptq_gemv(
     g = _group(K, group_size)
     N, s_type = _check_weight("gptq_gemv", x, qweight, scales, zeros, bits, K, g)
     x = x.contiguous()
-    splits, per = _gemv_splits(K * bits // 32, N)
+    if x.data_ptr() % 16:  # the kernel stages x by 8- and 16-byte copies
+        x = x.clone()
+    splits, per = tc_splits(K * bits // 32, N, TC_TARGET_BLOCKS["gptq"])
     part = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    lib = _build.load_library()
-    code = lib.qllm_gptq_gemv(
+    code = _build.load_library().qllm_gptq_gemv(
         x.data_ptr(), int(x.dtype == torch.float32), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
         s_type, _build.ptr(part), out.data_ptr(), bits, M, K, N, g, splits, per, _build.stream(x),
     )

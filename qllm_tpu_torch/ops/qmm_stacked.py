@@ -13,7 +13,8 @@ M <= 32 rows of x:
     (s_g (x_g . q_g) - sum(x_g) zs_g)``, rounded to bf16;
   * K15 ``gptq_stacked_w4a8_gemv`` (csrc/gptq_stacked.cu): int8
     activations against 2- and 4-bit words, exact s8 x s8 -> s32 group
-    dots, ``sum_g s_g d_g`` in f32 (``_qmm_kernel_w4a8_v3_stacked``, :584);
+    dots on the int8 tensor cores, ``sum_g s_g d_g`` in f32
+    (``_qmm_kernel_w4a8_v3_stacked``, :584);
   * K16 ``bitplane_stacked_gemv`` (csrc/bitplane.cu): 3/5/6/7-bit
     plane-major bit-plane words [L, bits * K/32, Np], unfused and fused as
     K14 (``_qmm_kernel_odd_stacked``, :676).
@@ -28,13 +29,13 @@ the work outside the kernels are ``ops.qmm.qmatmul_stacked``'s.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from . import _build
 from ..quant.qtensor import unpack_rows
-from .qmm2d import _PARAM_TYPES, _gemv_splits
+from .tc_plan import PARAM_TYPES, TC_TARGET_BLOCKS, tc_splits
 
 __all__ = [
     "gptq_stacked_gemv",
@@ -44,31 +45,9 @@ __all__ = [
     "bitplane_stacked_gemv",
     "bitplane_stacked_gemv_plain",
     "STACKED_MAX_M",
-    "tc_splits",
-    "TC_TARGET_BLOCKS",
 ]
 
 STACKED_MAX_M = 32
-# K14 / K16: the blocks of 128 output columns a launch may hold, as many as
-# the H100's 132 SMs hold at M <= 8 (K14 four an SM, K16 three: its
-# registers), so the grid runs in one wave; and the fewest word rows (K14)
-# or words of each plane (K16) a split of K takes
-TC_TARGET_BLOCKS = {"gptq_stacked_gemv": 4 * 132, "bitplane_stacked_gemv": 3 * 132}
-_TC_BLOCK_COLS = 128
-_TC_MIN_UNITS = 16
-
-
-def tc_splits(units: int, N: int, target: int) -> Tuple[int, int]:
-    """K14's and K16's split of K: (splits, units per split) for a layer
-    of ``units`` word rows (K14) or words a plane (K16) and N columns: the
-    most splits whose blocks stay within ``target`` (the kernel's entry of
-    TC_TARGET_BLOCKS). It depends on the weight's shape alone, so a row's
-    sums never depend on M; the splits cover the units, the last one
-    shorter."""
-    blocks_n = -(-N // _TC_BLOCK_COLS)
-    splits = max(1, min(target // blocks_n, units // _TC_MIN_UNITS))
-    per = -(-units // splits)
-    return -(-units // per), per
 
 
 def _group(K: int, group_size: int) -> int:
@@ -145,7 +124,7 @@ def _check(name, x, qweight, scales, zs, layer, rows_per_layer, K, g, x_types):
     L, _, Np = qweight.shape
     if K % g:
         raise ValueError(f"{name}: group size {g} does not divide K={K}")
-    if scales.dtype not in _PARAM_TYPES or tuple(scales.shape) != (L, K // g, Np):
+    if scales.dtype not in PARAM_TYPES or tuple(scales.shape) != (L, K // g, Np):
         raise ValueError(f"{name}: scales must be f32/fp16/bf16 [{L}, {K // g}, {Np}]")
     ops = [qweight, scales]
     if zs is not None:
@@ -157,7 +136,7 @@ def _check(name, x, qweight, scales, zs, layer, rows_per_layer, K, g, x_types):
     for t in ops:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous on {x.device}")
-    return Np, _PARAM_TYPES[scales.dtype]
+    return Np, PARAM_TYPES[scales.dtype]
 
 
 def _launch_dot(name, fn, x, qweight, scales, zs, layer, bits, group_size, fused, words, splits_rows):
@@ -170,7 +149,8 @@ def _launch_dot(name, fn, x, qweight, scales, zs, layer, bits, group_size, fused
     x = x.contiguous()
     if x.data_ptr() % 16:  # the kernels stage x by 16-byte copies
         x = x.clone()
-    splits, per = tc_splits(splits_rows, Np, TC_TARGET_BLOCKS[name])
+    body = "bitplane" if name == "bitplane_stacked_gemv" else "gptq"
+    splits, per = tc_splits(splits_rows, Np, TC_TARGET_BLOCKS[body])
     part = torch.empty((splits, M, Np), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((M, Np), dtype=torch.bfloat16 if fused else torch.float32, device=x.device)
     code = fn(
@@ -247,7 +227,8 @@ def gptq_stacked_w4a8_gemv(
     """K15: x8 [M <= 32, K] int8 (``ops.qmm.quantize_rows_int8``) -> f32
     [M, Np] (see the plain version). Replaces _qmm_kernel_w4a8_v3_stacked
     (pallas_qmm.py:584). Bound: bytes (the layer's words and scales, x8
-    and y) over 3.35 TB/s."""
+    and y) over 3.35 TB/s. K splits by ``tc_splits`` of the word rows and
+    Np (never M)."""
     if bits not in (2, 4):
         raise NotImplementedError(f"gptq_stacked_w4a8_gemv serves 2/4 bits, got {bits}")
     if not _build.use_kernel(x8, "gptq_stacked_w4a8_gemv"):
@@ -257,7 +238,9 @@ def gptq_stacked_w4a8_gemv(
     rows = K * bits // 32
     Np, s_type = _check("gptq_stacked_w4a8_gemv", x8, qweight, scales, None, layer, rows, K, g, (torch.int8,))
     x8 = x8.contiguous()
-    splits, per = _gemv_splits(rows, Np)
+    if x8.data_ptr() % 16:  # the kernel stages x8 by 8- and 16-byte loads
+        x8 = x8.clone()
+    splits, per = tc_splits(rows, Np, TC_TARGET_BLOCKS["gptq"])
     part = torch.empty((splits, M, Np), dtype=torch.float32, device=x8.device) if splits > 1 else None
     out = torch.empty((M, Np), dtype=torch.float32, device=x8.device)
     code = _build.load_library().qllm_gptq_stacked_w4a8_gemv(

@@ -219,6 +219,104 @@ def test_gptq_gemv_rows_do_not_depend_on_m(gen):
             assert torch.equal(qmm2d.gptq_gemv(x[m : m + 1], qw, sc, zr, bits, 128)[0], y8[m]), (bits, m)
 
 
+def _gptq_tc(gen, K, N, bits, g, sdtype, heavy):
+    """K9's weights for the one-ulp cases. ``heavy``: every field in the
+    top of its range (4 bits: 14 or 15; 8 bits: 240-255) with zero points
+    at its middle, so y is small beside sum x q s (the zero-point mass):
+    rounding q * s to bf16 first then misses one bf16 ulp of max|y| by a
+    few ulps. At 2 bits no such spread leaves room for it."""
+    qw, sc, zr = _gptq(gen, K, N, bits, g, sdtype)
+    if heavy:
+        top = {4: (0xEEEEEEEE, (14, 16)), 8: (0xF0F0F0F0, (247, 249))}[bits]
+        qw = qw | torch.tensor(top[0], dtype=torch.int64).to(torch.int32).item()
+        zr = torch.randint(*top[1], zr.shape, device="cuda", generator=gen).to(sdtype)
+    return qw, sc, zr
+
+
+def _bf16_weight_control(x, qw, sc, zr, bits, g):
+    """The function with the weight q * s rounded to bf16 before the dot
+    (a dequantize-then-dot kernel), x unrounded: bf16(x @ bf16(q s) -
+    xsum_g @ (z s))."""
+    from qllm_tpu_torch.quant.qtensor import unpack_rows
+
+    K, N = x.shape[1], qw.shape[1]
+    s, z = sc.float(), zr.float()
+    w = (unpack_rows(qw, bits, K).float().reshape(K // g, g, N) * s[:, None]).reshape(K, N).to(torch.bfloat16)
+    xf = x.float()
+    return (xf @ w.float() - xf.reshape(x.shape[0], K // g, g).sum(dim=2) @ (z * s)).to(torch.bfloat16)
+
+
+# (bits, M, K, N, g, scale / zero dtype, x dtype, heavy): 2, 4 and 8 bits at
+# M = 1-32, an f32 x bf16 cannot hold (the three-way split), groups that
+# close inside an MMA step (4 bits g = 8 and 24, 2 bits g = 16, 8 bits g =
+# 4 and 12), ragged N (1000, 388, and 202: not a multiple of 4, the scalar
+# path), one group over K, scales and zeros in f32, fp16 and bf16
+_K9_TC = [
+    (4, 8, 1024, 512, 128, torch.float16, torch.bfloat16, False),
+    (8, 8, 1024, 512, 64, torch.bfloat16, torch.bfloat16, False),
+    (4, 8, 1024, 512, 128, torch.float16, torch.bfloat16, True),
+    (4, 32, 1024, 512, 128, torch.bfloat16, torch.bfloat16, True),
+    (8, 8, 1024, 512, 128, torch.float16, torch.bfloat16, True),
+    (8, 17, 768, 384, 64, torch.float32, torch.float32, True),
+    (2, 8, 1024, 640, 32, torch.bfloat16, torch.bfloat16, False),
+    (2, 32, 2048, 256, 128, torch.float16, torch.float32, False),
+    (4, 3, 1024, 512, 64, torch.float32, torch.float32, True),
+    (4, 8, 512, 384, 8, torch.float16, torch.bfloat16, True),
+    (4, 16, 768, 256, 24, torch.bfloat16, torch.float32, True),
+    (2, 5, 512, 384, 16, torch.float16, torch.bfloat16, False),
+    (8, 8, 512, 256, 4, torch.bfloat16, torch.bfloat16, True),
+    (8, 32, 768, 256, 12, torch.float16, torch.float32, True),
+    (4, 1, 512, 1000, 128, torch.float16, torch.bfloat16, True),
+    (8, 32, 768, 388, 64, torch.bfloat16, torch.bfloat16, True),
+    (4, 8, 512, 202, 64, torch.float32, torch.bfloat16, True),
+    (4, 32, 2048, 256, 2048, torch.float16, torch.bfloat16, True),
+    (8, 1, 1024, 128, 1024, torch.float32, torch.bfloat16, True),
+    (4, 8, 4096, 4096, 128, torch.float16, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("bits,M,K,N,g,sdtype,xdtype,heavy", _K9_TC)
+def test_k9_tensor_cores_match_plain(gen, bits, M, K, N, g, sdtype, xdtype, heavy):
+    """K9 on the tensor cores within one bf16 ulp of max|plain|; where the
+    weights carry the zero-point mass (``heavy``), the product over the
+    weight q * s rounded to bf16 misses that limit (the control)."""
+    qw, sc, zr = _gptq_tc(gen, K, N, bits, g, sdtype, heavy)
+    x = torch.randn((M, K), device="cuda", generator=gen, dtype=torch.float32)
+    if xdtype == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    else:  # values that bf16 cannot hold: the kernel's three-way split
+        assert not torch.equal(x, x.to(torch.bfloat16).float())
+    y = qmm2d.gptq_gemv(x, qw, sc, zr, bits, g)
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (M, N)
+    ref = qmm2d.gptq_gemv_plain(x, qw, sc, zr, bits, g).float()
+    limit = _bf16_ulp(ref)
+    assert float((y.float() - ref).abs().max()) <= limit
+    if heavy:
+        assert float((_bf16_weight_control(x, qw, sc, zr, bits, g).float() - ref).abs().max()) > limit
+
+
+def test_k9_split_sum_is_deterministic(gen):
+    """K9's splits of a column tile, added in split order by the second
+    kernel: 20 back-to-back calls give the same bits, and a call on a
+    second stream gives them too."""
+    from qllm_tpu_torch.ops import tc_plan
+
+    K, N, M, g = 4096, 4096, 8, 128
+    assert tc_plan.tc_splits(K // 8, N, tc_plan.TC_TARGET_BLOCKS["gptq"])[0] > 1
+    qw, sc, zr = _gptq(gen, K, N, 4, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    first = qmm2d.gptq_gemv(x, qw, sc, zr, 4, g)
+    runs = [qmm2d.gptq_gemv(x, qw, sc, zr, 4, g) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, first) for y in runs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y_side = qmm2d.gptq_gemv(x, qw, sc, zr, 4, g)
+    side.synchronize()
+    assert torch.equal(y_side, first)
+
+
 @pytest.mark.parametrize(
     "M,K,N,bits,g,sdtype,xdtype",
     [
@@ -341,6 +439,34 @@ def test_k15_gptq_stacked_w4a8_gemv_matches_plain(gen, bits, K, Np, g, M):
     y = qs.gptq_stacked_w4a8_gemv(x8, qw, sc, 1, bits, g)
     _close_to_plain_not_to_next_layer(y, qs.gptq_stacked_w4a8_gemv_plain(x8, qw, sc, 1, bits, g),
                                       qs.gptq_stacked_w4a8_gemv_plain(x8, qw, sc, 2, bits, g))
+
+
+# (bits, K, Np, g): groups ending inside an MMA's k span (4 bits g = 8,
+# 2 bits g = 16: one word row a group), ragged Np (200; 202, not a multiple
+# of 4: the scalar path), one group over K
+_K15_TC = [(2, 1024, 640, 128), (4, 1024, 512, 128), (4, 512, 384, 8), (2, 512, 256, 16), (4, 512, 200, 64),
+           (2, 768, 202, 48), (4, 2048, 256, 2048)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 32])
+@pytest.mark.parametrize("bits,K,Np,g", _K15_TC)
+def test_k15_tensor_cores_match_plain(gen, bits, K, Np, g, M):
+    """K15 on the int8 tensor cores: within 1e-2 * max|plain| of layer 1's
+    plain version and outside it against layer 2's, within one bf16 ulp
+    plus 1e-3 * max|plain| (the exact s32 dots leave only the f32 order),
+    and its rows equal the same rows at M = 32, alone as well."""
+    from qllm_tpu_torch.ops import qmm_stacked as qs
+
+    qw, sc, _ = _packed_stack(gen, bits, K, Np, g)
+    x8, _, _ = qmm.quantize_rows_int8(torch.randn((32, K), device="cuda", generator=gen), g)
+    y32 = qs.gptq_stacked_w4a8_gemv(x8, qw, sc, 1, bits, g)
+    y = qs.gptq_stacked_w4a8_gemv(x8[:M], qw, sc, 1, bits, g)
+    ref = qs.gptq_stacked_w4a8_gemv_plain(x8[:M], qw, sc, 1, bits, g)
+    _close_to_plain_not_to_next_layer(y, ref, qs.gptq_stacked_w4a8_gemv_plain(x8[:M], qw, sc, 2, bits, g))
+    _a8_close(y, ref)
+    assert torch.equal(y, y32[:M])
+    for m in {0, M - 1}:
+        assert torch.equal(qs.gptq_stacked_w4a8_gemv(x8[m : m + 1], qw, sc, 1, bits, g)[0], y32[m]), m
 
 
 @pytest.mark.parametrize(

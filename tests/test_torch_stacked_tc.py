@@ -29,7 +29,7 @@ import torch
 
 import qllm_tpu.ops.pallas_qmm as pq
 from qllm_tpu_torch.interop import tensor_from_numpy
-from qllm_tpu_torch.ops import qmm, qmm_stacked
+from qllm_tpu_torch.ops import qmm, qmm_stacked, tc_plan
 from qllm_tpu_torch.quant.qtensor import unpack_rows
 
 from test_torch_stacked_widths import _stacks, jax_env  # noqa: F401
@@ -106,7 +106,7 @@ def test_plain_versions_keep_an_f32_x(jax_env, bits, fused):
 
 
 # ---------------------------------------------------------------------------
-# K14's and K16's split of K (ops.qmm_stacked.tc_splits)
+# K14's and K16's split of K (ops.tc_plan.tc_splits)
 # ---------------------------------------------------------------------------
 
 
@@ -116,11 +116,11 @@ def test_tc_splits_cover_k(units, N):
     """The splits cover every unit once: all but the last hold ``per``
     units, the last 1..per, and no split is empty; the blocks stay within
     the kernel's target unless K is not split."""
-    for name, target in qmm_stacked.TC_TARGET_BLOCKS.items():
-        splits, per = qmm_stacked.tc_splits(units, N, target)
+    for name, target in tc_plan.TC_TARGET_BLOCKS.items():
+        splits, per = tc_plan.tc_splits(units, N, target)
         assert splits >= 1 and per >= 1
         assert (splits - 1) * per < units <= splits * per
-        assert splits == 1 or per >= qmm_stacked._TC_MIN_UNITS
+        assert splits == 1 or per >= tc_plan.MIN_UNITS
         assert splits == 1 or splits * -(-N // 128) <= target, name
 
 
@@ -160,7 +160,7 @@ def test_tc_launch_splits_depend_on_k_and_n_alone(monkeypatch, fn, bits):
             for fused in (False, True):
                 getattr(qmm_stacked, fn)(torch.zeros((M, K), dtype=dtype), qw, sc, sc, 1, bits, g, fused)
     units = rows if bits in (2, 4) else K // 32
-    want = qmm_stacked.tc_splits(units, Np, qmm_stacked.TC_TARGET_BLOCKS[fn])
+    want = tc_plan.tc_splits(units, Np, tc_plan.TC_TARGET_BLOCKS["gptq" if bits in (2, 4) else "bitplane"])
     assert want[0] > 1  # the 7B gate|up splits K
     assert {tuple(args[-3:-1]) for _, args in lib.calls} == {want}
     assert len(lib.calls) == 16
