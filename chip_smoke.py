@@ -131,6 +131,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -254,12 +255,26 @@ CROSS_MOE = (
     ("Qwen3 f32", QWEN3, (1, 2), 16, 4, "f32", 4, False),
     ("Qwen3 2-bit", QWEN3, (1,), 16, 4, "f32", 2, False),
 )
-# K8 cases: (name, K, padded N, experts in the stack, selections, mode)
+# K8 cases: (name, K, padded N, experts in the stack, selections, mode):
+# "shared", one token's k distinct experts reading one row; "sorted", n // 8
+# tokens' top-8, sorted (runs of up to 8); "runs", sorted ids of K8_RUNS'
+# run lengths (runs longer than the 8 rows a block takes)
 K8_CASES = (
     ("mixtral gateup", 4096, 28672, 8, 2, "shared"),
     ("qwen3 gateup", 2048, 1536, 128, 8, "shared"),
     ("qwen3 down", 768, 2048, 128, 64, "sorted"),
+    ("qwen3 down long runs", 768, 2048, 128, 64, "runs"),
 )
+K8_RUNS = (12, 12, 10, 10, 10, 10)
+# the kernels a wrapper's launch makes, each with the fewest and the most
+# of it a launch makes: K8 on the sparse MoE decode paths (its body, and its
+# split sum when K is split), K12 on the W4A8 per-layer paths (its
+# quantizer, K15's int8 body, its epilogue), K9 on the engine's plain step
+# (the tensor-core body and its split sum); profile_run holds the profiled
+# kernels under these names to the wrapper's own count
+K8_KERNELS = {"planar_grouped_kernel": (1, 1), "split_sum_out_kernel": (0, 1)}
+K12_KERNELS = {"quantize_rows_kernel": (1, 1), "stacked_s8_kernel": (1, 1), "a8_epilogue_kernel": (1, 1)}
+K9_KERNELS = {"stacked_mma_kernel": (1, 1), "split_sum_out_kernel": (0, 1)}
 # K19 (the fused expert MLP) at Qwen3-30B-A3B's batch-1 decode: experts in
 # the stack, hidden (K1), expert width (K2), padded down width, selections
 K19_CASE = dict(E=128, K1=2048, K2=768, Np2=2048, n=8)
@@ -353,14 +368,19 @@ A8_MODEL_REL = 0.15
 # within one bf16 ulp of the plain version plus A8_TOL * max|plain| (both
 # quantize x alike and sum exact integer dots; only the f32 order differs)
 A8_TOL = 1e-3
-# K11 rows: (M, projection); K12 rows: (M, projection, K, N, bits, act-order)
+# K11 rows: (M, projection); K12 rows: (M, projection, K, N, bits,
+# act-order, scale storage): the serve path's fp16 scales, and the f32
+# stacks' down_proj fallback (f32 scales at K = 11008)
 A8_CASES = tuple((M, p) for M in (8, 32) for p in ("gateup", "down"))
 A8_GPTQ_CASES = (
-    (1, "gate/up", 4096, 11008, 4, False),
-    (8, "gate/up", 4096, 11008, 4, False),
-    (8, "gate/up", 4096, 11008, 2, False),
-    (8, "q/k/v/o", 4096, 4096, 4, False),
-    (8, "q/k/v/o", 4096, 4096, 4, True),
+    (1, "gate/up", 4096, 11008, 4, False, "fp16"),
+    (8, "gate/up", 4096, 11008, 4, False, "fp16"),
+    (8, "gate/up", 4096, 11008, 2, False, "fp16"),
+    (1, "q/k/v/o", 4096, 4096, 4, False, "fp16"),
+    (8, "q/k/v/o", 4096, 4096, 4, False, "fp16"),
+    (32, "q/k/v/o", 4096, 4096, 4, False, "fp16"),
+    (8, "q/k/v/o", 4096, 4096, 4, True, "fp16"),
+    (8, "down", 11008, 4096, 2, False, "f32"),
 )
 # the W4A8 decode leg (bench.py:653-691): batch, prompt, steps per leg,
 # cache length; the streaming ceiling's geometry (the JAX package's
@@ -465,11 +485,13 @@ def phase_kernels(torch, timer):
                 w = dequant(qw, sc, zs, 1, Kf)
                 xin = qmm._rms_norm_rows(x, nw[1], 1e-5) if norm else x
                 lib_ms = timer(lambda: torch.matmul(xin, w))
+                # a launch's device time (torch.profiler, L2 warm); K1's beside the library call's
+                extra = {"device_ms": launch_us(torch, lambda: fn(*args), key="w4_gemm_kernel" if kname == "w4_planar_gemm"
+                                                else "") / 1e3}
+                if kname == "w4_planar_gemv":
+                    extra["library_device_ms"] = launch_us(torch, lambda: torch.matmul(xin, w), key="") / 1e3
                 del w
                 ms = timer(lambda: fn(*args))
-                extra = {}
-                if kname == "w4_planar_gemm":  # a launch's device time (torch.profiler, L2 warm)
-                    extra["device_ms"] = launch_us(torch, lambda: fn(*args), key="w4_gemm_kernel") / 1e3
                 plain_ms = timer(lambda: plain(*args), reps=5, warmup=1)
                 nbytes = qw[1].numel() * 4 + 2 * sc[1].numel() * 2 + M * Kf * 2 + M * Np * 2
                 nbytes += Kf * 2 if norm else 0
@@ -654,50 +676,7 @@ def phase_kernels(torch, timer):
     torch.cuda.empty_cache()
     rows.extend(gemma_flash_rows(torch, timer, gen))
 
-    # K8 w4_grouped_gemv: the sparse MoE paths' selections, one launch each
-    for cname, Kf, Np, E, n, mode in K8_CASES:
-        qw, sc, zs = stack(Kf, Np, L=E)
-        shared = mode == "shared"
-        if shared:  # one token's k distinct experts, reading one row
-            ids = torch.randperm(E, generator=gen, device=dev)[:n]
-        else:  # n // k tokens' top-k, sorted: experts repeat
-            k = n // 8
-            ids = torch.cat([torch.randperm(E, generator=gen, device=dev)[:k] for _ in range(n // k)]).sort().values
-        ids = ids.to(torch.int32)
-        x = torch.randn((1 if shared else n, Kf), device=dev, generator=gen).to(torch.bfloat16)
-        host_ids = ids.tolist()
-        pair = None
-        if not shared:  # an equal (row, id) pair must give equal bits
-            pair = next(j for j in range(1, n) if host_ids[j] == host_ids[j - 1])
-            x[pair] = x[pair - 1]
-        args = (x, qw, sc, zs, ids, shared)
-        y = qmm.w4_grouped_gemv(*args)
-        torch.cuda.synchronize()
-        y_ref = qmm.w4_grouped_gemv_plain(*args)
-        scale = float(y_ref.float().abs().max())
-        err = float((y.float() - y_ref.float()).abs().max())
-        same = pair is None or bool(torch.equal(y[pair], y[pair - 1]))
-        ok = err <= K8_TOL[0] * scale + K8_TOL[1] and same
-        w_sel = torch.stack([dequant(qw, sc, zs, e, Kf) for e in host_ids])  # [n, K, Np], outside the timing
-        xs = x.expand(n, Kf) if shared else x
-        lib_ms = timer(lambda: torch.bmm(xs[:, None, :], w_sel))
-        lib_device_ms = launch_us(torch, lambda: torch.bmm(xs[:, None, :], w_sel), key="") / 1e3
-        del w_sel
-        ms = timer(lambda: qmm.w4_grouped_gemv(*args))
-        device_ms = launch_us(torch, lambda: qmm.w4_grouped_gemv(*args), key="") / 1e3
-        plain_ms = timer(lambda: qmm.w4_grouped_gemv_plain(*args), reps=5, warmup=1)
-        uniq = len(set(host_ids))  # the experts this run's ids touch, each read once
-        nbytes = uniq * (qw[0].numel() * 4 + 2 * sc[0].numel() * 2) + x.numel() * 2 + n * Np * 2 + n * 4
-        b_ms, b_by = bound(nbytes, 2.0 * n * Kf * Np)
-        rows.append(dict(kernel="w4_grouped_gemv", case=f"{cname} K={Kf} N={Np} E={E} n={n} {mode} ({uniq} experts)",
-                         max_abs_err=err, tol=f"{K8_TOL[0]}*{scale:.4g} + {K8_TOL[1]}, equal pairs bit-equal",
-                         ok=bool(ok), ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         library_device_ms=lib_device_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"[kernel] {json.dumps(rows[-1])}")
-        if not ok:
-            raise AssertionError(f"w4_grouped_gemv {cname}: max_abs_err {err}, equal pair {same}")
-        del qw, sc, zs, x, y, y_ref
-    torch.cuda.empty_cache()
+    rows.extend(k8_rows(torch, timer, gen, stack, dequant))
 
     rows.extend(fused_rows(torch, timer, gen, stack))
     torch.cuda.empty_cache()
@@ -758,6 +737,87 @@ def phase_kernels(torch, timer):
     rows.extend(wide_flash_rows(torch, timer, gen))
     rows.extend(sp_rows(torch, timer, gen))
     rows.extend(body_rows(torch, timer, gen))
+    return rows
+
+
+def k8_rows(torch, timer, gen, stack, dequant):
+    """K8 w4_grouped_gemv at the sparse MoE paths' selections (K8_CASES),
+    one launch each, against its plain version: K8_TOL, equal (row, id)
+    pairs bit-equal (in one run, and across two heads of a run past 8
+    selections), the first selections alone bit-equal to the whole launch's
+    rows; the library call is torch.bmm on the selected experts'
+    dequantized bf16 weights."""
+    from qllm_tpu_torch.ops import qmm
+
+    dev = DEV
+    rows = []
+    for cname, Kf, Np, E, n, mode in K8_CASES:
+        qw, sc, zs = stack(Kf, Np, L=E)
+        shared = mode == "shared"
+        if shared:  # one token's k distinct experts, reading one row
+            ids = torch.randperm(E, generator=gen, device=dev)[:n]
+        elif mode == "sorted":  # n // 8 tokens' top-8, sorted: experts repeat
+            ids = torch.cat([torch.randperm(E, generator=gen, device=dev)[:8] for _ in range(n // 8)]).sort().values
+        else:  # runs longer than a block's 8 rows
+            chosen = torch.randperm(E, generator=gen, device=dev)[: len(K8_RUNS)].tolist()
+            ids = torch.tensor(sorted(e for e, r in zip(chosen, K8_RUNS) for _ in range(r)), device=dev)
+        ids = ids.to(torch.int32)
+        x = torch.randn((1 if shared else n, Kf), device=dev, generator=gen).to(torch.bfloat16)
+        host_ids = ids.tolist()
+        # equal (row, id) pairs must give equal bits: two selections of one
+        # run, and (runs past 8) the heads of a run's first two blocks
+        near, heads = [], []
+        if not shared:
+            near = [next(j for j in range(1, n) if host_ids[j] == host_ids[j - 1])]
+            heads = [j for j in range(8, n) if host_ids[j] == host_ids[j - 8] and (j == 8 or host_ids[j - 9] != host_ids[j])]
+        for j in near:
+            x[j] = x[j - 1]
+        for j in heads:
+            x[j] = x[j - 8]
+        args = (x, qw, sc, zs, ids, shared)
+        y = qmm.w4_grouped_gemv(*args)
+        torch.cuda.synchronize()
+        y_ref = qmm.w4_grouped_gemv_plain(*args)
+        scale = float(y_ref.float().abs().max())
+        err = float((y.float() - y_ref.float()).abs().max())
+        same = all(bool(torch.equal(y[j], y[j - 1])) for j in near) and all(
+            bool(torch.equal(y[j], y[j - 8])) for j in heads)
+        if mode == "runs" and not heads:
+            raise AssertionError("w4_grouped_gemv long runs: no run passes 8 selections")
+        # the last id outside the stack: a row of NaN, and the other rows'
+        # bits unchanged (its run, if any, is one shorter)
+        bad = ids.clone()
+        bad[-1] = E
+        yb = qmm.w4_grouped_gemv(x, qw, sc, zs, bad, shared)
+        nan_row = bool(torch.isnan(yb[-1].float()).all()) and bool(torch.equal(yb[:-1], y[:-1]))
+        # the first selections alone (a batch-1 token's, or the first 8 of
+        # the sorted ones): the same bits as in the whole launch
+        m = 1 if shared else 8
+        alone = bool(torch.equal(qmm.w4_grouped_gemv(x[:m], qw, sc, zs, ids[:m], shared), y[:m]))
+        ok = err <= K8_TOL[0] * scale + K8_TOL[1] and same and nan_row and alone
+        w_sel = torch.stack([dequant(qw, sc, zs, e, Kf) for e in host_ids])  # [n, K, Np], outside the timing
+        xs = x.expand(n, Kf) if shared else x
+        lib_ms = timer(lambda: torch.bmm(xs[:, None, :], w_sel))
+        lib_device_ms = launch_us(torch, lambda: torch.bmm(xs[:, None, :], w_sel), key="") / 1e3
+        del w_sel
+        ms = timer(lambda: qmm.w4_grouped_gemv(*args))
+        device_ms = launch_us(torch, lambda: qmm.w4_grouped_gemv(*args), key="") / 1e3
+        plain_ms = timer(lambda: qmm.w4_grouped_gemv_plain(*args), reps=5, warmup=1)
+        uniq = len(set(host_ids))  # the experts this run's ids touch, each read once
+        nbytes = uniq * (qw[0].numel() * 4 + 2 * sc[0].numel() * 2) + x.numel() * 2 + n * Np * 2 + n * 4
+        b_ms, b_by = bound(nbytes, 2.0 * n * Kf * Np)
+        rows.append(dict(kernel="w4_grouped_gemv", case=f"{cname} K={Kf} N={Np} E={E} n={n} {mode} ({uniq} experts)",
+                         max_abs_err=err, tol=f"{K8_TOL[0]}*{scale:.4g} + {K8_TOL[1]}, equal pairs bit-equal",
+                         run_heads=int((qmm.grouped_run_rows(ids.cpu()) > 0).sum()), nan_id_row=nan_row,
+                         rows_alone_bit_equal=alone,
+                         ok=bool(ok), ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         library_device_ms=lib_device_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not ok:
+            raise AssertionError(f"w4_grouped_gemv {cname}: max_abs_err {err}, equal pairs {same}, NaN id row {nan_row}, "
+                                 f"rows alone {alone}")
+        del qw, sc, zs, x, y, y_ref
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1245,8 +1305,10 @@ def a8_rows(torch, timer, gen, stack, dequant):
                    2.0 * M * Kf * Np)
         del qw, sc, zs, w
 
-    for M, pname, Kf, N, bits, act_order in A8_GPTQ_CASES:
+    for M, pname, Kf, N, bits, act_order, sd in A8_GPTQ_CASES:
         qt = random_quantized_tensor(gen, Kf, N, bits, 128)
+        if sd == "f32":
+            qt = dataclasses.replace(qt, scales=qt.scales.float(), zeros=qt.zeros.float())
         x = torch.randn((M, Kf), device=DEV, generator=gen).to(torch.bfloat16)
         w_args = (qt.qweight, qt.scales, qt.zeros, bits, 128)
         extra = {}
@@ -1263,15 +1325,16 @@ def a8_rows(torch, timer, gen, stack, dequant):
             lib = lambda: torch.matmul(x, w)  # noqa: E731
         y = run()
         torch.cuda.synchronize()
-        if M == 8 and not act_order:  # batch invariance: rows 0 and 5 alone
+        if M >= 8 and not act_order:  # batch invariance: rows 0 and 5 alone
             extra["rows_alone_bit_equal"] = all(
                 bool(torch.equal(qmm2d.gptq_w4a8_gemv(x[m : m + 1], *w_args)[0], y[m])) for m in (0, 5))
             if not extra["rows_alone_bit_equal"]:
-                raise AssertionError(f"gptq_w4a8_gemv: a row alone differs from the same row at M=8 ({bits}-bit)")
+                raise AssertionError(f"gptq_w4a8_gemv: a row alone differs from the same row at M={M} ({bits}-bit)")
         w = dequant_ref(qt, torch.bfloat16)
         nbytes = qt.qweight.numel() * 4 + 2 * qt.scales.numel() * qt.scales.element_size() + M * Kf * 2 + M * N * 2
         nbytes += Kf * 4 if act_order else 0
-        record("gptq_w4a8_gemv", f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else ""),
+        record("gptq_w4a8_gemv", f"{pname} K={Kf} N={N} M={M} {bits}-bit" + (" act-order" if act_order else "")
+               + (" f32 scales" if sd == "f32" else ""),
                y, qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), quant_equal(xp, 128), run,
                lambda: qmm2d.gptq_w4a8_gemv_plain(xp, *w_args), lib, nbytes,
                2.0 * M * Kf * N, extra)
@@ -1779,30 +1842,47 @@ def phase_pnp(torch, K, model):
     return total
 
 
-def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: bool = False, moe_fused: bool = False):
+def profile_decode(torch, sp, cfg, token, cache, pos0, steps: int = 4, w4a8: bool = False, moe_fused: bool = False,
+                   watch=None):
     """Device busy share of a few warm decode steps (torch.profiler, CUDA
-    kernel time over host wall time) and the kernels that take it."""
+    kernel time over host wall time) and the kernels that take it;
+    ``watch`` as profile_run's."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
 
     return profile_run(
         torch, lambda: decode_loop(sp, cfg, token, cache, pos0, steps, device=DEV, w4a8=w4a8, moe_fused=moe_fused),
-        steps,
+        steps, watch,
     )
+
+
+def watched(name):
+    """profile_run's watch entry of a wrapper by its name: (the wrapper,
+    its kernels by K8_KERNELS, K12_KERNELS or K9_KERNELS)."""
+    from qllm_tpu_torch.ops import qmm, qmm2d
+
+    return {"k8": (qmm.w4_grouped_gemv, K8_KERNELS), "gptq_w4a8_gemv": (qmm2d.gptq_w4a8_gemv, K12_KERNELS),
+            "gptq_gemv": (qmm2d.gptq_gemv, K9_KERNELS)}[name]
 
 
 def profile_run(torch, run, steps: int, watch=None):
     """profile_decode's reading of ``run``, which takes ``steps`` steps;
-    ``watch``: {name: substrings of the CUDA kernel names} whose kernels'
-    device ms and count per step to report as well."""
+    ``watch``: {name: (wrapper, {kernel name: (fewest, most) a launch})}
+    whose kernels' device ms and count per step to report as well. The
+    profiled kernels under each name must number between the fewest and the
+    most times the wrapper's launches in the run (at least one), so that no
+    other kernel of the same name is counted as the wrapper's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    watch = watch or {}
     torch.cuda.synchronize()
+    before = {name: fn.launches for name, (fn, _) in watch.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {name: fn.launches - before[name] for name, (fn, _) in watch.items()}
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
@@ -1816,10 +1896,17 @@ def profile_run(torch, run, steps: int, watch=None):
         "device_busy_ms_per_step": busy_ms / steps,
         "device_busy_share": busy_ms / wall_ms,
     }
-    for name, keys in (watch or {}).items():
-        mine = [e for e in kernels if any(k in e.key for k in keys)]
+    for name, (_, per_launch) in watch.items():
+        n = launched[name]
+        for key, (lo, hi) in per_launch.items():
+            seen = sum(e.count for e in kernels if key in e.key)
+            if n < 1 or not lo * n <= seen <= hi * n:
+                raise AssertionError(f"profile: {seen} kernels named {key} for {n} launches of {name} "
+                                     f"(between {lo} and {hi} a launch)")
+        mine = [e for e in kernels if any(k in e.key for k in per_launch)]
         res[f"{name}_device_ms_per_step"] = sum(e.self_device_time_total for e in mine) / 1e3 / steps
         res[f"{name}_kernels_per_step"] = sum(e.count for e in mine) / steps
+        res[f"{name}_launches_per_step"] = n / steps
     return res
 
 
@@ -1879,10 +1966,46 @@ def _tensors(node):
         yield node
 
 
-def drive(torch, K, tag, cfg, sp, B, T, steps, max_seq, ring, expected, profile_steps=0):
+@contextlib.contextmanager
+def k8_ids_seen(seen, on=True):
+    """Inside, the ids of every grouped matmul of the MoE blocks (each one
+    K8 launch) go into ``seen``: the tensors themselves, no copy, so the
+    device does no more work; K8's own wrapper and counter stay as they are."""
+    from qllm_tpu_torch.models import moe
+
+    fn = moe.qmatmul_grouped_experts
+    if not on:
+        yield seen
+        return
+
+    def recording(x_rows, w, ids, *args, **kwargs):
+        seen.append(ids)
+        return fn(x_rows, w, ids, *args, **kwargs)
+
+    moe.qmatmul_grouped_experts = recording
+    try:
+        yield seen
+    finally:
+        moe.qmatmul_grouped_experts = fn
+
+
+def k8_run_share(seen, steps):
+    """Of K8's selections (the ids of its launches), those that rode another
+    selection's block as a later row of a run (qmm.grouped_run_rows, the
+    plan each block makes in the launch): the share whose expert was not
+    streamed again."""
+    from qllm_tpu_torch.ops import qmm
+
+    n = sum(int(ids.numel()) for ids in seen)
+    heads = sum(int((qmm.grouped_run_rows(ids.cpu()) > 0).sum()) for ids in seen)
+    return {"k8_selections_per_step": n / steps, "k8_heads_per_step": heads / steps, "k8_non_head_share": 1 - heads / n}
+
+
+def drive(torch, K, tag, cfg, sp, B, T, steps, max_seq, ring, expected, profile_steps=0, watch=None):
     """One model path: B prompts of T tokens prefilled into a fresh cache,
     then ``steps`` greedy steps, twice (cold, then warm). Launches are
-    counted in the cold run, with every count set to 0 just before it."""
+    counted in the cold run, with every count set to 0 just before it;
+    ``profile_steps`` warm steps profiled after (``watch``: profile_run's)."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
     from qllm_tpu_torch.models.generate import make_cache, prefill
 
@@ -1923,7 +2046,12 @@ def drive(torch, K, tag, cfg, sp, B, T, steps, max_seq, ring, expected, profile_
     same = bool(torch.equal(toks, toks2))
     busy = {}
     if profile_steps:
-        busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + steps, steps=profile_steps)
+        seen = []
+        with k8_ids_seen(seen, "k8" in (watch or {})):
+            busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + steps, steps=profile_steps,
+                                  watch=watch)
+        if seen:
+            busy.update(k8_run_share(seen, profile_steps))
     result = {
         "config": f"B={B}, T={T} prefill into a{' ring' if ring else 'n int8'} cache of max_seq {max_seq}, "
         f"{steps} greedy steps",
@@ -1995,7 +2123,7 @@ def phase_moe(torch, K, model):
     cfg, sp = model
     runs = {}
     runs["moe_b1"] = drive(torch, K, "moe b1", cfg, sp, 1, MOE["T1"], MOE["STEPS1"], MOE["MAX1"], True,
-                           moe_expected(cfg, MOE["STEPS1"], 1, True), profile_steps=8)
+                           moe_expected(cfg, MOE["STEPS1"], 1, True), profile_steps=8, watch={"k8": watched("k8")})
     check_no_sync(torch, "moe b1", cfg, sp, 1)
     runs["moe_b8"] = drive(torch, K, "moe b8", cfg, sp, MOE["B"], MOE["T"], MOE["STEPS"], MOE["MAX_SEQ"], False,
                            moe_expected(cfg, MOE["STEPS"], MOE["B"], False))
@@ -2159,11 +2287,12 @@ def phase_moe_qwen3(torch, K):
     model = (cfg, sp)
     runs = {"qwen3_load": load}
     runs["qwen3_b1"] = drive(torch, K, "moe_qwen3 b1", cfg, sp, 1, MOE["T1"], MOE["STEPS1"], MOE["MAX1"], True,
-                             moe_expected(cfg, MOE["STEPS1"], 1, True), profile_steps=8)
+                             moe_expected(cfg, MOE["STEPS1"], 1, True), profile_steps=8, watch={"k8": watched("k8")})
     check_no_sync(torch, "moe_qwen3 b1", cfg, sp, 1)
     runs["qwen3_fused"] = qwen3_fused_leg(torch, K, cfg, sp)
     runs["qwen3_b8"] = drive(torch, K, "moe_qwen3 b8", cfg, sp, MOE["B"], MOE["T"], MOE["STEPS"], MOE["MAX_SEQ"],
-                             False, moe_expected(cfg, MOE["STEPS"], MOE["B"], False))
+                             False, moe_expected(cfg, MOE["STEPS"], MOE["B"], False), profile_steps=4,
+                             watch={"k8": watched("k8")})
     check_no_sync(torch, "moe_qwen3 b8", cfg, sp, MOE["B"])
     del model, sp
     torch.cuda.empty_cache()
@@ -2683,9 +2812,10 @@ def profile_engine(torch, mod, params, cfg, speculative, steps=4, w4a8=False):
             engine.step()
 
     # a plain step of per-layer weights runs K9 (the tensor-core body and its
-    # split sum) and nothing else there: its device ms per step
-    k9 = {"gptq_gemv": ("stacked_mma_kernel", "split_sum_out_kernel")}
-    res = profile_run(torch, run, steps, {} if speculative or w4a8 else k9)
+    # split sum) and nothing else there, under w4a8 K12: their device ms per step
+    watch = {} if speculative else {"gptq_w4a8_gemv": watched("gptq_w4a8_gemv")} if w4a8 else {
+        "gptq_gemv": watched("gptq_gemv")}
+    res = profile_run(torch, run, steps, watch)
     # a step attends over rows [0, position]: the mean over the profiled steps
     res["kv_rows_per_slot"] = (rows0 + float(engine.positions.mean())) / 2 + 1
     return res
@@ -3224,7 +3354,8 @@ def widths_cross(torch, cfg, sp, B, T, w4a8):
     return res, ok
 
 
-def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=None, profile_prefill=False):
+def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=None, profile_prefill=False,
+               watch=None):
     """One widths leg: B prompts of T tokens prefilled (a16) into a fresh
     int8 cache and ``steps`` greedy steps (``w4a8`` as given), with every
     count set to 0 just before and the launches asserted; tok/s, the device
@@ -3232,7 +3363,8 @@ def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=
     too: its device ms by kernel), peak GiB; the streams against
     teacher-forced prefills (check_streams' limits; ``chunk``: in forwards
     of that many rows); and the first steps card against CPU on a cut of
-    the stacks."""
+    the stacks. ``watch``: kernels whose device ms a decode step the
+    profile reports (profile_run's)."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
     from qllm_tpu_torch.models.generate import make_cache, prefill
 
@@ -3262,7 +3394,7 @@ def widths_leg(torch, K, tag, cfg, sp, B, T, steps, expected, w4a8=False, chunk=
     if not bool(torch.isfinite(lf).all()) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"widths {tag}: logits not finite or ids out of range")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + steps, steps=4, w4a8=w4a8)
+    busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + steps, steps=4, w4a8=w4a8, watch=watch)
     del cache
     if profile_prefill:  # a warm prefill into a fresh cache, after the counts were read
         log(f"[widths] {tag}: warm prefill profile")
@@ -3406,7 +3538,10 @@ def f32s_rows(torch, timer, gen):
         b_ms, b_by = bound(qw[1].numel() * 4 + sc[1].numel() * 4 + M * Kf * 2 + M * Np * 4, 2.0 * M * Kf * Np)
         bk = qmm.planar_bk(Kf, 128) or qmm.planar_bk_relaxed(Kf, 128)
         case = f"{pname} K={Kf} N={Np} M={M} f32 scales" + (f" (TPU bk {bk})" if M > 32 else "")
-        dev = {"device_ms": launch_us(torch, lambda: fn(x, qw, sc, 1), key="") / 1e3} if M > 32 else {}
+        # a launch's device time (torch.profiler, L2 warm); at M <= 32 (K17) beside the library call's
+        dev = {"device_ms": launch_us(torch, lambda: fn(x, qw, sc, 1), key="") / 1e3}
+        if M <= 32:
+            dev["library_device_ms"] = launch_us(torch, lambda: torch.matmul(x, w), key="") / 1e3
         rows.append(dict(kernel=kname, case=case, max_abs_err=err, max_err_bf16_ulps=err_ulps,
                          tol=f"{STACKED_TOL}*{scale:.4g}", control_next_layer_err=control,
                          tight_tol=f"{F32S_TIGHT}*{scale:.4g}", control_bf16_weight_err=control_bf16, ok=bool(ok), ms=ms,
@@ -3518,7 +3653,7 @@ def phase_f32s(torch, K):
     runs["f32s_b8_w4a8"] = widths_leg(torch, K, "f32s_b8_w4a8", cfg, sp, B, T, S, {
         "prefill": {"w4_planar_f32s_gemm": n, "gptq_w4a8_gemv": 0},
         "decode": {"w4_planar_f32s_gemv": (3 * L + 1) * S, "gptq_w4a8_gemv": L * S, "gptq_gemv": 0,
-                   "w4a8_planar_gemv": 0, **att(S)}}, w4a8=True)
+                   "w4a8_planar_gemv": 0, **att(S)}}, w4a8=True, watch={"gptq_w4a8_gemv": watched("gptq_w4a8_gemv")})
     del sp
     torch.cuda.empty_cache()
     cfg, sp = widths_model(torch, 4, L, torch.bfloat16)
@@ -3892,13 +4027,13 @@ KERNEL_META = {
     "flash_prefill": ("qllm_tpu_torch/csrc/flash_prefill.cu", "qllm_tpu/ops/pallas_attention.py:751"),
     "decode_attention_ring": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1212"),
     "kv_ring_flush": ("qllm_tpu_torch/csrc/attention.cu", "qllm_tpu/ops/pallas_attention.py:1423"),
-    "w4_grouped_gemv": ("qllm_tpu_torch/csrc/qmm.cu", "qllm_tpu/ops/pallas_qmm.py:1843"),
+    "w4_grouped_gemv": ("qllm_tpu_torch/csrc/grouped_mma.cu", "qllm_tpu/ops/pallas_qmm.py:1843"),
     # at M <= 32 the TPU runs _qmm_kernel_v3 (:177) for 2/4 bits, _qmm_kernel (:119) for 8
     "gptq_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:177"),
     "gptq_gemm": ("qllm_tpu_torch/csrc/gptq_mm.cu", "qllm_tpu/ops/pallas_qmm.py:119"),
     # the a8 branch (:871-873, :932-942) of the full-K planar kernel
     "w4a8_planar_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:832"),
-    "gptq_w4a8_gemv": ("qllm_tpu_torch/csrc/w4a8.cu", "qllm_tpu/ops/pallas_qmm.py:239"),
+    "gptq_w4a8_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:239"),
     "stream_pass": ("qllm_tpu_torch/csrc/stream.cu", "qllm_tpu/ops/stream_bench.py:26"),
     # v3 (:476); with bf16 scales the fused v4 (:514)
     "gptq_stacked_gemv": ("qllm_tpu_torch/csrc/gptq_stacked.cu", "qllm_tpu/ops/pallas_qmm.py:476"),

@@ -3,7 +3,7 @@ the package of the working directory: run it from the root of each tree of
 an A/B (an archived parent beside this one) in one call on the card, so
 that both sides share the card and its power limit.
 
-    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets]
+    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets,k12,k8,planar,k8_heads]
 
   * stacked: K14 gptq_stacked_gemv and K16 bitplane_stacked_gemv at the
     Llama-2-7B stacked projections;
@@ -16,11 +16,27 @@ that both sides share the card and its power limit.
     the 7B per-layer model at batch 8 (chip_smoke's serve model);
   * k9_targets (not in the default parts; trees whose K9 takes its split
     of K from ops.tc_plan): K9's C entry at the k9 part's shapes with the
-    split plan of each of K9_TARGETS, the blocks a launch may hold.
+    split plan of each of K9_TARGETS, the blocks a launch may hold;
+  * k12 (not in the default parts): K12 gptq_w4a8_gemv at the k9 part's
+    shapes (M = 1, 8, 32) with the sum one W4A8 decode step's 225 launches
+    make, act-order q/k/v/o at M = 8 through qmatmul_2d (its gather
+    included), 2-bit f32-scale down at M = 8, and K12's device ms in the
+    engine's W4A8 decode step;
+  * k8_heads (not in the default parts; trees whose K8 plans a fixed
+    count of heads): K8's C entry at the k8 part's shapes with the split
+    plan for each of K8_HEADS head blocks, and with the tree's own plan
+    and every selection served on its own (runs off);
+  * k8 (not in the default parts): K8 w4_grouped_gemv at the sparse MoE
+    decode paths' shapes, with the sums a Mixtral b1, Qwen3 b1 and Qwen3
+    b8 decode step make, and the long-run case; the Mixtral gate|up read
+    four ways (the profiler's back-to-back device time, an event pair
+    around one call with L2 flushed and without, events around 20
+    back-to-back calls).
 
 Each kernel reading is torch.profiler's device time of back-to-back calls
 (the split sum included; L2 warm, so a layer of 11-34 MB is read from L2
-after the first call), through the public wrappers only (k9_targets aside),
+after the first call), through the public wrappers only (k9_targets and
+k8_heads aside),
 so a parent tree without this script's names runs it unchanged. It prints one JSON line a
 reading, the card's name and power limit first, and per variant the sum a
 decode step makes. Needs a CUDA device."""
@@ -55,7 +71,26 @@ K9_TARGETS = (264, 396, 528, 660, 792, 1056)
 # the kernels of a plain per-layer decode step that are K9: the tensor-core
 # body, or the first version's GEMV and its split sum
 K9_KERNELS = ("stacked_mma_kernel", "gptq_gemv_kernel", "split_sum_out_kernel")
+# K12's kernels in either tree: the quantizer, then the int8 tensor-core
+# body and its epilogue, or the first version's GEMV and its split sum
+K12_KERNELS = ("quantize_rows_kernel", "stacked_s8_kernel", "a8_epilogue_kernel", "gptq_w4a8_gemv_kernel",
+               "split_sum_scaled_kernel")
+K12_M = (1, 8, 32)
 ENGINE_STEPS = 4
+# K8 at the sparse MoE decode paths (config.json widths): case, K, padded N,
+# experts, selections, mode ("shared": one token's distinct experts on one
+# row; "rows": one row a selection; "sorted": n // 8 tokens' top-8 sorted;
+# "runs": sorted ids in runs of K8_RUNS), and the paths' launches a step
+K8_SHAPES = (("mixtral gateup", 4096, 28672, 8, 2, "shared"), ("mixtral down", 14336, 4096, 8, 2, "rows"),
+             ("qwen3 gateup", 2048, 1536, 128, 8, "shared"), ("qwen3 down", 768, 2048, 128, 8, "rows"),
+             ("qwen3 gateup b8", 2048, 1536, 128, 64, "sorted"), ("qwen3 down b8", 768, 2048, 128, 64, "sorted"),
+             ("qwen3 down long runs", 768, 2048, 128, 64, "runs"))
+K8_RUNS = (12, 12, 10, 10, 10, 10)
+# the head blocks K8's split plan may count on (k8_heads), each read with
+# heads of up to 8 rows, and the tree's own count with runs off as well
+K8_HEADS = (1, 2, 4, 8, 16)
+K8_STEPS = {"mixtral_b1": (32, ("mixtral gateup", "mixtral down")), "qwen3_b1": (48, ("qwen3 gateup", "qwen3 down")),
+            "qwen3_b8": (48, ("qwen3 gateup b8", "qwen3 down b8"))}
 
 
 def stacked(torch, cs, qs, gen, args):
@@ -157,9 +192,10 @@ def k15(torch, cs, qs, gen, args):
                               device_ms=per, launches=4 * LAYERS + 1, device_ms_129_launches=total)), flush=True)
 
 
-def engine(torch, cs, args):
-    """K9's device ms per plain decode step of the engine at batch 8 (8
-    greedy requests of 128 tokens, after admission and two warm steps)."""
+def engine(torch, cs, args, w4a8=False):
+    """K9's (K12's with ``w4a8``) device ms per plain decode step of the
+    engine at batch 8 (8 greedy requests of 128 tokens, after admission and
+    two warm steps)."""
     import time
 
     import numpy as np
@@ -172,7 +208,8 @@ def engine(torch, cs, args):
     cfg = ModelConfig(num_hidden_layers=cs.SERVE["LAYERS"], **cs.SEVEN_B)
     params = cs.serve_model(torch, cfg)
     eng = mod.ContinuousBatchingEngine(params, cfg, mod.ServeConfig(max_batch=cs.SERVE["MAX_BATCH"],
-                                                                    max_seq=cs.SERVE["MAX_SEQ"]), device="cuda")
+                                                                    max_seq=cs.SERVE["MAX_SEQ"], w4a8=w4a8),
+                                       device="cuda")
     rng = np.random.default_rng(cs.SERVE["SEED"] + 1)
     for _ in range(cs.SERVE["MAX_BATCH"]):
         eng.submit(rng.integers(0, cfg.vocab_size, 128).astype(np.int32), 96)
@@ -186,15 +223,186 @@ def engine(torch, cs, args):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    mine = [e for e in kernels if any(k in e.key for k in K9_KERNELS)]
+    mine = [e for e in kernels if any(k in e.key for k in (K12_KERNELS if w4a8 else K9_KERNELS))]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / ENGINE_STEPS
-    k9_ms = sum(e.self_device_time_total for e in mine) / 1e3 / ENGINE_STEPS
-    print(json.dumps(dict(tag=args.tag, kernel="gptq_gemv", engine_decode_step=True, batch=cs.SERVE["MAX_BATCH"],
-                          k9_device_ms_per_step=k9_ms, k9_kernel_launches_per_step=sum(e.count for e in mine)
-                          / ENGINE_STEPS, device_busy_ms_per_step=busy, wall_ms_per_step=wall_ms / ENGINE_STEPS)),
-          flush=True)
+    ms = sum(e.self_device_time_total for e in mine) / 1e3 / ENGINE_STEPS
+    k = "k12" if w4a8 else "k9"
+    print(json.dumps({"tag": args.tag, "kernel": "gptq_w4a8_gemv" if w4a8 else "gptq_gemv", "engine_decode_step": True,
+                      "w4a8": w4a8, "batch": cs.SERVE["MAX_BATCH"], f"{k}_device_ms_per_step": ms,
+                      f"{k}_kernel_launches_per_step": sum(e.count for e in mine) / ENGINE_STEPS,
+                      "device_busy_ms_per_step": busy, "wall_ms_per_step": wall_ms / ENGINE_STEPS}), flush=True)
     del eng, params
     torch.cuda.empty_cache()
+
+
+def k12(torch, cs, gen, args):
+    import dataclasses
+
+    from qllm_tpu_torch.ops import qmm2d
+    from qllm_tpu_torch.utils.testing import random_quantized_tensor
+
+    def us(fn):
+        return cs.launch_us(torch, fn, reps=args.reps, key="") / 1e3
+
+    one = torch.zeros(1, device="cuda")  # the profiler's reading of a one-element fill: a launch's floor
+    print(json.dumps(dict(tag=args.tag, device_ms_one_element_fill=us(one.zero_))), flush=True)
+    for M in K12_M:
+        per = {}
+        for pname, K, N, _ in GEMV_PROJ:
+            qt = random_quantized_tensor(gen, K, N, 4, 128)
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            w = (qt.qweight, qt.scales, qt.zeros, 4, 128)
+            per[pname] = us(lambda: qmm2d.gptq_w4a8_gemv(x, *w))
+            if M == 8 and pname in ("q/k/v/o", "gate/up"):  # each of the call's kernels
+                parts = {k: cs.launch_us(torch, lambda: qmm2d.gptq_w4a8_gemv(x, *w), reps=args.reps, key=k) / 1e3
+                         for k in K12_KERNELS}
+                print(json.dumps(dict(tag=args.tag, kernel="gptq_w4a8_gemv", M=M, projection=pname,
+                                      device_ms_by_kernel={k: v for k, v in parts.items() if v})), flush=True)
+            del qt
+        total = LAYERS * sum(per[p] * n for p, _, _, n in GEMV_PROJ) + per["lm_head"]
+        launches = LAYERS * sum(n for *_, n in GEMV_PROJ) + 1
+        print(json.dumps(dict(tag=args.tag, kernel="gptq_w4a8_gemv", bits=4, scales="fp16", M=M, device_ms=per,
+                              launches=launches, device_ms_decode_step=total)), flush=True)
+    qt = random_quantized_tensor(gen, 4096, 4096, 4, 128, act_order=True)
+    x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+    ms = us(lambda: qmm2d.qmatmul_2d(x, qt, w4a8=True))
+    print(json.dumps(dict(tag=args.tag, kernel="gptq_w4a8_gemv", bits=4, scales="fp16", M=8,
+                          device_ms={"q/k/v/o act-order": ms})), flush=True)
+    qt = random_quantized_tensor(gen, 11008, 4096, 2, 128)
+    qt = dataclasses.replace(qt, scales=qt.scales.float(), zeros=qt.zeros.float())
+    x = torch.randn((8, 11008), device="cuda", generator=gen).to(torch.bfloat16)
+    ms = us(lambda: qmm2d.gptq_w4a8_gemv(x, qt.qweight, qt.scales, qt.zeros, 2, 128))
+    print(json.dumps(dict(tag=args.tag, kernel="gptq_w4a8_gemv", bits=2, scales="f32", M=8, device_ms={"down": ms})),
+          flush=True)
+    del qt
+    engine(torch, cs, args, w4a8=True)
+
+
+def planar(torch, cs, gen, args):
+    from qllm_tpu_torch.ops import qmm, qmm_planar
+
+    for M in (1, 8):
+        k1, k1n, k17 = {}, {}, {}
+        for pname, K, N in PROJ:
+            Np = -(-N // 512) * 512
+            qw = torch.randint(-(2**31), 2**31, (2, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+            sc = (torch.rand((2, K // 128, Np), device="cuda", generator=gen) + 0.5) * 0.01
+            zs = (sc * 8).to(torch.bfloat16)
+            sb = sc.to(torch.bfloat16)
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            k1[pname] = cs.launch_us(torch, lambda: qmm.w4_planar_gemv(x, qw, sb, zs, 1), reps=args.reps,
+                                     key="") / 1e3
+            if pname in ("qkv", "gateup"):  # the inputs the main path normalises in K1
+                nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+                k1n[pname] = cs.launch_us(torch, lambda: qmm.w4_planar_gemv(x, qw, sb, zs, 1, nw, 1e-5),
+                                          reps=args.reps, key="") / 1e3
+            k17[pname] = cs.launch_us(torch, lambda: qmm_planar.w4_planar_f32s_gemv(x, qw, sc, 1), reps=args.reps,
+                                      key="") / 1e3
+            del qw, sc, zs, sb
+        for kname, per in (("w4_planar_gemv", k1), ("w4_planar_gemv +norm", k1n), ("w4_planar_f32s_gemv", k17)):
+            print(json.dumps(dict(tag=args.tag, kernel=kname, M=M, device_ms=per)), flush=True)
+
+
+def k8_ids(torch, gen, E, n, mode):
+    if mode in ("shared", "rows"):  # distinct experts
+        return torch.randperm(E, generator=gen, device="cuda")[:n].sort().values.to(torch.int32)
+    if mode == "sorted":
+        return torch.cat([torch.randperm(E, generator=gen, device="cuda")[:8] for _ in range(n // 8)]).sort().values.to(
+            torch.int32)
+    chosen = torch.randperm(E, generator=gen, device="cuda")[: len(K8_RUNS)].tolist()
+    return torch.tensor(sorted(e for e, r in zip(chosen, K8_RUNS) for _ in range(r)), dtype=torch.int32, device="cuda")
+
+
+def k8(torch, cs, gen, args):
+    from qllm_tpu_torch.ops import qmm
+
+    per = {}
+    for cname, K, Np, E, n, mode in K8_SHAPES:
+        qw = torch.randint(-(2**31), 2**31, (E, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+        sc = ((torch.rand((E, K // 128, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+        zs = (sc.float() * 8).to(torch.bfloat16)
+        ids = k8_ids(torch, gen, E, n, mode)
+        shared = mode == "shared"
+        x = torch.randn((1 if shared else n, K), device="cuda", generator=gen).to(torch.bfloat16)
+
+        def run():
+            return qmm.w4_grouped_gemv(x, qw, sc, zs, ids, shared)
+
+        per[cname] = cs.launch_us(torch, run, reps=args.reps, key="") / 1e3
+        row = dict(tag=args.tag, kernel="w4_grouped_gemv", case=cname, K=K, Np=Np, E=E, n=n, mode=mode,
+                   experts=len(set(ids.tolist())), device_ms=per[cname])
+        if cname == "mixtral gateup":  # the same call read four ways
+            flushed = cs.Timer(torch)
+            row["event_ms_l2_flushed"] = flushed(run, reps=args.reps)
+            del flushed
+            times = []
+            for _ in range(args.reps):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                run()
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            row["event_ms_warm"] = sorted(times)[len(times) // 2]
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            run()
+            a.record()
+            for _ in range(args.reps):
+                run()
+            b.record()
+            b.synchronize()
+            row["event_ms_back_to_back"] = a.elapsed_time(b) / args.reps
+        print(json.dumps(row), flush=True)
+        del qw, sc, zs
+        torch.cuda.empty_cache()
+    for path, (layers, names) in K8_STEPS.items():
+        print(json.dumps(dict(tag=args.tag, kernel="w4_grouped_gemv", path=path, launches=2 * layers,
+                              device_ms_per_step=layers * sum(per[c] for c in names))), flush=True)
+
+
+def k8_heads(torch, cs, gen, args):
+    try:
+        from qllm_tpu_torch.ops.qmm import GROUPED_RUN_ROWS, grouped_plan_heads
+    except ImportError:
+        print(f"chip_stacked_ab: K8 of the tree {args.tag} plans no fixed heads", flush=True)
+        return
+    from qllm_tpu_torch.ops import _build, tc_plan
+
+    lib = _build.load_library()
+    per = {}
+    for cname, K, Np, E, n, mode in K8_SHAPES:
+        qw = torch.randint(-(2**31), 2**31, (E, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+        sc = ((torch.rand((E, K // 128, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+        zs = (sc.float() * 8).to(torch.bfloat16)
+        ids = k8_ids(torch, gen, E, n, mode)
+        shared = mode == "shared"
+        x = torch.randn((1 if shared else n, K), device="cuda", generator=gen).to(torch.bfloat16)
+        out = torch.empty((n, Np), dtype=torch.bfloat16, device="cuda")
+        ms, splits_of = {}, {}
+        plans = [(h, GROUPED_RUN_ROWS) for h in K8_HEADS] + [(grouped_plan_heads(K, Np), 1)]
+        for heads, rows in plans:
+            splits, units = tc_plan.tc_splits(K // 8, Np, tc_plan.TC_TARGET_BLOCKS["planar"], row_blocks=heads)
+            part = torch.empty((splits, n, Np), dtype=torch.float32, device="cuda")
+
+            def run():
+                _build.check("w4_grouped_gemv", lib.qllm_w4_grouped_gemv(
+                    x.data_ptr(), qw.data_ptr(), sc.data_ptr(), zs.data_ptr(), ids.data_ptr(),
+                    _build.ptr(part if splits > 1 else None), out.data_ptr(), n, E, int(shared), K, Np, 128, splits,
+                    units, rows, _build.stream(x)))
+
+            label = f"{heads} heads" if rows > 1 else "own plan, runs off"
+            ms[label] = cs.launch_us(torch, run, reps=args.reps, key="") / 1e3
+            splits_of[label] = splits
+        per[cname] = ms
+        print(json.dumps(dict(tag=args.tag, kernel="w4_grouped_gemv", case=cname, K=K, Np=Np, E=E, n=n, mode=mode,
+                              experts=len(set(ids.tolist())), device_ms_by_plan=ms, splits_by_plan=splits_of)),
+              flush=True)
+        del qw, sc, zs
+        torch.cuda.empty_cache()
+    for path, (layers, names) in K8_STEPS.items():
+        by_plan = {label: layers * sum(per[c][label] for c in names) for label in per[names[0]]}
+        print(json.dumps(dict(tag=args.tag, kernel="w4_grouped_gemv", path=path, launches=2 * layers,
+                              device_ms_per_step_by_plan=by_plan)), flush=True)
 
 
 def main() -> int:
@@ -228,6 +436,14 @@ def main() -> int:
         engine(torch, cs, args)
     if "k9_targets" in parts:
         k9_targets(torch, cs, gen, args)
+    if "k12" in parts:
+        k12(torch, cs, gen, args)
+    if "k8" in parts:
+        k8(torch, cs, gen, args)
+    if "planar" in parts:
+        planar(torch, cs, gen, args)
+    if "k8_heads" in parts:
+        k8_heads(torch, cs, gen, args)
     return 0
 
 

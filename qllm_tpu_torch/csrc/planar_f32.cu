@@ -320,11 +320,11 @@ QLLM_API int qllm_w4_planar_f32s_gemv(const void* x, const void* qweight, const 
   const auto st = static_cast<cudaStream_t>(stream);
   // P k-tiles in flight per warp: 32 words per thread either way
   if (nt == 2)
-    w4_gemv_kernel<2, 8, false, false, float>
-        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o, nullptr, 0, 0);
+    w4_gemv_kernel<2, 8, false, float>
+        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o);
   else
-    w4_gemv_kernel<4, 4, false, false, float>
-        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o, nullptr, 0, 0);
+    w4_gemv_kernel<4, 4, false, float>
+        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o);
   return qllm_launch_status();
 }
 

@@ -1,13 +1,12 @@
-// The planar W4 GEMV block, shared by K1 w4_planar_gemv and K8
-// w4_grouped_gemv (csrc/qmm.cu) and K17 w4_planar_f32s_gemv
-// (csrc/planar_f32.cu).
+// The planar W4 GEMV block, shared by K1 w4_planar_gemv (csrc/qmm.cu) and
+// K17 w4_planar_f32s_gemv (csrc/planar_f32.cu).
 //
 // Planar contract (qllm_tpu/quant/qtensor.py:157-161): word r, byte j
 // holds k = 4r+j in its low nibble and k = K/2+4r+j in its high nibble,
 // so word row r serves one low-half and one high-half k quadruple and a
 // group of g k-values spans g/4 word rows in each half.
 //
-// With bf16 scales (K1, K8) the block computes
+// With bf16 scales (K1) the block computes
 //   y[m,n] = sum_g (x_g . q_g[:,n]) * s_g[n] - (sum x_g) * zs_g[n]
 // as bf16 [M, Np]; with f32 scales (K17) it drops the zero-point term,
 //   y[m,n] = sum_g (x_g . q_g[:,n]) * s_g[n]
@@ -54,7 +53,8 @@ namespace {
 
 constexpr int kGemvMaxWarps = 16;
 
-// What the planar kernels take (K1, K2, K8, K11, K17-K20): K a multiple
+// What the planar kernels take (K1, K2, K8, K11, K17-K20; K8 checks it in
+// csrc/grouped_mma.cu): K a multiple
 // of 128 (whole 64-k tiles of each half) below 2^17, any group size g >= 1
 // that splits at K/2 (the JAX package's planar_full_ok). Groups that close
 // inside a kernel's k-tile (g % 16 != 0 here) run the tile once per group
@@ -121,7 +121,7 @@ __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 
 // S: the scale type; bf16 scales carry the zero-point term (zs) and write
 // bf16, f32 scales (K17) have none and write f32
-template <int NT, int P, bool NORM, bool GROUPED, typename S = __nv_bfloat16>
+template <int NT, int P, bool NORM, typename S = __nv_bfloat16>
 __global__ void __launch_bounds__(kGemvMaxWarps * 32)
     w4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [M, K]
                    const uint32_t* __restrict__ qw,       // [K/8, Np] this layer
@@ -130,12 +130,9 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
                    const void* __restrict__ nw,           // [K] norm weight (NORM)
                    int nw_f32, float eps, int M, int K, int Np, int g,
                    typename std::conditional<std::is_same<S, float>::value, float, __nv_bfloat16>::type*
-                       __restrict__ out,                  // [M, Np]
-                   // GROUPED (K8) only: per-selection expert ids [n] into an
-                   // [n_experts] stack, and whether every selection reads x row 0
-                   const int* __restrict__ ids, int n_experts, int x_shared) {
+                       __restrict__ out) {                // [M, Np]
   constexpr bool ZS = !std::is_same<S, float>::value;  // the zero-point term
-  static_assert(ZS || (!NORM && !GROUPED), "f32 scales: the plain GEMV only");
+  static_assert(ZS || !NORM, "f32 scales: the plain GEMV only");
   constexpr int kCols = 16 * NT;  // output columns of the block
   constexpr int kW = 2 * NT;      // words per thread per k-tile
   __shared__ float red[kGemvMaxWarps][8][kCols];
@@ -145,24 +142,7 @@ __global__ void __launch_bounds__(kGemvMaxWarps * 32)
   const int nwarps = blockDim.x >> 5;
   const int gq = lane >> 2, c = lane & 3;
   const int n0 = blockIdx.x * kCols;
-  const int m0 = GROUPED ? 0 : blockIdx.y * 8;
-  if constexpr (GROUPED) {
-    // blockIdx.y is selection `sel`: one x row (M = 1) against expert
-    // ids[sel], whose words start ids[sel] * (K/8) * Np words into the
-    // stack (64-bit: an [L*E] stack passes 2^31 words)
-    const int sel = blockIdx.y;
-    const int e = ids[sel];
-    out += static_cast<size_t>(sel) * Np;
-    if (e < 0 || e >= n_experts) {  // uniform across the block
-      for (int i = threadIdx.x; i < kCols; i += blockDim.x) out[n0 + i] = __float2bfloat16_rn(__int_as_float(0x7fc00000));
-      return;
-    }
-    qw += static_cast<size_t>(e) * (K / 8) * Np;
-    sc += static_cast<size_t>(e) * (K / g) * Np;
-    zs += static_cast<size_t>(e) * (K / g) * Np;
-    if (!x_shared) x += static_cast<size_t>(sel) * K;
-    M = 1;
-  }
+  const int m0 = blockIdx.y * 8;
   const int Kh = K / 2;
   const int T = K / 32;    // k-tiles of 4 word rows: 16 low-half + 16 high-half k
   const int tpg = g / 16;  // k-tiles per group (g % 16 == 0)

@@ -1,8 +1,8 @@
 // K1 w4_planar_gemv and K2 w4_planar_gemm: the planar W4 g-grouped
 // matmul y = x @ dequant(W[layer]) on [L]-stacked serving weights
 // (qweight [L, K/8, Np] planar words, scales / zs [L, G, Np] bf16,
-// zs = zeros * scales prefolded), output bf16 [M, Np]. K8
-// w4_grouped_gemv: K1 over MoE selections, y[i] = x[i] @ dequant(W[ids[i]]).
+// zs = zeros * scales prefolded), output bf16 [M, Np]. (K8
+// w4_grouped_gemv, the MoE selections' GEMV: csrc/grouped_mma.cu.)
 //
 // Planar contract (qllm_tpu/quant/qtensor.py:157-161): word r, byte j
 // holds k = 4r+j in its low nibble and k = K/2+4r+j in its high nibble,
@@ -25,23 +25,15 @@
 
 namespace {
 
-enum GemvMode { kPlain, kNorm, kGrouped };
-
 template <int NT, int P>
-void launch_gemv(GemvMode mode, dim3 grid, int warps, cudaStream_t st, const __nv_bfloat16* x,
-                 const uint32_t* qw, const __nv_bfloat16* sc, const __nv_bfloat16* zs, const void* nw,
-                 int nw_f32, float eps, int M, int K, int Np, int g, __nv_bfloat16* out,
-                 const int* ids = nullptr, int n_experts = 0, int x_shared = 0) {
+void launch_gemv(bool norm, dim3 grid, int warps, cudaStream_t st, const __nv_bfloat16* x, const uint32_t* qw,
+                 const __nv_bfloat16* sc, const __nv_bfloat16* zs, const void* nw, int nw_f32, float eps, int M,
+                 int K, int Np, int g, __nv_bfloat16* out) {
   const int th = warps * 32;
-  if (mode == kNorm)
-    w4_gemv_kernel<NT, P, true, false><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out,
-                                                              ids, n_experts, x_shared);
-  else if (mode == kGrouped)
-    w4_gemv_kernel<NT, P, false, true><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out,
-                                                              ids, n_experts, x_shared);
+  if (norm)
+    w4_gemv_kernel<NT, P, true><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out);
   else
-    w4_gemv_kernel<NT, P, false, false><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out,
-                                                               ids, n_experts, x_shared);
+    w4_gemv_kernel<NT, P, false><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out);
 }
 
 }  // namespace
@@ -71,54 +63,10 @@ QLLM_API int qllm_w4_planar_gemv(const void* x, const void* qweight, const void*
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* ob = static_cast<__nv_bfloat16*>(out);
   // P k-tiles in flight per warp: 32 words per thread either way
-  const GemvMode mode = nw != nullptr ? kNorm : kPlain;
   if (nt == 2)
-    launch_gemv<2, 8>(mode, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
+    launch_gemv<2, 8>(nw != nullptr, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
   else
-    launch_gemv<4, 4>(mode, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
-  return qllm_launch_status();
-}
-
-// ---------------------------------------------------------------------------
-// K8 w4_grouped_gemv (MoE decode).
-//
-// Replaces _qmm_kernel_planar_full as qmatmul_grouped_experts runs it
-// (qllm_tpu/ops/pallas_qmm.py:1843, pallas_call :1914): for every
-// (token, expert) selection i, y[i] = x[i or 0] @ dequant(W[ids[i]]) from
-// an [E]-stacked (or [L*E]-stacked) expert weight, all selections in one
-// launch, f32 sums rounded to bf16. The TPU kernel takes the ids by
-// scalar prefetch into its weight index maps; here each block reads its
-// selection's id itself, so the ids never leave the device.
-//
-// Bound on the H100: bytes, the selected experts' words read once. The
-// block is K1's (the per-group tensor-core dot on whole planar words with
-// the zero-point correction, w4_gemv_kernel with GROUPED set) with one
-// x row: a grid of (column tiles, selections), one block per pair.
-// Selections arrive sorted by id; taking a run of equal ids as K1's M
-// rows would stream each touched expert once (later work): here an
-// expert chosen by several selections is read once per selection.
-// ---------------------------------------------------------------------------
-
-QLLM_API int qllm_w4_grouped_gemv(const void* x, const void* qweight, const void* scales,
-                                  const void* zs, const void* ids, void* out, int n, int n_experts,
-                                  int x_shared, int K, int Np, int g, int nt, int warps, void* stream) {
-  if (n < 1 || n > 65535 || n_experts < 1 || !planar_geometry_ok(K, g) ||
-      (nt != 2 && nt != 4) || Np % (16 * nt) != 0 || warps < 1 || warps > kGemvMaxWarps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(Np / (16 * nt), n);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* qw = static_cast<const uint32_t*>(qweight);
-  const auto* sc = static_cast<const __nv_bfloat16*>(scales);
-  const auto* zz = static_cast<const __nv_bfloat16*>(zs);
-  const auto* id = static_cast<const int*>(ids);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (nt == 2)
-    launch_gemv<2, 8>(kGrouped, grid, warps, st, xb, qw, sc, zz, nullptr, 0, 0.f, 1, K, Np, g, ob, id, n_experts,
-                      x_shared);
-  else
-    launch_gemv<4, 4>(kGrouped, grid, warps, st, xb, qw, sc, zz, nullptr, 0, 0.f, 1, K, Np, g, ob, id, n_experts,
-                      x_shared);
+    launch_gemv<4, 4>(nw != nullptr, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
   return qllm_launch_status();
 }
 

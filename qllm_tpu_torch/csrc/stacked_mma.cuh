@@ -1,7 +1,9 @@
 // The tensor-core body shared by the GPTQ-order and bit-plane decode GEMVs
-// (M <= 32): K14 gptq_stacked_gemv, K15 gptq_stacked_w4a8_gemv and K9
-// gptq_gemv (csrc/gptq_stacked.cu), K16 bitplane_stacked_gemv
-// (csrc/bitplane.cu). Each reads one layer of 2/4/8-bit GPTQ-order or
+// (M <= 32): K14 gptq_stacked_gemv, K15 gptq_stacked_w4a8_gemv, K12
+// gptq_w4a8_gemv and K9 gptq_gemv (csrc/gptq_stacked.cu), K16
+// bitplane_stacked_gemv (csrc/bitplane.cu); its producer warp and ring
+// also feed K8 w4_grouped_gemv on planar words (csrc/grouped_mma.cu, the
+// Planar policy). Each reads one layer of 2/4/8-bit GPTQ-order or
 // 3/5/6/7-bit bit-plane words (a per-layer weight is layer 0), with x in
 // bf16 or f32 (K15: int8). With q the unsigned field, the bf16 kernel
 // (stacked_mma_kernel) computes
@@ -11,8 +13,8 @@
 //            rounded to bf16, zs_g read prefolded (K14, K16) or formed as
 //            z_g * s_g in f32 from the zero points (K9),
 // as the TPU kernels do: an f32 dot per group, scaled at the group's end.
-// The int8 kernel (stacked_s8_kernel, K15) computes y = sum_g s_g * d_g
-// with d_g = x8_g . q_g an exact s32 dot, f32 out.
+// The int8 kernel (stacked_s8_kernel, K15 and K12) computes y = sum_g s_g
+// * d_g with d_g = x8_g . q_g an exact s32 dot, f32 out.
 //
 // Bound on the H100: bytes (the layer's words, scales and zs, read once).
 // The dots run on the tensor cores: mma.sync m16n8k16 bf16 with f32
@@ -28,9 +30,9 @@
 // group's end, dot = sum (bias + q) x - bias * sum x, then y += dot * s (-
 // sum x * zs when fused). An f32 x is split into three bf16 parts hi + mid
 // + lo, which hold its 24 bits (outside subnormals), and each part runs its
-// own MMAs on the same A. K15's fields are exact s8 values below 2^bits:
-// a shift and a per-byte mask place four of them in a register (K12's
-// trick), against x8 staged in the same k order.
+// own MMAs on the same A. K15's and K12's fields are exact s8 values below
+// 2^bits: a shift and a per-byte mask place four of them in a register,
+// against x8 staged in the same k order.
 //
 // Layout. The order of k inside one MMA is free as long as A and B agree,
 // and so is the order of the output columns inside a tile. A lane (gq =
@@ -188,6 +190,20 @@ struct BitPlane {
   }
 };
 
+// Planar words (K8, csrc/grouped_mma.cu): word row r holds k = 4r + j in
+// the low nibble of byte j and k = K/2 + 4r + j in its high nibble
+// (csrc/planar_gemv.cuh). Read as GPTQ-order 4-bit fields, field f is k =
+// 4r + f/2 of the low half (f even) or of the high half (f odd), so
+// GptqOrder<4>::pair(s) is the bf16 pair of k (4r + s/2, 4r + s/2 + 2) of
+// the low half for s even and of the high half for s odd. A unit is one
+// word row: 4 k of each half
+struct Planar {
+  static constexpr int kUnitK = 8;
+  static constexpr int kPlanes = 1;
+  static constexpr int kStages = 8;
+  __device__ static size_t row(int, int unit, int) { return static_cast<size_t>(unit); }
+};
+
 // bytes of a ring row: every plane's kCols words (the pad spreads the quad's rows over banks)
 template <class P>
 __host__ __device__ constexpr int ring_row_bytes() {
@@ -317,6 +333,13 @@ __device__ __forceinline__ void take_stage(uint64_t* full, uint64_t* empty, cons
   if (lane == 0) mbar_arrive(empty + st);  // the producer may refill it
 }
 
+// Entry (table f, row gl, column col) of a chunk's parameter tables pt
+// [tables][ngc][kCols] of ps-byte entries: row gl holds the chunk's group gl
+template <class T>
+__device__ __forceinline__ T* param_row(T* pt, int f, int ngc, int gl, int col, int ps) {
+  return pt + ((f * ngc + gl) * kCols + col) * ps;
+}
+
 // The block's parameters of groups [gf, gf + ng) into pt [nf][ngc][kCols]
 // (ps bytes each; nf = 2: the scales, then zs or the zero points), by the
 // consumers' cp.async (committed by the caller); zero past Np
@@ -327,7 +350,7 @@ __device__ __forceinline__ void stage_params(unsigned char* pt, const void* sc, 
     const int gl = r / (kCols / 4), col = 4 * (r - gl * (kCols / 4));
     const unsigned char* src =
         static_cast<const unsigned char*>(f ? zs : sc) + (static_cast<size_t>(gf + gl) * Np + n0 + col) * ps;
-    unsigned char* dst = pt + ((f * ngc + gl) * kCols + col) * ps;
+    unsigned char* dst = param_row(pt, f, ngc, gl, col, ps);
     const int left = Np - n0 - col;
     if (vec) {
       if (ps == 4)
@@ -343,6 +366,63 @@ __device__ __forceinline__ void stage_params(unsigned char* pt, const void* sc, 
               j < left ? __ldg(reinterpret_cast<const unsigned short*>(src) + j) : static_cast<unsigned short>(0);
       }
     }
+  }
+}
+
+// The consumers' walk over their split's k [k0, k1), the same for every
+// body (K8's on the k of each half of K): chunks of at most kc k, each
+// staged by stage(ch0, ch1) before its steps; steps of `step` k taken from
+// the ring, lane c's unit unit_k * c k into it. A step inside one group
+// runs compute(w, ul, kunit, 0, 0, false) once; a step that holds a group's
+// end runs compute(w, ul, kunit, lo, hi, true) once per group it touches,
+// only k in [lo, hi) of the lane's unit taken. close(row) closes the open
+// group (or the part of it in this split), whose parameters are row `row`
+// of the chunk's tables.
+template <class P, class Stage, class Compute, class Close>
+__device__ __forceinline__ void walk_split(uint64_t* full, uint64_t* empty, const unsigned char* ring, int c, int lcol,
+                                           int lane, int k0, int k1, int kc, int step, int unit_k, int g,
+                                           Stage&& stage, Compute&& compute, Close&& close) {
+  // the open group, its end, and the chunk's first group (row 0 of its tables)
+  int gcur = k0 / g;
+  int kend = (gcur + 1) * g;
+  int gf_chunk = gcur;
+  auto flush = [&]() {
+    close(gcur - gf_chunk);
+    ++gcur;
+    kend += g;
+  };
+  int ch0 = k0, ch1 = min(k0 + kc, k1);
+  stage(ch0, ch1);
+  int t = 0;
+#pragma unroll 1
+  while (true) {
+#pragma unroll 1
+    for (int ka = ch0; ka < ch1; ka += step, ++t) {
+      uint32_t w[P::kPlanes][4];
+      take_stage<P>(full, empty, ring, t, c, lcol, lane, w);
+      const int ul = (ka - ch0) / unit_k + c, kunit = ka + c * unit_k;
+      const int kz = min(ka + step, k1);
+      if (kz <= kend) {  // one group: uniform across the block
+        compute(w, ul, kunit, 0, 0, false);
+        if (kz == kend || kz == k1) flush();
+      } else {
+        // the step holds a group end: once per group, the others zeroed
+#pragma unroll 1
+        for (int lo = ka; lo < kz;) {
+          const int hi = min(kend, kz);
+          compute(w, ul, kunit, lo, hi, true);
+          if (hi == kend || hi == k1) flush();
+          lo = hi;
+        }
+      }
+    }
+    if (ch1 >= k1) break;
+    // the next chunk (only when the split's x and parameters pass kXBudget)
+    ch0 = ch1;
+    ch1 = min(ch0 + kc, k1);
+    gf_chunk = ch0 / g;
+    consumers_sync();
+    stage(ch0, ch1);
   }
 }
 
@@ -562,15 +642,11 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
     }
   };
 
-  // the open group: its index and its end; gf_chunk: the chunk's first
-  // group (its parameters are row 0 of the chunk's table)
-  int gcur = k0 / g;
-  int kend = (gcur + 1) * g;
-  int gf_chunk = k0 / g;
-  // close the open group (or the part of it in this split)
-  auto flush = [&]() {
-    const unsigned char* srow = pt + ((gcur - gf_chunk) * kCols + lcol) * ps;
-    const unsigned char* zrow = pt + ((ngc + gcur - gf_chunk) * kCols + lcol) * ps;
+  // close the open group (or the part of it in this split): its
+  // parameters are row `row` of the chunk's tables
+  auto close = [&](int row) {
+    const unsigned char* srow = param_row(pt, 0, ngc, row, lcol, ps);
+    const unsigned char* zrow = param_row(pt, 1, ngc, row, lcol, ps);
 #pragma unroll
     for (int pr = 0; pr < 2; ++pr) {
 #pragma unroll
@@ -600,48 +676,13 @@ __global__ void __launch_bounds__(kBlock, P::min_blocks(NT))
     for (int mt = 0; mt < NT; ++mt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) xs[mt][e] = 0.f;
-    ++gcur;
-    kend += g;
   };
 
-  int ch0 = k0, ch1 = min(k0 + kc, k1);
-  stage_chunk(ch0, ch1);
-  int t = 0;
-#pragma unroll 1
-  while (true) {
-#pragma unroll 1
-    for (int ka = ch0; ka < ch1; ka += STEP, ++t) {
-      uint32_t w[PL][4];
-      take_stage<P>(full, empty, ring, t, c, lcol, lane, w);
-      const int ul = (ka - ch0) / UK + c, kunit = ka + c * UK;
-      const int kz = min(ka + STEP, k1);
-      if (kz <= kend) {  // one group: uniform across the block
-        compute(w, ul, kunit, 0, 0, false);
-        if (kz == kend || kz == k1) flush();
-      } else {
-        // the step holds a group end: once per group, the others zeroed
-#pragma unroll 1
-        for (int lo = ka; lo < kz;) {
-          const int hi = min(kend, kz);
-          compute(w, ul, kunit, lo, hi, true);
-          if (hi == kend || hi == k1) flush();
-          lo = hi;
-        }
-      }
-    }
-    if (ch1 >= k1) break;
-    // the next chunk (only when the split's passes the budget)
-    ch0 = ch1;
-    ch1 = min(ch0 + kc, k1);
-    gf_chunk = ch0 / g;
-    consumers_sync();
-    stage_chunk(ch0, ch1);
-  }
-
+  walk_split<P>(full, empty, ring, c, lcol, lane, k0, k1, kc, STEP, UK, g, stage_chunk, compute, close);
   write_out<NT>(y, c, M, Np, n, vec, part, out, FUSE);
 }
 
-// K15's consumer: x8 (int8) against GPTQ-order 2/4-bit fields on
+// K15's (and K12's) consumer: x8 (int8) against GPTQ-order 2/4-bit fields on
 // mma.sync m16n8k32 s8. A unit (a word row of UK = 32 / BITS k) holds
 // NPAR = 8 / BITS parities: (w >> BITS p) & 0x0101..01 * (2^BITS - 1) is
 // fields p + NPAR b (b = 0..3) as four s8 values. The unit's x8 is staged
@@ -759,11 +800,8 @@ __global__ void __launch_bounds__(kBlock, GptqOrder<BITS>::min_blocks(NT))
     }
   };
 
-  int gcur = k0 / g;
-  int kend = (gcur + 1) * g;
-  int gf_chunk = k0 / g;
-  auto flush = [&]() {
-    const unsigned char* srow = pt + ((gcur - gf_chunk) * kCols + lcol) * ps;
+  auto close = [&](int row) {
+    const unsigned char* srow = param_row(pt, 0, ngc, row, lcol, ps);
 #pragma unroll
     for (int pr = 0; pr < 2; ++pr) {
 #pragma unroll
@@ -780,44 +818,15 @@ __global__ void __launch_bounds__(kBlock, GptqOrder<BITS>::min_blocks(NT))
         }
       }
     }
-    ++gcur;
-    kend += g;
   };
 
-  int ch0 = k0, ch1 = min(k0 + kc, k1);
-  stage_chunk(ch0, ch1);
-  int t = 0;
-#pragma unroll 1
-  while (true) {
-#pragma unroll 1
-    for (int ka = ch0; ka < ch1; ka += STEP, ++t) {
-      uint32_t w[1][4];
-      take_stage<P>(full, empty, ring, t, c, lcol, lane, w);
-      const int ul = (ka - ch0) / UK + c, kunit = ka + c * UK;
-      const int kz = min(ka + STEP, k1);
-      if (kz <= kend) {
-        compute(w, ul, true);
-        if (kz == kend || kz == k1) flush();
-      } else {
-        // a unit never straddles a group (g % (32 / BITS) == 0): the
-        // lane's unit is in the group or out of it
-#pragma unroll 1
-        for (int lo = ka; lo < kz;) {
-          const int hi = min(kend, kz);
-          compute(w, ul, kunit >= lo && kunit < hi);
-          if (hi == kend || hi == k1) flush();
-          lo = hi;
-        }
-      }
-    }
-    if (ch1 >= k1) break;
-    ch0 = ch1;
-    ch1 = min(ch0 + kc, k1);
-    gf_chunk = ch0 / g;
-    consumers_sync();
-    stage_chunk(ch0, ch1);
-  }
-
+  // a unit never straddles a group (g % (32 / BITS) == 0): in a step that
+  // holds a group end, the lane's unit is in the group being summed or out
+  walk_split<P>(full, empty, ring, c, lcol, lane, k0, k1, kc, STEP, UK, g, stage_chunk,
+                [&](const uint32_t (&w)[1][4], int ul, int kunit, int lo, int hi, bool masked) {
+                  compute(w, ul, !masked || (kunit >= lo && kunit < hi));
+                },
+                close);
   write_out<NT>(y, c, M, Np, n0 + lcol, vec, part, out, false);
 }
 
@@ -917,19 +926,20 @@ int launch_s8(int splits, cudaStream_t st, const int8_t* x8, const uint32_t* qw,
 }
 
 // K15's whole launch: the int8 body for M, then the split sum in a second
-// kernel; a cudaError_t
+// kernel; a cudaError_t. keep_part (K12): the body writes its partial sums
+// to part at any split count and the caller's epilogue adds them
 template <int BITS>
 int run_s8(const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, void* part, float* out, int M, int K,
-           int Np, int g, int splits, int ups, cudaStream_t st) {
+           int Np, int g, int splits, int ups, cudaStream_t st, bool keep_part = false) {
   const size_t pe = s_type == 0 ? 4 : 2;
   const bool vec = Np % 4 == 0 && aligned16(qw) && (reinterpret_cast<uintptr_t>(sc) % (4 * pe)) == 0;
   if (!aligned16(x8)) return static_cast<int>(cudaErrorMisalignedAddress);
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
+  float* p = splits > 1 || keep_part ? static_cast<float*>(part) : nullptr;
   const int e = M <= 8 ? launch_s8<BITS, 1>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out)
                 : M <= 16 ? launch_s8<BITS, 2>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out)
                           : launch_s8<BITS, 4>(splits, st, x8, qw, sc, s_type, M, K, Np, g, ups, vec, p, out);
   if (e != 0) return e;
-  if (splits > 1) {
+  if (splits > 1 && !keep_part) {
     const int MN = M * Np;
     split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, 0, out);
   }

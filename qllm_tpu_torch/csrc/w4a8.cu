@@ -5,19 +5,21 @@
 //   * quantize_rows: x [M, K] -> x8 int8, sx [M] f32 and per-group sums of
 //     x8; the prologue that K11 and K12 launch first from their own entry
 //     points (the JAX package computes it in XLA, :366-367, :1271-1275),
-//     for K11 with the RMSNorm JAX runs before its a8 kernel fused in;
+//     for K11 with the RMSNorm JAX runs before its a8 kernel fused in, for
+//     K12 with the act-order gather of x fused in;
 //   * K11 w4a8_planar_gemv: the a8 branch of _qmm_kernel_planar_full
-//     (:832, :871-873, :932-942) on the [L]-stacked planar serving layout;
-//   * K12 gptq_w4a8_gemv: _qmm_kernel_w4a8 (:239) as _qmm_2d runs it
-//     (:361-396) on per-layer GPTQ-order words.
+//     (:832, :871-873, :932-942) on the [L]-stacked planar serving layout.
 //
-// Both take x as it arrives (bf16 or f32) and quantize it exactly as the
-// JAX package does: sx = max(max|x_row|, 1e-8) / 127 and x8 = clip(
-// round_half_even(x / sx), -127, 127), with IEEE division (the build uses
-// no fast-math flag), so x8 and sx are JAX's bit for bit. The token scale
-// factors out of the whole contraction: y = bf16(sx * sum_g (d_g * s_g -
-// sum(x8_g) * zs_g)), d_g the exact integer dot of x8 and the weight
-// fields of group g, zs = zeros * scales.
+// K12 gptq_w4a8_gemv (csrc/gptq_stacked.cu) runs the quantizer from here
+// (launch_quantize_rows) before its product on the tensor-core body.
+//
+// The quantizer takes x as it arrives (bf16 or f32) and quantizes it
+// exactly as the JAX package does: sx = max(max|x_row|, 1e-8) / 127 and x8
+// = clip(round_half_even(x / sx), -127, 127), with IEEE division (the
+// build uses no fast-math flag), so x8 and sx are JAX's bit for bit. The
+// token scale factors out of the whole contraction: y = bf16(sx * sum_g
+// (d_g * s_g - sum(x8_g) * zs_g)), d_g the exact integer dot of x8 and the
+// weight fields of group g, zs = zeros * scales.
 
 #include "common.cuh"
 
@@ -26,21 +28,16 @@ namespace {
 constexpr unsigned kAll = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// The activation quantizer: one block per row.
-//
-// x8 is written in the order K12 reads it. With npar fields of a byte
-// (npar = 8 / bits; 1 for K11's natural order), word row r of a GPTQ word
-// holds k = r * pf + s (pf = 4 * npar); shifting it by bits * p and
-// masking each byte gives the fields s = p, p + npar, p + 2 npar, p + 3
-// npar as four bytes. So the value of k goes to r * pf + 4 * p + b with
-// p = s % npar, b = s / npar, and the word of x8 at r * npar + p lines up
-// byte for byte with that masked weight word. Group sums are taken in
-// shared memory with integer atomics: exact in any order.
+// The activation quantizer: one block per row, x8 in natural k order.
+// With a perm (K12 on act-order weights) value k of the row is x[perm[k]]:
+// the gather JAX runs on x before its kernel, exact, so the bits are the
+// gathered x's. Group sums are taken in shared memory with integer
+// atomics: exact in any order.
 // ---------------------------------------------------------------------------
 
 constexpr int kQuantThreads = 1024;
 constexpr int kQuantItems = 16;  // values a thread keeps in registers: rows up to 16384 are read once
-constexpr int kQuantMaxGroups = 1024;
+constexpr int kQuantMaxK = 32 * 1024;  // the longest row whose group sums are taken (its x8 in shared memory)
 
 __device__ __forceinline__ float load_act(const void* x, int x_f32, size_t i) {
   if (x_f32) return static_cast<const float*>(x)[i];
@@ -66,29 +63,35 @@ __device__ __forceinline__ float norm_value(float v, float r, const void* nw, in
 }
 
 __global__ void __launch_bounds__(kQuantThreads)
-    quantize_rows_kernel(const void* __restrict__ x, int x_f32, int K, int g, int npar,
+    quantize_rows_kernel(const void* __restrict__ x, int x_f32, const int* __restrict__ perm, int K, int g,
                          const void* __restrict__ nw, int nw_f32, float eps,
                          int8_t* __restrict__ x8, float* __restrict__ sx, int* __restrict__ xsum) {
-  __shared__ float wred[kQuantThreads / 32];
-  __shared__ int gsum[kQuantMaxGroups];
+  constexpr int kWarps = kQuantThreads / 32;
+  __shared__ float wred[kWarps];
+  extern __shared__ int8_t q8s[];  // [K] the row's x8, for the group sums (xsum only)
   const int m = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t row = static_cast<size_t>(m) * K;
   const int G = K / g;
+  auto at = [&](int k) { return row + (perm != nullptr ? __ldg(perm + k) : k); };  // x's index of value k
+  // the values a thread keeps in registers: items of them in range (uniform)
+  const int items = min(kQuantItems, (K + kQuantThreads - 1) / kQuantThreads);
   float v[kQuantItems];
 #pragma unroll
   for (int j = 0; j < kQuantItems; ++j) {
+    if (j >= items) break;
     const int k = tid + j * kQuantThreads;
-    v[j] = k < K ? load_act(x, x_f32, row + k) : 0.f;
+    v[j] = k < K ? load_act(x, x_f32, at(k)) : 0.f;
   }
-  if (xsum != nullptr)
-    for (int i = tid; i < G; i += kQuantThreads) gsum[i] = 0;
   float r = 1.f;  // the row's norm factor
   if (nw != nullptr) {
     float ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < kQuantItems; ++j) ss = fmaf(v[j], v[j], ss);
+    for (int j = 0; j < kQuantItems; ++j) {
+      if (j >= items) break;
+      ss = fmaf(v[j], v[j], ss);
+    }
     for (int k = tid + kQuantItems * kQuantThreads; k < K; k += kQuantThreads) {
-      const float a = load_act(x, x_f32, row + k);
+      const float a = load_act(x, x_f32, at(k));
       ss = fmaf(a, a, ss);
     }
     ss = warp_sum(ss);
@@ -96,66 +99,67 @@ __global__ void __launch_bounds__(kQuantThreads)
     __syncthreads();
     float tot = 0.f;
 #pragma unroll
-    for (int w = 0; w < kQuantThreads / 32; ++w) tot += wred[w];
+    for (int w = 0; w < kWarps; ++w) tot += wred[w];
     r = rsqrtf(tot / static_cast<float>(K) + eps);
 #pragma unroll
     for (int j = 0; j < kQuantItems; ++j) {
+      if (j >= items) break;
       const int k = tid + j * kQuantThreads;
       if (k < K) v[j] = norm_value(v[j], r, nw, nw_f32, k, x_f32);
     }
     __syncthreads();  // wred is reused below
   }
   auto value = [&](int k) {  // a value past the registers, read again
-    const float a = load_act(x, x_f32, row + k);
+    const float a = load_act(x, x_f32, at(k));
     return nw != nullptr ? norm_value(a, r, nw, nw_f32, k, x_f32) : a;
   };
   float amax = 0.f;
 #pragma unroll
-  for (int j = 0; j < kQuantItems; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  for (int j = 0; j < kQuantItems; ++j) {
+    if (j >= items) break;
+    amax = fmaxf(amax, fabsf(v[j]));
+  }
   for (int k = tid + kQuantItems * kQuantThreads; k < K; k += kQuantThreads) amax = fmaxf(amax, fabsf(value(k)));
   amax = warp_max(amax);
   if (lane == 0) wred[warp] = amax;
   __syncthreads();
-  const float top = warp_max(wred[lane]);  // kQuantThreads / 32 == 32 warps
+  const float top = warp_max(wred[lane]);  // kWarps == 32
   const float s = fmaxf(top, 1e-8f) / 127.0f;
   if (tid == 0) sx[m] = s;
-  const int pf = 4 * npar;
-  // a warp's 32 consecutive k lie in one group when g % 32 == 0 (then K % 32 == 0 too)
-  const bool warp_group = g % 32 == 0;
-  auto emit = [&](int k, float val) {  // k in range for the whole warp or none of it when warp_group
-    int q = 0;
-    if (k < K) {
-      q = static_cast<int>(fminf(fmaxf(rintf(val / s), -127.f), 127.f));
-      const int f = k % pf;
-      x8[row + (k - f) + 4 * (f % npar) + f / npar] = static_cast<int8_t>(q);
-    }
-    if (xsum == nullptr) return;
-    if (warp_group) {
-      const int tot = __reduce_add_sync(kAll, q);
-      if (lane == 0 && k < K) atomicAdd(&gsum[k / g], tot);
-    } else if (k < K) {
-      atomicAdd(&gsum[k / g], q);
-    }
+  // each value on its own: no warp-wide step between them, so the values of
+  // a thread overlap
+  auto emit = [&](int k, float val) {
+    const int q = static_cast<int>(fminf(fmaxf(rintf(val / s), -127.f), 127.f));
+    x8[row + k] = static_cast<int8_t>(q);
+    if (xsum != nullptr) q8s[k] = static_cast<int8_t>(q);
   };
 #pragma unroll
-  for (int j = 0; j < kQuantItems; ++j) emit(tid + j * kQuantThreads, v[j]);
-  for (int k0 = kQuantItems * kQuantThreads; k0 < K; k0 += kQuantThreads) {
-    const int k = k0 + tid;
-    emit(k, k < K ? value(k) : 0.f);
+  for (int j = 0; j < kQuantItems; ++j) {
+    if (j >= items) break;
+    const int k = tid + j * kQuantThreads;
+    if (k < K) emit(k, v[j]);
   }
+  for (int k = tid + kQuantItems * kQuantThreads; k < K; k += kQuantThreads) emit(k, value(k));
   if (xsum == nullptr) return;
+  // the group sums, exact: warp w takes groups w, w + kWarps, ..., its
+  // lanes a stride of the group each, then a warp sum
   __syncthreads();
-  for (int i = tid; i < G; i += kQuantThreads) xsum[static_cast<size_t>(m) * G + i] = gsum[i];
+  for (int gi = warp; gi < G; gi += kWarps) {
+    int acc = 0;
+    for (int i = lane; i < g; i += 32) acc += q8s[gi * g + i];
+    acc = __reduce_add_sync(kAll, acc);
+    if (lane == 0) xsum[static_cast<size_t>(m) * G + gi] = acc;
+  }
 }
 
-int launch_quantize(const void* x, int x_f32, void* x8, void* sx, void* xsum, int M, int K, int g, int npar,
+int launch_quantize(const void* x, int x_f32, const int* perm, void* x8, void* sx, void* xsum, int M, int K, int g,
                     cudaStream_t st, const void* nw = nullptr, int nw_f32 = 0, float eps = 0.f) {
-  if (M < 1 || K < 1 || g < 1 || K % g != 0 || (xsum != nullptr && K / g > kQuantMaxGroups) ||
-      (npar != 1 && npar != 2 && npar != 4) || K % (4 * npar) != 0)
+  // xsum: the row's x8 in shared memory (below 48 KB: no limit to raise)
+  if (M < 1 || K < 1 || g < 1 || K % g != 0 || (xsum != nullptr && K > kQuantMaxK))
     return static_cast<int>(cudaErrorInvalidValue);
-  quantize_rows_kernel<<<M, kQuantThreads, 0, st>>>(x, x_f32, K, g, npar, nw, nw_f32, eps,
-                                                    static_cast<int8_t*>(x8), static_cast<float*>(sx),
-                                                    static_cast<int*>(xsum));
+  quantize_rows_kernel<<<M, kQuantThreads, xsum != nullptr ? K : 0, st>>>(
+      x, x_f32, perm, K, g, nw, nw_f32, eps, static_cast<int8_t*>(x8), static_cast<float*>(sx),
+      static_cast<int*>(xsum));
   return 0;
 }
 
@@ -396,172 +400,20 @@ void launch_planar(int warps, cudaStream_t st, const int8_t* x8, const float* sx
     w4a8_planar_gemv_kernel<MT, P, true><<<Np / kA8Cols, warps * 32, 0, st>>>(x8, sx, qw, sc, zs, M, K, Np, g, out);
 }
 
-// ---------------------------------------------------------------------------
-// K12 gptq_w4a8_gemv (per-layer decode, M <= 32, 2 and 4 bits).
-//
-// Replaces _qmm_kernel_w4a8 with the correction _qmm_2d runs after it:
-// y = bf16(sx * (sum_g d_g * s_g - sum(x8_g) * (z_g * s_g))), scales and
-// zeros in f32 (converted from the dtype they are stored in).
-//
-// Bound on the H100: bytes (the packed words, read once). K9's design:
-// one thread per output column (a warp reads one 128-byte run of a word
-// row), 16 word rows loaded ahead, MT rows of sums in registers. A word
-// shifted by bits * p and masked per byte is the fields k = r*pf + p +
-// npar*b (b = 0..3) as four s8 values, exactly what the TPU kernel dots
-// (:266-279); the quantizer lays x8 out so that the matching four values
-// form one word, so each (word, parity, row) is one __dp4a into an exact
-// s32 group sum. x8 tiles of 1024 k (at the decode shapes a split's
-// whole range: one barrier) live in shared memory as words (every lane
-// reads the same word: a broadcast). K is split over gridDim.y by a
-// count chosen from K, N and g alone, at group boundaries, so each split
-// subtracts whole groups' zero-point terms with the quantizer's sums;
-// each split writes its f32 partials and a second kernel adds them in
-// split order and applies sx. A row's bits never depend on M.
-// ---------------------------------------------------------------------------
-
-constexpr int kW8Threads = 128;
-constexpr int kW8KT = 1024;  // k per x8 tile in shared memory (a split's whole range at decode shapes)
-constexpr int kW8Words = kW8KT / 4;
-constexpr int kW8Pre = 16;   // word rows a thread loads ahead
-
-template <int BITS, int MT>
-__global__ void __launch_bounds__(kW8Threads)
-    gptq_w4a8_gemv_kernel(const int* __restrict__ x8w,   // [M, K/4] x8 words in parity order
-                          const int* __restrict__ xsum,  // [M, G]
-                          const float* __restrict__ sx,  // [M]
-                          const uint32_t* __restrict__ qw,  // [K/pf, N]
-                          const void* __restrict__ sc, const void* __restrict__ zr, int s_type,  // [G, N]
-                          int M, int K, int N, int g, int rows_per_split,
-                          float* __restrict__ part,             // [splits, M, N] when split
-                          __nv_bfloat16* __restrict__ out) {    // [M, N] when not
-  constexpr int PF = 32 / BITS;
-  constexpr int NPAR = 8 / BITS;
-  constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x01010101u;
-  __shared__ int xs[MT][kW8Words];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x * kW8Threads + tid;
-  const bool col = n < N;
-  const int rows = K / PF;
-  const int gr = g / PF;  // word rows per group
-  const int G = K / g;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(rows, r0 + rows_per_split);
-
-  float y[MT];
-  int dot[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    y[m] = 0.f;
-    dot[m] = 0;
-  }
-  float s = 0.f, zs = 0.f;
-  int grp = -1;
-  auto close = [&]() {  // y += d * s - sum(x8) * zs for group grp
-    if (grp < 0) return;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        const float xg = static_cast<float>(__ldg(xsum + static_cast<size_t>(m) * G + grp));
-        y[m] = y[m] + static_cast<float>(dot[m]) * s - xg * zs;
-      }
-      dot[m] = 0;
-    }
-  };
-
-  for (int k0 = r0 * PF; k0 < r1 * PF; k0 += kW8KT) {
-    const int kn = min(kW8KT, r1 * PF - k0);
-    const int nw = kn / 4;  // x8 words of each row in this tile
-    __syncthreads();
-    for (int i = tid; i < MT * nw; i += kW8Threads) {
-      const int m = i / nw, w = i % nw;
-      xs[m][w] = m < M ? __ldg(x8w + static_cast<size_t>(m) * (K / 4) + k0 / 4 + w) : 0;
-    }
-    __syncthreads();
-    if (col) {
-      const int ra = k0 / PF, rb = (k0 + kn) / PF;
-      for (int rc = ra; rc < rb; rc += kW8Pre) {
-        uint32_t wb[kW8Pre];
-#pragma unroll
-        for (int i = 0; i < kW8Pre; ++i)
-          wb[i] = rc + i < rb ? __ldcs(qw + static_cast<size_t>(rc + i) * N + n) : 0u;
-#pragma unroll
-        for (int i = 0; i < kW8Pre; ++i) {
-          const int r = rc + i;
-          if (r >= rb) break;
-          if (r % gr == 0) {  // a group starts (splits start on one): close the last
-            close();
-            grp = r / gr;
-            const size_t gi = static_cast<size_t>(grp) * N + n;
-            s = load_param(sc, s_type, gi);
-            zs = load_param(zr, s_type, gi) * s;
-          }
-          const int* xr = &xs[0][(r - ra) * NPAR];
-#pragma unroll
-          for (int p = 0; p < NPAR; ++p) {
-            const int v = static_cast<int>((wb[i] >> (BITS * p)) & kMask);
-#pragma unroll
-            for (int m = 0; m < MT; ++m) dot[m] = __dp4a(v, xr[m * kW8Words + p], dot[m]);
-          }
-        }
-      }
-    }
-  }
-  if (!col) return;
-  close();
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
-      if (part != nullptr)
-        part[(static_cast<size_t>(blockIdx.y) * M + m) * N + n] = y[m];
-      else
-        out[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(y[m] * sx[m]);
-    }
-  }
-}
-
-// the splits' partial sums added in split order, times sx, rounded to bf16
-__global__ void split_sum_scaled_kernel(const float* __restrict__ part, int splits, int M, int N,
-                                        const float* __restrict__ sx, __nv_bfloat16* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int MN = M * N;
-  if (i >= MN) return;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * MN + i];
-  out[i] = __float2bfloat16_rn(acc * sx[i / N]);
-}
-
-template <int BITS, int MT>
-void launch_w8_mt(dim3 grid, cudaStream_t st, const int* x8w, const int* xsum, const float* sx, const uint32_t* qw,
-                  const void* sc, const void* zr, int s_type, int M, int K, int N, int g, int rps, float* part,
-                  __nv_bfloat16* out) {
-  gptq_w4a8_gemv_kernel<BITS, MT><<<grid, kW8Threads, 0, st>>>(x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps,
-                                                               part, out);
-}
-
-template <int BITS>
-void launch_w8_bits(dim3 grid, cudaStream_t st, const int* x8w, const int* xsum, const float* sx, const uint32_t* qw,
-                    const void* sc, const void* zr, int s_type, int M, int K, int N, int g, int rps, float* part,
-                    __nv_bfloat16* out) {
-  if (M <= 1)
-    launch_w8_mt<BITS, 1>(grid, st, x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 4)
-    launch_w8_mt<BITS, 4>(grid, st, x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 8)
-    launch_w8_mt<BITS, 8>(grid, st, x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else if (M <= 16)
-    launch_w8_mt<BITS, 16>(grid, st, x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-  else
-    launch_w8_mt<BITS, 32>(grid, st, x8w, xsum, sx, qw, sc, zr, s_type, M, K, N, g, rps, part, out);
-}
-
 }  // namespace
 
-// The quantizer alone (x8 in the order of `npar`: 1 natural, 2 for 4-bit
-// and 4 for 2-bit GPTQ words; xsum may be null)
+// K12's prologue (csrc/gptq_stacked.cu): x8, sx and xsum of x [M, K],
+// value k of a row taken from x[perm[k]] when perm is not null; a
+// cudaError_t for the launch
+int launch_quantize_rows(const void* x, int x_f32, const int* perm, void* x8, void* sx, void* xsum, int M, int K,
+                         int g, cudaStream_t st) {
+  return launch_quantize(x, x_f32, perm, x8, sx, xsum, M, K, g, st);
+}
+
+// The quantizer alone (xsum may be null)
 QLLM_API int qllm_quantize_rows_int8(const void* x, int x_f32, void* x8, void* sx, void* xsum, int M, int K, int g,
-                                     int npar, void* stream) {
-  const int code = launch_quantize(x, x_f32, x8, sx, xsum, M, K, g, npar, static_cast<cudaStream_t>(stream));
+                                     void* stream) {
+  const int code = launch_quantize(x, x_f32, nullptr, x8, sx, xsum, M, K, g, static_cast<cudaStream_t>(stream));
   return code != 0 ? code : qllm_launch_status();
 }
 
@@ -580,7 +432,7 @@ QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx,
   if (norm_w != nullptr)
     nw = nw_f32 ? static_cast<const void*>(static_cast<const float*>(norm_w) + static_cast<size_t>(layer) * K)
                 : static_cast<const void*>(static_cast<const __nv_bfloat16*>(norm_w) + static_cast<size_t>(layer) * K);
-  const int code = launch_quantize(x, x_f32, x8, sx, nullptr, M, K, g, 1, st, nw, nw_f32, eps);
+  const int code = launch_quantize(x, x_f32, nullptr, x8, sx, nullptr, M, K, g, st, nw, nw_f32, eps);
   if (code != 0) return code;
   const size_t lw = static_cast<size_t>(K / 8) * Np;
   const size_t ls = static_cast<size_t>(K / g) * Np;
@@ -596,38 +448,5 @@ QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx,
     launch_planar<2>(warps, st, q8, s8, qw, sc, zz, M, K, Np, g, ob);
   else
     launch_planar<4>(warps, st, q8, s8, qw, sc, zz, M, K, Np, g, ob);
-  return qllm_launch_status();
-}
-
-// K12: the quantizer into x8 / sx / xsum, the product, and (splits > 1)
-// the split sum; splits: blocks along K, each rows_per_split word rows
-// (a multiple of g / pf), `part` holds splits * M * N floats when split
-QLLM_API int qllm_gptq_w4a8_gemv(const void* x, int x_f32, void* x8, void* sx, void* xsum, const void* qweight,
-                                 const void* scales, const void* zeros, int s_type, void* part, void* out, int bits,
-                                 int M, int K, int N, int g, int splits, int rows_per_split, void* stream) {
-  const int pf = (bits == 2 || bits == 4) ? 32 / bits : 0;
-  if (pf == 0 || M < 1 || M > 32 || N < 1 || g < pf || g % pf != 0 || K % g != 0 || splits < 1 ||
-      splits > 65535 || rows_per_split < 1 || rows_per_split % (g / pf) != 0 ||
-      static_cast<long long>(splits) * rows_per_split < K / pf || (splits > 1 && part == nullptr) || s_type < 0 ||
-      s_type > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const int code = launch_quantize(x, x_f32, x8, sx, xsum, M, K, g, 8 / bits, st);
-  if (code != 0) return code;
-  const dim3 grid((N + kW8Threads - 1) / kW8Threads, splits);
-  const auto* xw = static_cast<const int*>(x8);
-  const auto* xg = static_cast<const int*>(xsum);
-  const auto* s8 = static_cast<const float*>(sx);
-  const auto* qw = static_cast<const uint32_t*>(qweight);
-  float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  if (bits == 2)
-    launch_w8_bits<2>(grid, st, xw, xg, s8, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
-  else
-    launch_w8_bits<4>(grid, st, xw, xg, s8, qw, scales, zeros, s_type, M, K, N, g, rows_per_split, p, o);
-  if (splits > 1) {
-    const int MN = M * N;
-    split_sum_scaled_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, M, N, s8, o);
-  }
   return qllm_launch_status();
 }

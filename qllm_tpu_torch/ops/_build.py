@@ -46,7 +46,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "qllm_w4_planar_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "qllm_w4_planar_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "qllm_w4_grouped_gemv": [_P] * 6 + [_I] * 8 + [_P],
+    "qllm_w4_grouped_gemv": [_P] * 7 + [_I] * 9 + [_P],
     "qllm_kv_write_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "qllm_decode_attn_int8": [_P] * 7 + [_I] * 6 + [_F, _F, _F, _P, _P, _P, _P, _I, _P],
     "qllm_decode_attn_int8_4d": [_P] * 7 + [_I] * 5 + [_F, _F, _F, _P, _P, _P, _P, _I, _P],
@@ -57,9 +57,9 @@ _SIGNATURES = {
     "qllm_flash_prefill": [_P] * 7 + [_I] * 6 + [_L] * 3 + [_I, _I, _F, _F, _F, _P, _P],
     "qllm_gptq_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "qllm_gptq_gemm": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
-    "qllm_quantize_rows_int8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qllm_quantize_rows_int8": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "qllm_w4a8_planar_gemv": [_P, _I] + [_P] * 6 + [_I, _F, _P] + [_I] * 6 + [_P],
-    "qllm_gptq_w4a8_gemv": [_P, _I] + [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_P],
+    "qllm_gptq_w4a8_gemv": [_P, _I] + [_P] * 7 + [_I, _P, _P] + [_I] * 7 + [_P],
     "qllm_stream_pass": [_P, _P] + [_I] * 5 + [_P],
     "qllm_gptq_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "qllm_gptq_stacked_w4a8_gemv": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],

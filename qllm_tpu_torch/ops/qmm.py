@@ -34,9 +34,12 @@ package's gate takes on its chip (``stacked_route``, pallas_qmm.py:
 
 ``qmatmul_grouped_experts(x_rows, stack, ids)`` computes
 ``y[i] = x_rows[i] @ dequant(stack[ids[i]])`` for every MoE (token,
-expert) selection in one launch of K8 ``w4_grouped_gemv``: K1's inner
-loop, one block per (column tile, selection), with the expert ids read
-on the device.
+expert) selection in one launch of K8 ``w4_grouped_gemv``
+(csrc/grouped_mma.cu: the tensor-core body of csrc/stacked_mma.cuh on
+planar words), with the expert ids read on the device: a block whose
+selection starts a run of equal ids takes up to 8 of them as its rows, so
+an expert several sorted selections chose streams once a run of 8
+(``grouped_run_rows`` is the plan, in plain PyTorch).
 
 Two products with a serial dependency run as one cooperative launch
 each (``csrc/fused_mlp.cu``): ``qmatmul_grouped_experts_fused`` (K19
@@ -61,6 +64,7 @@ import torch
 
 from . import _build
 from ..quant.qtensor import QuantizedTensor
+from .tc_plan import TC_TARGET_BLOCKS, tc_splits
 
 __all__ = [
     "qmatmul_stacked",
@@ -75,6 +79,9 @@ __all__ = [
     "grouped_experts_ok",
     "w4_grouped_gemv",
     "w4_grouped_gemv_plain",
+    "grouped_run_rows",
+    "grouped_plan_heads",
+    "grouped_splits",
     "qmatmul_grouped_experts_fused",
     "grouped_fused_ok",
     "w4_grouped_fused_mlp",
@@ -230,13 +237,15 @@ def odd_stacked_kernel_ok(K: int, group_size: int) -> bool:
 
 def _planar_values(qw: torch.Tensor, K: int) -> torch.Tensor:
     """Planar words [K/8, Np] -> f32 [K, Np] nibble values in k order.
-    The shifts stay in int32: an arithmetic shift by <= 28 bits keeps
-    the nibble's own bits, and the mask drops the sign copies."""
-    sh = torch.arange(0, 32, 8, dtype=torch.int32, device=qw.device)[None, :, None]
-    w = qw.to(torch.int32)[:, None, :]
-    lo = ((w >> sh) & 0xF).reshape(K // 2, -1)
-    hi = ((w >> (sh + 4)) & 0xF).reshape(K // 2, -1)
-    return torch.cat([lo, hi], dim=0).to(torch.float32)
+    Byte j of word row r (little-endian, as the words lie in memory) holds
+    k = 4r + j in its low nibble and K/2 + 4r + j in its high one, so the
+    nibbles are taken from a byte view and converted straight into the
+    output's two halves."""
+    b = qw.to(torch.int32).contiguous().view(torch.uint8).reshape(K // 8, -1, 4)
+    out = torch.empty((2, K // 8, 4, b.shape[1]), dtype=torch.float32, device=qw.device)
+    out[0].copy_((b & 0xF).permute(0, 2, 1))
+    out[1].copy_((b >> 4).permute(0, 2, 1))
+    return out.reshape(K, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -283,15 +292,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gemv_launch(dev: torch.device, M: int, Np: int, K: int, row_blocks=None):
+def _gemv_launch(dev: torch.device, M: int, Np: int, K: int):
     """K1's launch shape: 16-column MMA tiles per block (4 where that
     still gives a block per SM, else 2) and warps per block (each takes a
-    share of K's 32-value tiles), about 16 warps per SM in all.
-    ``row_blocks``: blocks along the rows (K8: one per selection; K1:
-    one per 8 rows)."""
+    share of K's 32-value tiles), about 16 warps per SM in all (blocks
+    along the rows: one per 8)."""
     sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     nt = 4 if Np % 64 == 0 and Np // 64 >= sms else 2
-    blocks = (Np // (16 * nt)) * (-(-M // 8) if row_blocks is None else row_blocks)
+    blocks = (Np // (16 * nt)) * -(-M // 8)
     warps = max(1, min(16, K // 32, -(-16 * sms // blocks)))
     return nt, warps
 
@@ -461,9 +469,9 @@ def quantize_rows_int8_plain(x: torch.Tensor, group_size: int):
 
 
 def quantize_rows_int8(x: torch.Tensor, group_size: int):
-    """The quantizer that K11 and K12 launch first, alone, in natural k
-    order (for checks): x [M, K] bf16 / f32 -> (x8, sx, xsum) as the plain
-    version gives them."""
+    """The quantizer that K11 and K12 launch first, alone (for checks, and
+    K15's x8): x [M, K] bf16 / f32 -> (x8, sx, xsum) as the plain version
+    gives them."""
     if not _build.use_kernel(x, "quantize_rows_int8"):
         return quantize_rows_int8_plain(x, group_size)
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -475,7 +483,7 @@ def quantize_rows_int8(x: torch.Tensor, group_size: int):
     xsum = torch.empty((M, K // group_size), dtype=torch.int32, device=x.device)
     code = _build.load_library().qllm_quantize_rows_int8(
         x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        M, K, group_size, 1, _build.stream(x),
+        M, K, group_size, _build.stream(x),
     )
     _build.check("quantize_rows_int8", code)
     return x8, sx, xsum
@@ -573,19 +581,75 @@ def w4_grouped_gemv_plain(
 ) -> torch.Tensor:
     """The plain version of K8: for each selection i, K1's arithmetic on
     the one row x_rows[0 if x_shared else i] against expert ids[i] of the
-    stack -> bf16 [n, Np]. The expert's words are gathered with
-    index_select, so the ids are never read on the host."""
+    stack -> bf16 [n, Np]; an id outside [0, E) gives a row of NaN. The
+    expert's words are gathered with index_select (a clamped id), so the
+    ids are never read on the host."""
+    E = qweight.shape[0]
     ids = ids.to(torch.int64)
+    valid = (ids >= 0) & (ids < E)
+    safe = ids.clamp(0, E - 1)
     out = []
     for i in range(ids.shape[0]):
-        e = ids[i : i + 1]
+        e = safe[i : i + 1]
         x = x_rows[:1] if x_shared else x_rows[i : i + 1]
         out.append(
             w4_planar_gemv_plain(
                 x, qweight.index_select(0, e), scales.index_select(0, e), zs.index_select(0, e), 0
             )
         )
-    return torch.cat(out)
+    y = torch.cat(out)
+    return torch.where(valid[:, None], y, torch.full_like(y, float("nan")))
+
+
+# the selections a K8 block takes as its rows when its selection heads a run
+GROUPED_RUN_ROWS = 8
+
+
+def grouped_run_rows(ids: torch.Tensor) -> torch.Tensor:
+    """K8's plan of runs, as each block makes it in the launch from the ids
+    around it: int32 [n], the rows selection i's block takes. A selection
+    heads when it starts a run of equal ids or lies a multiple of
+    GROUPED_RUN_ROWS past the run's start; a head takes the run's next
+    min(GROUPED_RUN_ROWS, left) selections, every other block none. Any
+    order of ids is served; sorted ids make the runs long."""
+    n = ids.shape[0]
+    pos = torch.arange(n, device=ids.device)
+    starts = torch.ones(n, dtype=torch.bool, device=ids.device)
+    starts[1:] = ids[1:] != ids[:-1]
+    run = torch.cumsum(starts.to(torch.int64), 0) - 1
+    start = torch.zeros(int(run[-1]) + 1 if n else 0, dtype=torch.int64, device=ids.device)
+    start[run[starts]] = pos[starts]
+    offset = pos - start[run]
+    left = torch.bincount(run)[run] - offset
+    head = offset % GROUPED_RUN_ROWS == 0
+    return torch.where(head, left.clamp(max=GROUPED_RUN_ROWS), 0).to(torch.int32)
+
+
+# The head blocks K8's split plan counts on, from the expert's shape alone,
+# so that neither the selection count nor the runs move a row's bits (a
+# token's row takes the same split of K at batch 1 and at batch 8): as many
+# heads as stream GROUPED_PLAN_BYTES of expert words, within
+# GROUPED_PLAN_HEADS, the heads of a batch-1 token on the MoE models served
+# (top-2 to top-8). Measured on the H100 (chip_stacked_ab.py --parts
+# k8_heads): Mixtral-8x7B's down_proj (29 MB an expert) runs fastest planned
+# for 2 heads (8 splits), Qwen3-30B-A3B's gate|up and down (1.6 / 0.8 MB)
+# for 8 at batch 1, and within 10% of their best at batch 8.
+GROUPED_PLAN_BYTES = 64 << 20
+GROUPED_PLAN_HEADS = (2, 8)
+
+
+def grouped_plan_heads(K: int, Np: int) -> int:
+    """The head blocks K8's split plan counts on for a K x Np expert."""
+    lo, hi = GROUPED_PLAN_HEADS
+    return max(lo, min(hi, round(GROUPED_PLAN_BYTES / ((K // 8) * Np * 4))))
+
+
+def grouped_splits(K: int, Np: int):
+    """K8's (splits of K, word rows a split): ``tc_splits`` of the K/8 word
+    rows over Np columns and ``grouped_plan_heads`` head blocks on the
+    planar target; from (K, Np) alone, never from the selection count or
+    the ids, so a row's bits depend neither on n nor on its run."""
+    return tc_splits(K // 8, Np, TC_TARGET_BLOCKS["planar"], row_blocks=grouped_plan_heads(K, Np))
 
 
 def w4_grouped_gemv(
@@ -599,7 +663,11 @@ def w4_grouped_gemv(
     """K8: x_rows [n, K] bf16 (or [>= 1, K] when ``x_shared``), an expert
     stack qweight [E, K/8, Np] / scales, zs [E, G, Np], ids [n] int32 on
     the device -> y [n, Np] bf16. An id outside [0, E) gives a row of NaN
-    (no host check: it would wait on the device)."""
+    (no host check: it would wait on the device). Replaces
+    ``_qmm_kernel_planar_full`` as ``qmatmul_grouped_experts`` runs it
+    (pallas_qmm.py:1843). Bound: bytes (the experts the ids touch, read
+    once) over 3.35 TB/s. K splits by ``grouped_splits``; a second kernel
+    adds the splits in split order."""
     if not _build.use_kernel(x_rows, "w4_grouped_gemv"):
         return w4_grouped_gemv_plain(x_rows, qweight, scales, zs, ids, x_shared)
     if x_rows.dtype != torch.bfloat16 or x_rows.dim() != 2:
@@ -615,26 +683,14 @@ def w4_grouped_gemv(
         raise ValueError("w4_grouped_gemv: 1 <= n <= 65535 selections")
     if Np % 32:
         raise ValueError("w4_grouped_gemv: the padded width must be a multiple of 32")
-    x_rows = _aligned(x_rows.contiguous())  # 8-byte x loads
+    x_rows = _aligned(x_rows.contiguous())  # 8-byte x copies, 16-byte alignment checked
     ids = ids.to(torch.int32).contiguous()
-    nt, warps = _gemv_launch(x_rows.device, 1, Np, K, row_blocks=n)
+    splits, per = grouped_splits(K, Np)
+    part = torch.empty((splits, n, Np), dtype=torch.float32, device=x_rows.device) if splits > 1 else None
     out = torch.empty((n, Np), dtype=torch.bfloat16, device=x_rows.device)
-    lib = _build.load_library()
-    code = lib.qllm_w4_grouped_gemv(
-        x_rows.data_ptr(),
-        qweight.data_ptr(),
-        scales.data_ptr(),
-        zs.data_ptr(),
-        ids.data_ptr(),
-        out.data_ptr(),
-        n,
-        E,
-        int(bool(x_shared)),
-        K,
-        Np,
-        K // G,
-        nt,
-        warps,
+    code = _build.load_library().qllm_w4_grouped_gemv(
+        x_rows.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zs.data_ptr(), ids.data_ptr(), _build.ptr(part),
+        out.data_ptr(), n, E, int(bool(x_shared)), K, Np, K // G, splits, per, GROUPED_RUN_ROWS,
         _build.stream(x_rows),
     )
     _build.check("w4_grouped_gemv", code)

@@ -19,16 +19,18 @@ does branch by branch:
   * M <= 32 with ``w4a8=True`` (2 and 4 bits in the per-group geometry,
     where the JAX package takes ``_qmm_kernel_w4a8``): per-token int8
     activations (``ops.qmm.quantize_rows_int8``), exact s8 x s8 -> s32
-    group dots, ``y = bf16(sx * (sum_g d_g s_g - sum(x8_g) (z s)_g))``.
-    CUDA kernel K12 ``gptq_w4a8_gemv``, the counterpart of
-    ``_qmm_kernel_w4a8`` (:239) with the correction after it (:385-396).
-    8-bit weights and M > 32 keep K9 / K10, as in JAX.
+    group dots, ``y = bf16((sum_g d_g s_g - xsum @ (z s)) * sx)``.
+    CUDA kernel K12 ``gptq_w4a8_gemv`` (csrc/gptq_stacked.cu: the
+    quantizer, K15's int8 body on the tensor cores, an epilogue), the
+    counterpart of ``_qmm_kernel_w4a8`` (:239) with the correction after it
+    (:385-400). 8-bit weights and M > 32 keep K9 / K10, as in JAX.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor; the plain versions compute
 ``_qmm_2d``'s function in the JAX package's order of rounding. The
-act-order permutation is applied to x before either (``ref_matmul.py``
-:86).
+act-order permutation gathers x's columns first (``ref_matmul.py`` :86):
+``qmatmul_2d`` gathers them for K9 / K10, and K12's quantizer gathers them
+as it reads x.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import torch
 from . import _build
 from ..quant.qtensor import QuantizedTensor, unpack_rows
 from .qmm import _per_group_branch, _sm_count, quantize_rows_int8_plain
-from .tc_plan import PARAM_TYPES, TC_TARGET_BLOCKS, tc_splits
+from .tc_plan import PARAM_TYPES, TC_TARGET_BLOCKS, tc_group_splits, tc_splits
 
 __all__ = [
     "qmatmul_2d",
@@ -52,13 +54,11 @@ __all__ = [
     "gptq_w4a8_gemv_plain",
     "GEMV_MAX_M",
     "gemm_segments",
+    "w4a8_splits",
 ]
 
 GEMV_MAX_M = 32
 _BITS = (2, 4, 8)
-# K12: blocks aimed at (about four 128-thread blocks per SM on 132 SMs)
-_GEMV_TARGET_BLOCKS = 528
-_GEMV_MIN_ROWS = 16  # word rows per K split, at least
 
 
 def _check_bits(bits: int) -> None:
@@ -106,15 +106,6 @@ def gptq_gemv_plain(
     else:
         y1 = xf @ (q * s[:, None, :]).reshape(K, N)
     return (y1 - _zero_point_term(xf, s, z, G, g)).to(torch.bfloat16)
-
-
-def _gemv_splits(rows: int, N: int) -> Tuple[int, int]:
-    """K12's (splits of K, word rows per split) from the weight's shape
-    alone, so that a row's sums never depend on M."""
-    blocks_n = -(-N // 128)
-    splits = max(1, min(-(-_GEMV_TARGET_BLOCKS // blocks_n), rows // _GEMV_MIN_ROWS))
-    per = -(-rows // splits)
-    return -(-rows // per), per
 
 
 def _param_type(name: str, scales: torch.Tensor, zeros: torch.Tensor) -> int:
@@ -282,43 +273,60 @@ def gptq_w4a8_gemv_plain(
     return ((y1 - corr) * sx[:, None]).to(torch.bfloat16)
 
 
-def _w4a8_splits(rows: int, N: int, group_rows: int) -> Tuple[int, int]:
-    """K9's split of K, each split widened to whole groups (K12 subtracts
-    whole groups' zero-point terms): from the weight's shape alone."""
-    _, per = _gemv_splits(rows, N)
-    per = -(-per // group_rows) * group_rows
-    return -(-rows // per), per
+def w4a8_splits(K: int, N: int, bits: int, g: int) -> Tuple[int, int]:
+    """K12's (splits of K, word rows a split): ``tc_splits`` of the word
+    rows and N on the body's GPTQ-order target, each split widened to whole
+    groups (the epilogue takes whole groups' zero-point terms off); from
+    (K, N, bits, g) alone, so a row's bits never depend on M."""
+    pf = 32 // bits
+    return tc_group_splits(K // pf, N, TC_TARGET_BLOCKS["gptq"], g // pf)
 
 
 def gptq_w4a8_gemv(
-    x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, bits: int, group_size: int
+    x: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    zeros: torch.Tensor,
+    bits: int,
+    group_size: int,
+    perm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K12: x [M <= 32, K] bf16 or f32 -> y [M, N] bf16 (see the plain
-    version), 2- and 4-bit words. Replaces ``_qmm_kernel_w4a8``
-    (pallas_qmm.py:239). Bound: bytes (words + scales + zeros + x + y)
-    over 3.35 TB/s."""
+    version), 2- and 4-bit words; ``perm`` (act-order, int [K]): value k of
+    a row is x[:, perm[k]], gathered by the quantizer as it reads x.
+    Replaces ``_qmm_kernel_w4a8`` (pallas_qmm.py:239) and the correction
+    after it. Three launches: the quantizer, K15's int8 tensor-core body
+    (each split's partial sums), the epilogue (the splits in split order,
+    the zero-point term, the token scale). Bound: bytes (words + scales +
+    zeros + x + y) over 3.35 TB/s."""
     if bits not in (2, 4):
         raise NotImplementedError(f"gptq_w4a8_gemv serves 2/4 bits, got {bits}")
     if not _build.use_kernel(x, "gptq_w4a8_gemv"):
+        if perm is not None:
+            x = torch.index_select(x, -1, perm.to(torch.int64))
         return gptq_w4a8_gemv_plain(x, qweight, scales, zeros, bits, group_size)
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= x.shape[0] <= GEMV_MAX_M:
         raise ValueError(f"gptq_w4a8_gemv: x must be bf16/f32 [M <= {GEMV_MAX_M}, K]")
     M, K = x.shape
     g = _group(K, group_size)
     N, s_type = _check_weight("gptq_w4a8_gemv", x, qweight, scales, zeros, bits, K, g)
-    pf = 32 // bits
+    if perm is not None:
+        if perm.dim() != 1 or perm.shape[0] != K or perm.device != x.device:
+            raise ValueError(f"gptq_w4a8_gemv: perm must be an int [{K}] tensor on {x.device}")
+        if perm.dtype != torch.int32 or not perm.is_contiguous():
+            perm = perm.to(torch.int32).contiguous()
     x = x.contiguous()
-    splits, per = _w4a8_splits(K // pf, N, g // pf)
+    splits, per = w4a8_splits(K, N, bits, g)
     dev = x.device
     x8 = torch.empty((M, K), dtype=torch.int8, device=dev)
     sx = torch.empty((M,), dtype=torch.float32, device=dev)
     xsum = torch.empty((M, K // g), dtype=torch.int32, device=dev)
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     code = _build.load_library().qllm_gptq_w4a8_gemv(
-        x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), xsum.data_ptr(),
-        qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), s_type, _build.ptr(part), out.data_ptr(),
-        bits, M, K, N, g, splits, per, _build.stream(x),
+        x.data_ptr(), int(x.dtype == torch.float32), _build.ptr(perm), x8.data_ptr(), sx.data_ptr(),
+        xsum.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr(), s_type, part.data_ptr(),
+        out.data_ptr(), bits, M, K, N, g, splits, per, _build.stream(x),
     )
     _build.check("gptq_w4a8_gemv", code)
     gptq_w4a8_gemv.launches += 1
@@ -339,21 +347,22 @@ def qmatmul_2d(
     """y = x @ dequant(qt) (+ bias) for a 2-D GPTQ-order weight (the
     counterpart of ``qmatmul_pallas`` with the perm applied first):
     K9 at M <= 32, else K10; with ``w4a8``, K12 where ``_qmm_2d`` takes
-    its W4A8 kernel (2/4 bits, M <= 32, the per-group geometry).
-    x: [..., K] -> [..., N] in x.dtype."""
+    its W4A8 kernel (2/4 bits, M <= 32, the per-group geometry), whose
+    quantizer gathers x by the act-order perm (K9 / K10 take x gathered
+    here). x: [..., K] -> [..., N] in x.dtype."""
     _check_bits(qt.bits)
     if qt.planar or qt.zeros_prefolded or qt.qweight.dim() != 2:
         raise ValueError("qmatmul_2d takes a per-layer GPTQ-order weight (not a serving stack)")
     K, N = qt.in_features, qt.out_features
-    if qt.perm is not None:
-        x = torch.index_select(x, -1, qt.perm.to(torch.int64))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
     small = x2.shape[0] <= GEMV_MAX_M
+    w = (qt.qweight, qt.scales, qt.zeros, qt.bits, qt.group_size)
     if w4a8 and small and _per_group_branch(K, _group(K, qt.group_size), qt.bits):
-        fn = gptq_w4a8_gemv
+        y = gptq_w4a8_gemv(x2, *w, perm=qt.perm)
     else:
-        fn = gptq_gemv if small else gptq_gemm
-    y = fn(x2, qt.qweight, qt.scales, qt.zeros, qt.bits, qt.group_size)
+        if qt.perm is not None:
+            x2 = torch.index_select(x2, -1, qt.perm.to(torch.int64))
+        y = (gptq_gemv if small else gptq_gemm)(x2, *w)
     y = y.reshape(*lead, N).to(x.dtype)
     return y if bias is None else y + bias

@@ -24,10 +24,10 @@ from ..quant.qtensor import _as_u32, _to_i32
 __all__ = ["planarize_w4", "planarize_w4_plain"]
 
 
-def _deposit(x16: torch.Tensor) -> torch.Tensor:
-    """Spread the 4 nibbles of the low 16 bits into the low nibble of
-    each byte of a 32-bit word."""
-    return (x16 & 0xF) | ((x16 & 0xF0) << 4) | ((x16 & 0xF00) << 8) | ((x16 & 0xF000) << 12)
+def _nibbles(b0: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """The four nibbles of two consecutive bytes of a word, low first,
+    each as a byte (the last axis)."""
+    return torch.stack([b0 & 0xF, b0 >> 4, b1 & 0xF, b1 >> 4], dim=-1)
 
 
 def _split_halves(qweight: torch.Tensor, K: int):
@@ -42,14 +42,18 @@ def _split_halves(qweight: torch.Tensor, K: int):
 
 
 def planarize_w4_plain(qweight: torch.Tensor, K: int) -> torch.Tensor:
-    """The plain version of K4: [..., K/8, N] int32 -> planar words."""
+    """The plain version of K4: [..., K/8, N] int32 -> planar words, byte
+    by byte (little-endian, as the words lie in memory): byte j of planar
+    row 2m is nibble j of source row m, with nibble j of row K/16 + m
+    above it; row 2m + 1 takes nibbles 4 + j."""
     lead, E, N = _split_halves(qweight, K)
-    q4 = _as_u32(qweight.reshape(E, 2, K // 16, N))
-    lo, hi = q4[:, 0], q4[:, 1]
-    even = _deposit(lo & 0xFFFF) | (_deposit(hi & 0xFFFF) << 4)
-    odd = _deposit(lo >> 16) | (_deposit(hi >> 16) << 4)
-    out = torch.stack([even, odd], dim=2)  # [E, K/16, 2, N]
-    return _to_i32(out).reshape(*lead, K // 8, N)
+    if qweight.dtype != torch.int32:
+        qweight = _to_i32(_as_u32(qweight))
+    s = qweight.contiguous().view(torch.uint8).reshape(E, 2, K // 16, N, 4)
+    even = _nibbles(s[..., 0], s[..., 1])  # [E, 2, K/16, N, 4]: nibbles 0-3
+    odd = _nibbles(s[..., 2], s[..., 3])  # nibbles 4-7
+    out = torch.stack([even[:, 0] | (even[:, 1] << 4), odd[:, 0] | (odd[:, 1] << 4)], dim=2)
+    return out.view(torch.int32).reshape(*lead, K // 8, N)
 
 
 def planarize_w4(qweight: torch.Tensor, K: int) -> torch.Tensor:

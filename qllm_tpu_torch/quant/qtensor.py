@@ -91,23 +91,25 @@ def pack_rows(q: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def unpack_rows(packed: torch.Tensor, bits: int, rows: int) -> torch.Tensor:
-    """Inverse of pack_rows -> int32 [rows, N]."""
+    """Inverse of pack_rows -> int32 [rows, N]. The shifts stay in int32:
+    an arithmetic shift keeps a field's own bits, and the mask drops the
+    sign copies."""
     if bits not in SUPPORTED_BITS:
         raise ValueError(f"bits must be in {SUPPORTED_BITS}, got {bits}")
-    p = _as_u32(packed)
+    p = _to_i32(_as_u32(packed)) if packed.dtype != torch.int32 else packed
     n_words, N = p.shape
     if _is_pow2_field(bits):
         pf = 32 // bits
-        shifts = _arange(pf, p, bits)[None, :, None]
+        shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=p.device)[None, :, None]
         vals = (p[:, None, :] >> shifts) & ((1 << bits) - 1)
-        return vals.reshape(n_words * pf, N)[:rows].to(torch.int32)
+        return vals.reshape(n_words * pf, N)[:rows]
     wpp = rows // 32
-    shifts = _arange(32, p)[None, :, None]
-    out = torch.zeros((rows, N), dtype=torch.int64, device=p.device)
+    shifts = torch.arange(32, dtype=torch.int32, device=p.device)[None, :, None]
+    out = torch.zeros((rows, N), dtype=torch.int32, device=p.device)
     for b in range(bits):
         plane = p[b * wpp : (b + 1) * wpp]
         out |= ((plane[:, None, :] >> shifts) & 1).reshape(rows, N) << b
-    return out.to(torch.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -251,17 +253,21 @@ def planarize_packed(qweight: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def unplanarize_packed(qweight: torch.Tensor, K: int) -> torch.Tensor:
-    """Inverse of planarize_packed."""
+    """Inverse of planarize_packed, byte by byte (little-endian, as the
+    words lie in memory): GPTQ word i < K/16 takes the low nibbles of
+    planar rows 2i and 2i + 1 (bytes 0-3 each), word K/16 + i their high
+    nibbles."""
     lead = qweight.shape[:-2]
     N = qweight.shape[-1]
-    q = _as_u32(qweight.reshape(-1, K // 8, N))
-    byte_shift = _arange(4, q, 8)[None, None, :, None]
-    lo = (q[:, :, None, :] >> byte_shift) & 0xF
-    hi = (q[:, :, None, :] >> (byte_shift + 4)) & 0xF
-    vals = torch.cat([lo.reshape(-1, K // 2, N), hi.reshape(-1, K // 2, N)], dim=1)
-    shifts = _arange(8, q, 4)[None, None, :, None]
-    words = (vals.reshape(-1, K // 8, 8, N) << shifts).sum(dim=2)
-    return _to_i32(words).reshape(*lead, K // 8, N)
+    if qweight.dtype != torch.int32:
+        qweight = _to_i32(_as_u32(qweight))
+    b = qweight.contiguous().view(torch.uint8).reshape(-1, K // 16, 2, N, 4)
+    halves = []
+    for h in (b & 0xF, b >> 4):
+        pairs = h[..., 0::2] | (h[..., 1::2] << 4)  # [E, K/16, 2, N, 2]: nibbles (2c, 2c + 1) of a row
+        halves.append(pairs.permute(0, 1, 3, 2, 4).reshape(-1, K // 16, N, 4))
+    words = torch.cat(halves, dim=1).contiguous().view(torch.int32)
+    return words.reshape(*lead, K // 8, N)
 
 
 def _index(idx, device) -> torch.Tensor:

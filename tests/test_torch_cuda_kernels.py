@@ -149,6 +149,96 @@ def test_grouped_gemv_kernel_matches_plain(gen, K, Np, ids, shared):
     assert torch.equal(y[i], y[j])
 
 
+@pytest.mark.parametrize(
+    "ids",
+    [[2] * 11 + [0] * 3 + [5] * 17 + [1], [3, 3, 9, 3, 3, 3, 3, 3, 3, 3, 3, 3, 1, 3], [4] * 20],
+    ids=["sorted-runs", "unsorted", "one-run"],
+)
+@pytest.mark.parametrize("K,Np", [(768, 2048), (2048, 512)])
+def test_k8_runs_longer_than_8_rows(gen, ids, K, Np):
+    """Runs of equal ids past the 8 rows a block takes, sorted or not: the
+    plain version's outputs, and equal (row, id) pairs bit-equal inside a
+    block and across the heads of one run (rows 8 apart)."""
+    qw, sc, zs = _stack(gen, K, Np, L=10)
+    n = len(ids)
+    x = torch.randn((n, K), device="cuda", generator=gen).to(torch.bfloat16)
+    pairs = [(j - 1, j) for j in range(1, n) if ids[j] == ids[j - 1]][:2]
+    pairs += [(j - 8, j) for j in range(8, n) if all(ids[i] == ids[j] for i in range(j - 8, j))][:2]
+    for i, j in pairs:
+        x[j] = x[i]
+    t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    before = qmm.w4_grouped_gemv.launches
+    y = qmm.w4_grouped_gemv(x, qw, sc, zs, t).float()
+    assert qmm.w4_grouped_gemv.launches == before + 1
+    ref = qmm.w4_grouped_gemv_plain(x, qw, sc, zs, t).float()
+    assert (y - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+    for i, j in pairs:
+        assert torch.equal(y[i], y[j]), (i, j)
+
+
+@pytest.mark.parametrize("n", [5, 40])  # fewer selections than a head takes, and more
+def test_k8_id_outside_the_stack_gives_nan_rows(gen, n):
+    K, Np, E = 768, 2048, 8
+    qw, sc, zs = _stack(gen, K, Np, L=E)
+    ids = ([1, 8, 8, 2, -1] * 8)[:n]
+    x = torch.randn((n, K), device="cuda", generator=gen).to(torch.bfloat16)
+    t = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    y = qmm.w4_grouped_gemv(x, qw, sc, zs, t).float()
+    bad = torch.tensor([not 0 <= e < E for e in ids], device="cuda")
+    assert bool(torch.isnan(y[bad]).all()) and bool(torch.isfinite(y[~bad]).all())
+    ref = qmm.w4_grouped_gemv_plain(x[~bad], qw, sc, zs, t[~bad]).float()
+    assert (y[~bad] - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+
+
+@pytest.mark.parametrize("K,Np", [(2048, 1536), (768, 2048)])  # Qwen3's gate|up and down: K split
+def test_k8_rows_do_not_depend_on_n(gen, K, Np):
+    """A token's (row, expert) pair gives the same bits at batch 1 (its 8
+    selections sharing its row) and at batch 8 (64 sorted selections, runs
+    among them): the split of K comes from (K, Np) alone."""
+    E = 16
+    qw, sc, zs = _stack(gen, K, Np, L=E)
+    assert qmm.grouped_splits(K, Np)[0] > 1
+    x = torch.randn((8, K), device="cuda", generator=gen).to(torch.bfloat16)
+    top = [torch.randperm(E, generator=gen, device="cuda")[:8] for _ in range(8)]
+    ids_b1 = top[0].to(torch.int32)
+    y_b1 = qmm.w4_grouped_gemv(x[:1], qw, sc, zs, ids_b1, True)
+    flat = torch.cat(top)
+    order = torch.argsort(flat, stable=True)
+    ids_b8 = flat[order].to(torch.int32)
+    tok = torch.div(order, 8, rounding_mode="floor")
+    y_b8 = qmm.w4_grouped_gemv(x.index_select(0, tok), qw, sc, zs, ids_b8)
+    ref = qmm.w4_grouped_gemv_plain(x.index_select(0, tok), qw, sc, zs, ids_b8).float()
+    assert (y_b8.float() - ref).abs().max() < 2e-2 * ref.abs().max() + 1e-3
+    assert int(torch.unique(ids_b8).numel()) < 64  # some expert repeats: runs longer than 1
+    for j in torch.nonzero(tok == 0).flatten().tolist():
+        i = int(torch.nonzero(ids_b1 == ids_b8[j]).item())
+        assert torch.equal(y_b8[j], y_b1[i]), (j, i)
+
+
+def test_k8_rows_do_not_depend_on_the_runs(gen):
+    """K8's C entry with heads of up to 8 rows and with every selection
+    on its own (run rows 1): the same bits, runs past 8 included."""
+    from qllm_tpu_torch.ops import _build
+
+    K, Np, E = 768, 2048, 8
+    qw, sc, zs = _stack(gen, K, Np, L=E)
+    ids = torch.tensor([1] * 11 + [4, 4, 6] + [7] * 9, dtype=torch.int32, device="cuda")
+    n = ids.shape[0]
+    x = torch.randn((n, K), device="cuda", generator=gen).to(torch.bfloat16)
+    splits, per = qmm.grouped_splits(K, Np)
+    outs = []
+    for rows in (qmm.GROUPED_RUN_ROWS, 1):
+        part = torch.empty((splits, n, Np), dtype=torch.float32, device="cuda")
+        out = torch.empty((n, Np), dtype=torch.bfloat16, device="cuda")
+        code = _build.load_library().qllm_w4_grouped_gemv(
+            x.data_ptr(), qw.data_ptr(), sc.data_ptr(), zs.data_ptr(), ids.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, E, 0, K, Np, 128, splits, per, rows, _build.stream(x))
+        _build.check("w4_grouped_gemv", code)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], qmm.w4_grouped_gemv(x, qw, sc, zs, ids))
+
+
 def test_grouped_gemv_kernel_offsets_past_2_31_bytes(gen):
     """Expert 71 of a [72, 256, 32768] stack starts 2.4 GB into the words."""
     K, Np, E = 2048, 32768, 72
@@ -366,23 +456,47 @@ def test_w4a8_planar_gemv_kernel_matches_plain(gen, M, K, Np, g, norm):
 @pytest.mark.parametrize(
     "M,K,N,bits,g,sdtype",
     [(1, 512, 1000, 4, 128, torch.float16), (8, 1024, 640, 2, 64, torch.bfloat16),
-     (32, 4096, 384, 4, 128, torch.float32), (5, 256, 512, 4, 16, torch.float16)],
+     (32, 4096, 384, 4, 128, torch.float32), (5, 256, 512, 4, 16, torch.float16),
+     (8, 1024, 202, 4, 32, torch.float32),  # N % 4 != 0: the body's word-by-word copies
+     (3, 11008, 512, 4, 128, torch.float32)]  # the f32 stacks' down_proj fallback: K = 11008, f32 scales
+    + [(M, 2048, 1000, bits, g, sdtype) for M in (1, 8, 32) for bits in (2, 4) for g in (32, 128)
+       for sdtype in (torch.float32, torch.float16, torch.bfloat16)],
 )
 def test_gptq_w4a8_gemv_kernel_matches_plain(gen, M, K, N, bits, g, sdtype):
     qw, sc, zr = _gptq(gen, K, N, bits, g, sdtype)
     x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm2d.gptq_w4a8_gemv.launches
     _a8_close(qmm2d.gptq_w4a8_gemv(x, qw, sc, zr, bits, g), qmm2d.gptq_w4a8_gemv_plain(x, qw, sc, zr, bits, g))
+    assert qmm2d.gptq_w4a8_gemv.launches == before + 1
 
 
 def test_gptq_w4a8_gemv_rows_do_not_depend_on_m(gen):
-    """Batch invariance, as K9's: a row alone (M = 1) and inside M = 8 give
-    the same bits (the engine's bucket-length requests rely on it)."""
+    """Batch invariance, as K9's: a row alone (M = 1) and inside M = 8 and
+    M = 32 give the same bits (the engine's bucket-length requests rely on
+    it)."""
     for bits in (2, 4):
         qw, sc, zr = _gptq(gen, 4096, 4096, bits, 128)
-        x = torch.randn((8, 4096), device="cuda", generator=gen).to(torch.bfloat16)
-        y8 = qmm2d.gptq_w4a8_gemv(x, qw, sc, zr, bits, 128)
-        for m in (0, 5):
-            assert torch.equal(qmm2d.gptq_w4a8_gemv(x[m : m + 1], qw, sc, zr, bits, 128)[0], y8[m]), (bits, m)
+        x = torch.randn((32, 4096), device="cuda", generator=gen).to(torch.bfloat16)
+        for M in (8, 32):
+            y = qmm2d.gptq_w4a8_gemv(x[:M], qw, sc, zr, bits, 128)
+            for m in (0, 5):
+                assert torch.equal(qmm2d.gptq_w4a8_gemv(x[m : m + 1], qw, sc, zr, bits, 128)[0], y[m]), (bits, M, m)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_k12_act_order_gathers_in_the_quantizer(gen, bits):
+    """qmatmul_2d hands an act-order weight's perm to K12, whose quantizer
+    gathers x as it reads it: the plain version on the gathered x, one K12
+    launch."""
+    from qllm_tpu_torch.utils.testing import random_quantized_tensor
+
+    qt = random_quantized_tensor(gen, 2048, 640, bits, 128, act_order=True)
+    x = torch.randn((8, 2048), device="cuda", generator=gen).to(torch.bfloat16)
+    before = qmm2d.gptq_w4a8_gemv.launches
+    y = qmm2d.qmatmul_2d(x, qt, w4a8=True)
+    assert qmm2d.gptq_w4a8_gemv.launches == before + 1
+    xp = x.index_select(1, qt.perm.long())
+    _a8_close(y, qmm2d.gptq_w4a8_gemv_plain(xp, qt.qweight, qt.scales, qt.zeros, bits, 128))
 
 
 def test_stream_pass_kernel_is_exact(gen):
