@@ -14,6 +14,14 @@
 // visible here.
 static inline int qllm_launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// What the planar kernels take (K1, K2, K8, K11, K17-K20): K a multiple of
+// 128 (whole 64-k tiles of each half) below 2^17, any group size g >= 1
+// that splits at K/2 (the JAX package's planar_full_ok). Groups that close
+// inside a kernel's k-tile run the tile once per group it touches, each
+// time with the other groups' elements zeroed, one bf16 (or int8) value at
+// a time where a group ends inside a k quadruple.
+inline bool planar_geometry_ok(int K, int g) { return K % 128 == 0 && K < (1 << 17) && g >= 1 && (K / 2) % g == 0; }
+
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -107,13 +115,6 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 __device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t w, int s) {
   uint32_t v = ((w >> s) & 0x000F000Fu) | 0x43004300u;
   return bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __floats2bfloat162_rn(128.f, 128.f)));
-}
-
-// the B registers against A registers taken from a planar word's nibbles
-// (0, 2) and (1, 3): x values (k0, k2) and (k1, k3) of the same four k
-__device__ __forceinline__ void x_fragments(uint2 xv, uint32_t& b0, uint32_t& b1) {
-  b0 = __byte_perm(xv.x, xv.y, 0x5410);
-  b1 = __byte_perm(xv.x, xv.y, 0x7632);
 }
 
 // 16 bytes global -> shared without the registers (zero-filled when

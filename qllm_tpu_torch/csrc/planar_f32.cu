@@ -23,15 +23,14 @@
 // A k-tile t is 4 word rows: the low nibbles are k = 16t..16t+15 of the
 // low half of K, the high nibbles the same k of the high half.
 //
-// K17 is the planar GEMV block of csrc/planar_gemv.cuh (K1's) with f32
-// scales: no norm, no zero-point term, f32 out. The block's warps split
-// the k-tiles, each closes a group (or its part of one) with the f32
-// scales, and the warps' sums meet in shared memory in warp order; the
-// caller picks the warp count from K and Np alone, so repeated runs give
-// identical bits and a row's bits never depend on M. Bound on the H100:
-// bytes (the layer's words and f32 scales read once).
+// K17 runs on the tensor-core body of csrc/stacked_mma.cuh with its
+// planar consumer (K1's and K8's), unfused: f32 scales, no zero-point
+// term, f32 out. K is split over gridDim.z by a count the wrapper takes
+// from K and Np alone, so a row's bits never depend on M, and a second
+// kernel adds the splits in split order. Bound on the H100: bytes (the
+// layer's words and f32 scales read once).
 
-#include "planar_gemv.cuh"
+#include "stacked_mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -304,28 +303,21 @@ int launch_f32s_wgmma(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, const 
 
 }  // namespace
 
-// nt: 16-column MMA tiles per block (2 or 4); warps: the block's split of K
-QLLM_API int qllm_w4_planar_f32s_gemv(const void* x, const void* qweight, const void* scales, void* out,
-                                      int layer, int M, int K, int Np, int g, int nt, int warps, void* stream) {
-  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || (nt != 2 && nt != 4) || Np % (16 * nt) != 0 || warps < 1 ||
-      warps > kGemvMaxWarps)
+// splits: blocks along K, each units_per_split word rows; part: splits * M
+// * Np floats when K is split
+QLLM_API int qllm_w4_planar_f32s_gemv(const void* x, const void* qweight, const void* scales, void* part, void* out,
+                                      int layer, int M, int K, int Np, int g, int splits, int units_per_split,
+                                      void* stream) {
+  using stacked_mma::aligned16;
+  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || Np < 32 || Np % 32 != 0 ||
+      !stacked_mma::split_plan_ok(K / 8, splits, units_per_split) || (splits > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t lw = static_cast<size_t>(K / 8) * Np;
-  const size_t ls = static_cast<size_t>(K / g) * Np;
-  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * lw;
-  const auto* sc = static_cast<const float*>(scales) + layer * ls;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* o = static_cast<float*>(out);
-  const dim3 grid(Np / (16 * nt), (M + 7) / 8);
-  const auto st = static_cast<cudaStream_t>(stream);
-  // P k-tiles in flight per warp: 32 words per thread either way
-  if (nt == 2)
-    w4_gemv_kernel<2, 8, false, float>
-        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o);
-  else
-    w4_gemv_kernel<4, 4, false, float>
-        <<<grid, warps * 32, 0, st>>>(xb, qw, sc, nullptr, nullptr, 0, 0.f, M, K, Np, g, o);
-  return qllm_launch_status();
+  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * (static_cast<size_t>(K / 8) * Np);
+  const auto* sc = static_cast<const float*>(scales) + layer * (static_cast<size_t>(K / g) * Np);
+  if (!aligned16(x) || !aligned16(qw) || !aligned16(sc)) return static_cast<int>(cudaErrorInvalidValue);
+  return stacked_mma::run_planar<false>(static_cast<const __nv_bfloat16*>(x), qw, sc, nullptr, nullptr, 0, 0.f,
+                                        static_cast<float*>(part), out, M, K, Np, g, splits, units_per_split,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 QLLM_API int qllm_w4_planar_f32s_gemm(const void* x, const void* qweight, const void* scales, void* out,

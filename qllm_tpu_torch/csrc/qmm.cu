@@ -9,7 +9,7 @@
 // so word row r serves one low-half and one high-half k quadruple and a
 // group of g k-values spans g/4 word rows in each half.
 
-#include "planar_gemv.cuh"
+#include "stacked_mma.cuh"
 #include "wgmma.cuh"
 
 // ---------------------------------------------------------------------------
@@ -18,56 +18,47 @@
 // Replaces the per-group branch of _qmm_kernel_planar_full
 // (qllm_tpu/ops/pallas_qmm.py:832, :917-954) with its fused RMSNorm
 // (:883-893), driven by _qmm_2d_stacked / qmatmul_pallas_stacked:
-//   y[m,n] = sum_g (x_g . q_g[:,n]) * s_g[n] - (sum x_g) * zs_g[n]
-// with an f32-accumulated dot over the integer nibbles: the block of
-// csrc/planar_gemv.cuh with bf16 scales and zs.
+//   y[m,n] = bf16(r_m * sum_g ((x~_g . q_g[:,n]) * s_g[n] - (sum x~_g) * zs_g[n]))
+// with x~ = x and r_m = 1 without the norm, x~ = x * w in f32 and r_m =
+// rsqrt(sum_k x[m,k]^2 / K + eps) with it: an f32-accumulated dot per
+// group, scaled at the group's end.
+//
+// Bound on the H100: bytes (the layer's words, scales and zs read once).
+// Design: the tensor-core body of csrc/stacked_mma.cuh on planar words
+// (planar_mma_kernel, the planar consumer K17 and K8 share): a producer
+// warp streams word rows into a shared-memory ring by cp.async.bulk, four
+// consumer warps run mma.sync m16n8k16 with the words as A and up to 32
+// rows of x as 1, 2 or 4 n-tiles of B; with the norm, x * w as two exact
+// bf16 parts (three for an f32 w), each its own MMAs. K is split over
+// gridDim.z by a
+// count the wrapper takes from K and Np alone (ops.tc_plan.tc_splits), so
+// a row's bits never depend on M; planar_out_kernel adds the splits in
+// split order and applies r_m, whose sum of squares it takes over the
+// whole row.
 // ---------------------------------------------------------------------------
 
-namespace {
-
-template <int NT, int P>
-void launch_gemv(bool norm, dim3 grid, int warps, cudaStream_t st, const __nv_bfloat16* x, const uint32_t* qw,
-                 const __nv_bfloat16* sc, const __nv_bfloat16* zs, const void* nw, int nw_f32, float eps, int M,
-                 int K, int Np, int g, __nv_bfloat16* out) {
-  const int th = warps * 32;
-  if (norm)
-    w4_gemv_kernel<NT, P, true><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out);
-  else
-    w4_gemv_kernel<NT, P, false><<<grid, th, 0, st>>>(x, qw, sc, zs, nw, nw_f32, eps, M, K, Np, g, out);
-}
-
-}  // namespace
-
-// nt: 16-column MMA tiles per block (2 or 4); warps: the block's split of K
-QLLM_API int qllm_w4_planar_gemv(const void* x, const void* qweight, const void* scales,
-                                 const void* zs, const void* norm_w, void* out, int layer, int M,
-                                 int K, int Np, int g, int nt, int warps, int nw_f32, float eps,
-                                 void* stream) {
-  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || (nt != 2 && nt != 4) ||
-      Np % (16 * nt) != 0 || warps < 1 || warps > kGemvMaxWarps)
+// splits: blocks along K, each units_per_split word rows; part: splits * M
+// * Np floats when K is split or the norm is on
+QLLM_API int qllm_w4_planar_gemv(const void* x, const void* qweight, const void* scales, const void* zs,
+                                 const void* norm_w, void* part, void* out, int layer, int M, int K, int Np, int g,
+                                 int splits, int units_per_split, int nw_f32, float eps, void* stream) {
+  using stacked_mma::aligned16;
+  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || Np < 32 || Np % 32 != 0 ||
+      !stacked_mma::split_plan_ok(K / 8, splits, units_per_split) ||
+      ((splits > 1 || norm_w != nullptr) && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = K / g;
-  const size_t lw = static_cast<size_t>(K / 8) * Np;
-  const size_t ls = static_cast<size_t>(G) * Np;
-  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * lw;
+  const size_t ls = static_cast<size_t>(K / g) * Np;
+  const auto* qw = static_cast<const uint32_t*>(qweight) + layer * (static_cast<size_t>(K / 8) * Np);
   const auto* sc = static_cast<const __nv_bfloat16*>(scales) + layer * ls;
   const auto* zz = static_cast<const __nv_bfloat16*>(zs) + layer * ls;
   const void* nw = nullptr;
-  if (norm_w != nullptr) {
-    nw = nw_f32 ? static_cast<const void*>(static_cast<const float*>(norm_w) + static_cast<size_t>(layer) * K)
-                : static_cast<const void*>(static_cast<const __nv_bfloat16*>(norm_w) +
-                                           static_cast<size_t>(layer) * K);
-  }
-  const dim3 grid(Np / (16 * nt), (M + 7) / 8);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  // P k-tiles in flight per warp: 32 words per thread either way
-  if (nt == 2)
-    launch_gemv<2, 8>(nw != nullptr, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
-  else
-    launch_gemv<4, 4>(nw != nullptr, grid, warps, st, xb, qw, sc, zz, nw, nw_f32, eps, M, K, Np, g, ob);
-  return qllm_launch_status();
+  if (norm_w != nullptr)
+    nw = static_cast<const char*>(norm_w) + static_cast<size_t>(layer) * K * (nw_f32 ? 4 : 2);
+  if (!aligned16(x) || !aligned16(qw) || !aligned16(sc) || !aligned16(zz) || (nw != nullptr && !aligned16(nw)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return stacked_mma::run_planar<true>(static_cast<const __nv_bfloat16*>(x), qw, sc, zz, nw, nw_f32, eps,
+                                       static_cast<float*>(part), out, M, K, Np, g, splits, units_per_split,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------

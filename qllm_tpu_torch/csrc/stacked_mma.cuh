@@ -1,12 +1,13 @@
-// The tensor-core body shared by the GPTQ-order and bit-plane decode GEMVs
-// (M <= 32): K14 gptq_stacked_gemv, K15 gptq_stacked_w4a8_gemv, K12
-// gptq_w4a8_gemv and K9 gptq_gemv (csrc/gptq_stacked.cu), K16
-// bitplane_stacked_gemv (csrc/bitplane.cu); its producer warp and ring
-// also feed K8 w4_grouped_gemv on planar words (csrc/grouped_mma.cu, the
-// Planar policy). Each reads one layer of 2/4/8-bit GPTQ-order or
-// 3/5/6/7-bit bit-plane words (a per-layer weight is layer 0), with x in
-// bf16 or f32 (K15: int8). With q the unsigned field, the bf16 kernel
-// (stacked_mma_kernel) computes
+// The tensor-core body shared by the decode GEMVs (M <= 32): on GPTQ-order
+// and bit-plane words K14 gptq_stacked_gemv, K15 gptq_stacked_w4a8_gemv,
+// K12 gptq_w4a8_gemv and K9 gptq_gemv (csrc/gptq_stacked.cu), K16
+// bitplane_stacked_gemv (csrc/bitplane.cu); on planar words (the Planar
+// policy and planar_consume, at the end) K1 w4_planar_gemv (csrc/qmm.cu),
+// K17 w4_planar_f32s_gemv (csrc/planar_f32.cu) and K8 w4_grouped_gemv
+// (csrc/grouped_mma.cu). Each GPTQ-order or bit-plane GEMV reads one
+// layer of 2/4/8-bit GPTQ-order or 3/5/6/7-bit bit-plane words (a
+// per-layer weight is layer 0), with x in bf16 or f32 (K15: int8). With q
+// the unsigned field, the bf16 kernel (stacked_mma_kernel) computes
 //   unfused: y[m, n] = sum_g s_g[n] * (x_g . q_g[:, n]), f32 out (the
 //            caller takes off xsum_g @ zs_g outside, as JAX does);
 //   fused:   y[m, n] = sum_g (s_g[n] * (x_g . q_g[:, n]) - sum(x_g) * zs_g[n]),
@@ -19,12 +20,12 @@
 // Bound on the H100: bytes (the layer's words, scales and zs, read once).
 // The dots run on the tensor cores: mma.sync m16n8k16 bf16 with f32
 // accumulators (m16n8k32 s8 with s32 accumulators for K15), 16 output columns as
-// the A operand and 8 rows of x as the B operand (the swapped product of
-// K1, planar_gemv.cuh). A field q is OR-ed into the mantissa of 128.0: the
-// bf16 value 128 + q, exact (q < 128), with no conversion and no
-// subtraction. An 8-bit field is two such values, 16 * (128 + hi) (its
-// high nibble OR-ed into 2048.0) and 128 + lo, run as two MMAs into one
-// accumulator. A bf16 x is exact too, so every product is exact; the MMA
+// the A operand and 8 rows of x as the B operand (the swapped product). A
+// field q is OR-ed into the mantissa of 128.0: the bf16 value 128 + q,
+// exact (q < 128), with no conversion and no subtraction. An 8-bit field
+// is two such values, 16 * (128 + hi) (its high nibble OR-ed into 2048.0)
+// and 128 + lo, run as two MMAs into one accumulator. A bf16 x is exact
+// too, so every product is exact; the MMA
 // sums (bias + q) x in f32, and a second MMA with A all ones sums x over
 // the same k (the group sum: masked and ordered like the dot). At the
 // group's end, dot = sum (bias + q) x - bias * sum x, then y += dot * s (-
@@ -63,6 +64,8 @@
 // block's x tile and its scales (and zs) are staged by the consumers once
 // per chunk of its split (one chunk unless they would pass kXBudget).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -190,9 +193,9 @@ struct BitPlane {
   }
 };
 
-// Planar words (K8, csrc/grouped_mma.cu): word row r holds k = 4r + j in
-// the low nibble of byte j and k = K/2 + 4r + j in its high nibble
-// (csrc/planar_gemv.cuh). Read as GPTQ-order 4-bit fields, field f is k =
+// Planar words (K1, K17, K8; qllm_tpu/quant/qtensor.py:157-161): word row
+// r holds k = 4r + j in the low nibble of byte j and k = K/2 + 4r + j in
+// its high nibble. Read as GPTQ-order 4-bit fields, field f is k =
 // 4r + f/2 of the low half (f even) or of the high half (f odd), so
 // GptqOrder<4>::pair(s) is the bf16 pair of k (4r + s/2, 4r + s/2 + 2) of
 // the low half for s even and of the high half for s odd. A unit is one
@@ -943,6 +946,363 @@ int run_s8(const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, voi
     const int MN = M * Np;
     split_sum_out_kernel<<<(MN + 255) / 256, 256, 0, st>>>(p, splits, MN, 0, out);
   }
+  return qllm_launch_status();
+}
+
+// ---------------------------------------------------------------------------
+// The planar consumer: K1 w4_planar_gemv and K17 w4_planar_f32s_gemv
+// (planar_mma_kernel below, one block per 128 columns and split of K along
+// gridDim.z, the rows of x as NT n-tiles) and K8 w4_grouped_gemv (its own
+// kernel, csrc/grouped_mma.cu, a run of selections as the rows).
+//
+// Planar words as the A operand (the Planar policy): GptqOrder<4>::pair(s)
+// of a word row r is the bf16 pair 128 + q of k (4r + j, 4r + j + 2), j =
+// s / 2, of the low half of K for s even and of the high half for s odd.
+// So a step runs one m16n8k16 MMA per half (pairs s = h and h + 2) into an
+// accumulator set per half, with a ones-MMA per half for sum x: the low
+// half's k lie in group gl and the high half's in G/2 + gl, which close at
+// the same word row since (K/2) % g == 0. A lane stages x of its unit as
+// [x[4r .. 4r+3] | x[K/2 + 4r .. +3]]. At a group's end, for each half,
+// dot = acc - 128 sum x, y += dot * s (- sum x * zs when fused). A step
+// whose k hold a group's end runs once per group it touches, the other
+// groups' x zeroed one value at a time (any g with (K/2) % g == 0).
+// With the norm (K1), x~ = x * w in f32 (w the norm weight, staged as f32
+// once a chunk) enters as exact bf16 parts (split3; two of them hold it
+// when w is bf16), each run on the same A; the row factor rsqrt(mean(x^2)
+// + eps) is planar_out_kernel's.
+// ---------------------------------------------------------------------------
+
+// bytes of a staged x row of `units` units (16 bytes each); the pad puts
+// rows 2i and 2i + 1 in the two halves of the banks
+__host__ __device__ inline int planar_x_row_bytes(int units) { return (units * 16 + 127) / 128 * 128 + 64; }
+// bytes of a chunk of `units` units: M x rows, the norm weight (32 bytes a
+// unit) and the parameter tables, nf (scales, and zs when fused) of ps
+// bytes for each half
+__host__ __device__ inline int planar_chunk_bytes(int M, int units, int g, int nf, int ps, bool norm) {
+  return M * planar_x_row_bytes(units) + (norm ? 32 * units : 0) + 2 * nf * groups_of_chunk(4 * units, g) * kCols * ps;
+}
+// the units a block stages at once: its split's in whole steps (4 units),
+// unless its x rows, norm weight and parameters would pass kXBudget
+inline int planar_chunk_units(int M, int units_per_split, int g, int nf, int ps, bool norm) {
+  int kc = (units_per_split + 3) / 4 * 4;
+  while (kc > 4 && planar_chunk_bytes(M, kc, g, nf, ps, norm) > kXBudget) kc -= 4;
+  return kc;
+}
+// splits of `per` units that cover `units`, none empty (a grid's z)
+inline bool split_plan_ok(int units, int splits, int per) {
+  return splits >= 1 && splits <= 65535 && per >= 1 && static_cast<long long>(splits) * per >= units &&
+         static_cast<long long>(splits - 1) * per < units;
+}
+
+// The parts a planar consumer takes x in: 1, x in bf16 (no norm); with the
+// norm, x~ = x * w in f32 as bf16 parts hi + mid (+ lo): a bf16 x times a
+// bf16 w has at most 16 significant bits, which hi and mid hold exactly
+// (lo would be 0), a product with an f32 w needs all three
+enum : int { kXBf16 = 1, kNormBf16 = 2, kNormF32 = 3 };
+
+// The consumer warps' whole part of a planar block: units [u0, u1) of the
+// layer (word rows), columns n0 .. n0 + kCols, M <= 8 NT rows of x (row m
+// at x + m * x_stride; stride 0: one row for all), chunks of kc units
+// staged at xt. FUSE: bf16 scales and zs [G, Np] (the zero-point term in
+// the kernel), bf16 out; else f32 scales, f32 out. XP: kXBf16, or the norm
+// x~ = x * nw with nw [K] bf16 (kNormBf16) or f32 (kNormF32). Writes the
+// rows to prt (the split's f32 partial sums, [M, Np]) if given, else to o
+// ([M, Np]).
+template <int NT, int XP, bool FUSE>
+__device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, const unsigned char* ring,
+                                               unsigned char* xt, const __nv_bfloat16* __restrict__ x,
+                                               size_t x_stride, const void* __restrict__ nw,
+                                               const void* __restrict__ sc, const void* __restrict__ zs, int M,
+                                               int K, int Np, int g, int n0, int u0, int u1, int kc,
+                                               float* __restrict__ prt, void* __restrict__ o) {
+  constexpr bool NORM = XP != kXBf16;
+  constexpr int NF = FUSE ? 2 : 1;  // parameter tables of each half: the scales (and zs)
+  constexpr int PS = FUSE ? 2 : 4;  // bytes of a parameter
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, c = lane & 3;
+  const int lcol = warp * 32 + 4 * gq;  // the lane's first column in the block
+  const int Kh = K / 2, Gh = K / g / 2;
+  const int rb = planar_x_row_bytes(kc);
+  const int ngc = groups_of_chunk(4 * kc, g);
+  float* wt = reinterpret_cast<float*>(xt + M * rb);       // NORM: [kc units][low 4 | high 4] f32
+  unsigned char* pt = xt + M * rb + (NORM ? 32 * kc : 0);  // [half][NF][ngc][kCols]
+
+  // x of units [c0, c1) into the tile (zero past c1 up to a whole step),
+  // the norm weight's, and the parameters of every group the chunk touches
+  // in both halves
+  auto stage_chunk = [&](int c0, int c1) {
+    const int gf = 4 * c0 / g, ng = (4 * c1 - 1) / g - gf + 1;
+    stage_params(pt, sc, zs, NF, ngc, gf, ng, n0, Np, PS, 1);
+    stage_params(param_row(pt, NF, ngc, 0, 0, PS), sc, zs, NF, ngc, Gh + gf, ng, n0, Np, PS, 1);
+    const int U = (c1 - c0 + 3) / 4 * 4;
+    for (int i = threadIdx.x; i < M * 2 * U; i += kThreads) {
+      const int m = i / (2 * U), r = i - m * 2 * U;
+      const int ul = r >> 1, half = r & 1, u = c0 + ul;
+      const bool on = u < c1;
+      cp_async8(xt + m * rb + ul * 16 + 8 * half, on ? x + m * x_stride + half * Kh + 4 * u : x, on);
+    }
+    if constexpr (NORM) {
+      for (int i = threadIdx.x; i < 2 * U; i += kThreads) {
+        const int ul = i >> 1, half = i & 1, u = c0 + ul, k = half * Kh + 4 * u;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (u < c1 && XP == kNormF32) {
+          v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(nw) + k));
+        } else if (u < c1) {
+          const uint2 b = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(nw) + k));
+          v = make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xFFFF0000u), __uint_as_float(b.y << 16),
+                          __uint_as_float(b.y & 0xFFFF0000u));
+        }
+        *reinterpret_cast<float4*>(wt + 8 * ul + 4 * half) = v;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    consumers_sync();
+  };
+
+  // acc[mt][half]: sum (128 + q) x of the open group; xs[mt][half]: sum x
+  // (the ones MMA); y: the closed groups. y[mt][pr][e] is column lcol + 2pr
+  // + (e >> 1), row 8 mt + 2c + (e & 1)
+  float acc[NT][2][2][4], xs[NT][2][4], y[NT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      y[mt][0][e] = y[mt][1][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) acc[mt][h][0][e] = acc[mt][h][1][e] = xs[mt][h][e] = 0.f;
+    }
+  }
+
+  // one step's products of this lane's unit ul (at k kunit of each half);
+  // masked: only the k in [lo, hi) of each half
+  auto compute = [&](const uint32_t (&w)[1][4], int ul, int kunit, int lo, int hi, bool masked) {
+    bool in[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) in[j] = !masked || (kunit + j >= lo && kunit + j < hi);
+    // B lanes (k0, k2) and (k1, k3)
+    const uint32_t m0 = (in[0] ? 0x0000FFFFu : 0u) | (in[2] ? 0xFFFF0000u : 0u);
+    const uint32_t m1 = (in[1] ? 0x0000FFFFu : 0u) | (in[3] ? 0xFFFF0000u : 0u);
+    // A rows gq / gq + 8: columns 2pr / 2pr + 1; k slots 2c.. pair h, 2c + 8.. pair h + 2
+    const uint32_t none[2] = {0u, 0u};
+    uint32_t a[2][2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        a[h][pr][0] = GptqOrder<4>::pair(w, none, 2 * pr, h, 0);
+        a[h][pr][1] = GptqOrder<4>::pair(w, none, 2 * pr + 1, h, 0);
+        a[h][pr][2] = GptqOrder<4>::pair(w, none, 2 * pr, h + 2, 0);
+        a[h][pr][3] = GptqOrder<4>::pair(w, none, 2 * pr + 1, h + 2, 0);
+      }
+    }
+    float4 wn[2];
+    if constexpr (NORM) {
+      wn[0] = *reinterpret_cast<const float4*>(wt + 8 * ul);
+      wn[1] = *reinterpret_cast<const float4*>(wt + 8 * ul + 4);
+    }
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      const int m = mt * 8 + gq;
+      const uint4 v = m < M ? *reinterpret_cast<const uint4*>(xt + m * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t a01 = h ? v.z : v.x, a23 = h ? v.w : v.y;  // x (k0, k1), (k2, k3) of half h
+        uint32_t b0[3], b1[3];  // B registers of each part
+        if constexpr (!NORM) {
+          b0[0] = __byte_perm(a01, a23, 0x5410) & m0;
+          b1[0] = __byte_perm(a01, a23, 0x7632) & m1;
+        } else {
+          // x~ of k0..k3 in f32, the other groups' zeroed, as parts (k0, k2) and (k1, k3)
+          const float4 wv = wn[h];
+          split3(in[0] ? __uint_as_float(a01 << 16) * wv.x : 0.f, in[2] ? __uint_as_float(a23 << 16) * wv.z : 0.f, b0);
+          split3(in[1] ? __uint_as_float(a01 & 0xFFFF0000u) * wv.y : 0.f,
+                 in[3] ? __uint_as_float(a23 & 0xFFFF0000u) * wv.w : 0.f, b1);
+        }
+#pragma unroll
+        for (int q = 0; q < XP; ++q) {
+#pragma unroll
+          for (int pr = 0; pr < 2; ++pr)
+            mma_bf16_16816(acc[mt][h][pr], a[h][pr][0], a[h][pr][1], a[h][pr][2], a[h][pr][3], b0[q], b1[q]);
+          mma_bf16_16816(xs[mt][h], kOnes, kOnes, kOnes, kOnes, b0[q], b1[q]);
+        }
+      }
+    }
+  };
+
+  // close the open group of each half (the low half's row `row` of the
+  // chunk's tables, the high half's, Gh groups on, row `row` of its own)
+  auto close = [&](int row) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned char* srow = param_row(pt, NF * h, ngc, row, lcol, PS);
+      const unsigned char* zrow = param_row(pt, NF * h + NF - 1, ngc, row, lcol, PS);
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = 2 * pr + half;
+          const float s = param_at(srow, FUSE ? 2 : 0, col);
+          const float z = FUSE ? param_at(zrow, 2, col) : 0.f;
+#pragma unroll
+          for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * half + r;
+              const float dot = fmaf(-128.f, xs[mt][h][r], acc[mt][h][pr][e]);
+              const float t = fmaf(dot, s, y[mt][pr][e]);
+              y[mt][pr][e] = FUSE ? fmaf(-xs[mt][h][r], z, t) : t;
+              acc[mt][h][pr][e] = 0.f;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[mt][h][e] = 0.f;
+    }
+  };
+
+  // the body's walk on the k of each half (4 a unit), chunks of kc units
+  walk_split<Planar>(full, empty, ring, c, lcol, lane, 4 * u0, 4 * u1, 4 * kc, 16, 4, g,
+                     [&](int ch0, int ch1) { stage_chunk(ch0 / 4, ch1 / 4); }, compute, close);
+
+  const int ncol = n0 + lcol;
+  if (ncol >= Np) return;  // Np % 4 == 0: a lane's four columns are in range or not
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = mt * 8 + 2 * c + r;
+      if (m >= M) continue;
+      const float v[4] = {y[mt][0][r], y[mt][0][2 + r], y[mt][1][r], y[mt][1][2 + r]};
+      const size_t at = static_cast<size_t>(m) * Np + ncol;
+      if (prt != nullptr || !FUSE)
+        *reinterpret_cast<float4*>((prt != nullptr ? prt : static_cast<float*>(o)) + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      else
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(o) + at) =
+            make_uint2(bf16x2_bits(__floats2bfloat162_rn(v[0], v[1])), bf16x2_bits(__floats2bfloat162_rn(v[2], v[3])));
+    }
+  }
+}
+
+// K1 (FUSE: bf16 scales and zs, bf16 out; XP: the fused RMSNorm, f32
+// partial sums always) and K17 (f32 scales, f32 out): one block per (128
+// columns, split of K of units_per_split word rows along gridDim.z). Blocks
+// an SM the registers leave room for: at 4 n-tiles one, so that the
+// accumulators of both halves do not spill (two fit by what they use)
+template <int NT, int XP, bool FUSE>
+__global__ void __launch_bounds__(kBlock, NT == 1 ? 4 : NT == 2 ? 2 : 1)
+    planar_mma_kernel(const __nv_bfloat16* __restrict__ x,              // [M, K]
+                      const uint32_t* __restrict__ qw,                  // [K/8, Np] the layer's words
+                      const void* __restrict__ sc, const void* __restrict__ zs,  // [G, Np]
+                      const void* __restrict__ nw,                      // [K] the norm weight (XP > 1)
+                      int M, int K, int Np, int g, int units_per_split, int kc,
+                      float* __restrict__ part,   // [splits, M, Np] when split (the norm: always)
+                      void* __restrict__ out) {   // [M, Np] when not
+  constexpr int S = Planar::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  unsigned char* ring = smem + kBarBytes;
+  const int W = K / 8, n0 = blockIdx.x * kCols;
+  const int u0 = blockIdx.z * units_per_split, u1 = min(W, u0 + units_per_split);
+  init_ring<S>(full, empty, 1);
+  if ((threadIdx.x >> 5) == kWarps) {
+    produce<Planar>(qw, full, empty, ring, threadIdx.x & 31, n0, Np, u0, u1, W, 1);
+    return;
+  }
+  planar_consume<NT, XP, FUSE>(full, empty, ring, ring + S * 4 * ring_row_bytes<Planar>(), x, K, nw, sc, zs, M, K, Np,
+                               g, n0, u0, u1, kc,
+                               part != nullptr ? part + static_cast<size_t>(blockIdx.z) * M * Np : nullptr, out);
+}
+
+// The planar GEMVs' second kernel: y[m, n] = r_m * sum_s part[s, m, n] in
+// split order, as OutT (K1 bf16, K17 f32), with r_m = rsqrt(sum_k x[m,
+// k]^2 / K + eps) when x is given (K1's norm), else 1. Block (i, m) takes
+// columns [256 i, 256 (i + 1)) of row m and sums the row's squares itself,
+// the same way at any M
+template <class OutT>
+__global__ void __launch_bounds__(256)
+    planar_out_kernel(const float* __restrict__ part, int splits, int M, int Np, const __nv_bfloat16* __restrict__ x,
+                      int K, float eps, OutT* __restrict__ out) {
+  const int m = blockIdx.y, n = blockIdx.x * 256 + threadIdx.x;
+  const size_t MN = static_cast<size_t>(M) * Np, i = static_cast<size_t>(m) * Np + n;
+  float acc = 0.f;
+  if (n < Np) {
+#pragma unroll 4
+    for (int s = 0; s < splits; ++s) acc += part[s * MN + i];
+  }
+  if (x != nullptr) {  // uniform across the block
+    __shared__ float red[8];
+    const __nv_bfloat16* xr = x + static_cast<size_t>(m) * K;
+    float sq = 0.f;
+    for (int k = 8 * threadIdx.x; k < K; k += 8 * 256) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float lo = __uint_as_float(w[j] << 16), hi = __uint_as_float(w[j] & 0xFFFF0000u);
+        sq = fmaf(hi, hi, fmaf(lo, lo, sq));
+      }
+    }
+    sq = warp_sum(sq);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sq;
+    __syncthreads();
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q += red[j];
+    acc *= rsqrtf(q * (1.0f / static_cast<float>(K)) + eps);
+  }
+  if (n >= Np) return;
+  if constexpr (std::is_same<OutT, float>::value)
+    out[i] = acc;
+  else
+    out[i] = __float2bfloat16_rn(acc);
+}
+
+template <int NT, int XP, bool FUSE>
+int launch_planar(int splits, cudaStream_t st, const __nv_bfloat16* x, const uint32_t* qw, const void* sc,
+                  const void* zs, const void* nw, int M, int K, int Np, int g, int ups, float* part, void* out) {
+  static int allowed[kMaxDevices];
+  constexpr int nf = FUSE ? 2 : 1, ps = FUSE ? 2 : 4;
+  const int kc = planar_chunk_units(M, ups, g, nf, ps, XP != kXBf16);
+  const int smem = ring_bytes<Planar>() + planar_chunk_bytes(M, kc, g, nf, ps, XP != kXBf16);
+  auto kern = planar_mma_kernel<NT, XP, FUSE>;
+  if (const int e = allow_dynamic_smem(kern, smem, allowed)) return e;
+  kern<<<dim3((Np + kCols - 1) / kCols, 1, splits), kBlock, smem, st>>>(x, qw, sc, zs, nw, M, K, Np, g, ups, kc, part,
+                                                                         out);
+  return 0;
+}
+
+// The whole K1 / K17 launch: the body for M (1, 2 or 4 n-tiles), then, if
+// K is split or the norm is on, planar_out_kernel; a cudaError_t. part:
+// [splits, M, Np] f32 (unused when neither)
+template <bool FUSE>
+int run_planar(const __nv_bfloat16* x, const uint32_t* qw, const void* sc, const void* zs, const void* nw, int nw_f32,
+               float eps, float* part, void* out, int M, int K, int Np, int g, int splits, int ups, cudaStream_t st) {
+  const int xp = !FUSE || nw == nullptr ? kXBf16 : nw_f32 ? kNormF32 : kNormBf16;
+  float* p = splits > 1 || xp != kXBf16 ? part : nullptr;
+  auto launch_m = [&](auto xp_tag) {
+    constexpr int XP = decltype(xp_tag)::value;
+    return M <= 8    ? launch_planar<1, XP, FUSE>(splits, st, x, qw, sc, zs, nw, M, K, Np, g, ups, p, out)
+           : M <= 16 ? launch_planar<2, XP, FUSE>(splits, st, x, qw, sc, zs, nw, M, K, Np, g, ups, p, out)
+                     : launch_planar<4, XP, FUSE>(splits, st, x, qw, sc, zs, nw, M, K, Np, g, ups, p, out);
+  };
+  int e;
+  if constexpr (FUSE)
+    e = xp == kNormF32   ? launch_m(std::integral_constant<int, kNormF32>{})
+        : xp == kNormBf16 ? launch_m(std::integral_constant<int, kNormBf16>{})
+                          : launch_m(std::integral_constant<int, kXBf16>{});
+  else
+    e = launch_m(std::integral_constant<int, kXBf16>{});
+  if (e != 0) return e;
+  using OutT = typename std::conditional<FUSE, __nv_bfloat16, float>::type;
+  if (p != nullptr)
+    planar_out_kernel<OutT><<<dim3((Np + 255) / 256, M), 256, 0, st>>>(p, splits, M, Np, xp != kXBf16 ? x : nullptr, K,
+                                                                       eps, static_cast<OutT*>(out));
   return qllm_launch_status();
 }
 

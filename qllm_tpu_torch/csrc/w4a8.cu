@@ -423,8 +423,7 @@ QLLM_API int qllm_quantize_rows_int8(const void* x, int x_f32, void* x8, void* s
 QLLM_API int qllm_w4a8_planar_gemv(const void* x, int x_f32, void* x8, void* sx, const void* qweight,
                                    const void* scales, const void* zs, const void* norm_w, int nw_f32, float eps,
                                    void* out, int layer, int M, int K, int Np, int g, int warps, void* stream) {
-  // the planar geometry (csrc/planar_gemv.cuh planar_geometry_ok): any g
-  if (M < 1 || M > 32 || K % 128 != 0 || K >= (1 << 17) || g < 1 || (K / 2) % g != 0 || Np % kA8Cols != 0 ||
+  if (M < 1 || M > 32 || !planar_geometry_ok(K, g) || Np % kA8Cols != 0 ||
       warps < 1 || warps > kA8MaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -44,7 +44,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p
 _SIGNATURES = {
-    "qllm_w4_planar_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "qllm_w4_planar_gemv": [_P] * 7 + [_I] * 8 + [_F, _P],
     "qllm_w4_planar_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "qllm_w4_grouped_gemv": [_P] * 7 + [_I] * 9 + [_P],
     "qllm_kv_write_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -64,7 +64,7 @@ _SIGNATURES = {
     "qllm_gptq_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "qllm_gptq_stacked_w4a8_gemv": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P],
     "qllm_bitplane_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
-    "qllm_w4_planar_f32s_gemv": [_P] * 4 + [_I] * 7 + [_P],
+    "qllm_w4_planar_f32s_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "qllm_w4_planar_f32s_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "qllm_w4_grouped_fused_mlp": [_P] * 11 + [_I] * 9 + [_P],
     "qllm_w4_pnp_gemv": [_P] * 3 + [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],

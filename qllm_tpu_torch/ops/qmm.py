@@ -95,6 +95,7 @@ __all__ = [
     "w4_planar_gemm",
     "w4_planar_gemm_plain",
     "planar_full_ok",
+    "planar_splits",
     "planar_bk",
     "planar_bk_relaxed",
 ]
@@ -292,16 +293,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gemv_launch(dev: torch.device, M: int, Np: int, K: int):
-    """K1's launch shape: 16-column MMA tiles per block (4 where that
-    still gives a block per SM, else 2) and warps per block (each takes a
-    share of K's 32-value tiles), about 16 warps per SM in all (blocks
-    along the rows: one per 8)."""
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
-    nt = 4 if Np % 64 == 0 and Np // 64 >= sms else 2
-    blocks = (Np // (16 * nt)) * -(-M // 8)
-    warps = max(1, min(16, K // 32, -(-16 * sms // blocks)))
-    return nt, warps
+def planar_splits(K: int, Np: int):
+    """K1's and K17's (splits of K, word rows a split): ``tc_splits`` of the
+    K/8 word rows over Np columns on the planar target, from (K, Np)
+    alone, so a row's bits never depend on M."""
+    return tc_splits(K // 8, Np, TC_TARGET_BLOCKS["planar"])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -336,14 +332,19 @@ def w4_planar_gemv(
     norm_w: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
 ) -> torch.Tensor:
-    """K1: x [M <= 32, K] bf16 -> y [M, Np] bf16 (see the plain version)."""
+    """K1: x [M <= 32, K] bf16 -> y [M, Np] bf16 (see the plain version).
+    Replaces the per-group branch of _qmm_kernel_planar_full
+    (pallas_qmm.py:832) with its fused RMSNorm. Bound: bytes (words +
+    scales + zs + x + y) over 3.35 TB/s. K splits by ``planar_splits``; a
+    second kernel adds the splits in split order (and applies the norm's
+    row factor)."""
     if not _build.use_kernel(x, "w4_planar_gemv"):
         return w4_planar_gemv_plain(x, qweight, scales, zs, layer, norm_w, eps)
     M, K = x.shape
     if x.dtype != torch.bfloat16 or not 1 <= M <= GEMV_MAX_M:
         raise ValueError(f"w4_planar_gemv: x must be bf16 [M <= {GEMV_MAX_M}, K]")
     L, Np, G = _check_stack("w4_planar_gemv", x, qweight, scales, zs, layer, K)
-    # the kernel loads x and the norm weight in 8- and 16-byte vectors
+    # the kernel stages x and the norm weight by 8- and 16-byte copies
     x = _aligned(x.contiguous())
     nw_f32 = 0
     if norm_w is not None:
@@ -353,26 +354,14 @@ def w4_planar_gemv(
         nw_f32 = int(norm_w.dtype == torch.float32)
     if Np % 32:
         raise ValueError("w4_planar_gemv: the padded width must be a multiple of 32")
-    nt, warps = _gemv_launch(x.device, M, Np, K)
+    splits, per = planar_splits(K, Np)
+    # the splits' partial sums (the norm's row factor is applied as they are added)
+    part = (torch.empty((splits, M, Np), dtype=torch.float32, device=x.device)
+            if splits > 1 or norm_w is not None else None)
     out = torch.empty((M, Np), dtype=torch.bfloat16, device=x.device)
-    lib = _build.load_library()
-    code = lib.qllm_w4_planar_gemv(
-        x.data_ptr(),
-        qweight.data_ptr(),
-        scales.data_ptr(),
-        zs.data_ptr(),
-        _build.ptr(norm_w),
-        out.data_ptr(),
-        layer,
-        M,
-        K,
-        Np,
-        K // G,
-        nt,
-        warps,
-        nw_f32,
-        float(eps),
-        _build.stream(x),
+    code = _build.load_library().qllm_w4_planar_gemv(
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), zs.data_ptr(), _build.ptr(norm_w), _build.ptr(part),
+        out.data_ptr(), layer, M, K, Np, K // G, splits, per, nw_f32, float(eps), _build.stream(x),
     )
     _build.check("w4_planar_gemv", code)
     w4_planar_gemv.launches += 1

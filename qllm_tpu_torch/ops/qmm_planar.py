@@ -7,9 +7,10 @@ Both kernels compute ``out[m, n] = sum_g (x_g . q_g[:, n]) * s_g[n]`` in
 f32 from bf16 x [M, K], one layer of planar words [L, K/8, Np] and f32
 scales [L, G, Np], q the nibble value 0..15, and write f32 [M, Np]:
 
-  * K17 ``w4_planar_f32s_gemv`` (csrc/planar_f32.cu), M <= 32: K1's block
-    (csrc/planar_gemv.cuh) with f32 scales, without the norm and the zs
-    term;
+  * K17 ``w4_planar_f32s_gemv`` (csrc/planar_f32.cu), M <= 32: the
+    tensor-core body of csrc/stacked_mma.cuh with K1's planar consumer,
+    f32 scales, without the norm and the zs term, K split by
+    ``qmm.planar_splits``;
   * K18 ``w4_planar_f32s_gemm`` (csrc/planar_f32.cu), M > 32: K2's
     128 x 128 tiling, one pass over K per half with the open group's
     partial closed in f32 at the group's end.
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .qmm import GEMV_MAX_M, _aligned, _gemv_launch, _kernel_geometry_ok, _planar_values
+from .qmm import GEMV_MAX_M, _aligned, _kernel_geometry_ok, _planar_values, planar_splits
 
 __all__ = [
     "w4_planar_f32s_gemv",
@@ -83,14 +84,14 @@ def w4_planar_f32s_gemv(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Te
     if Np % 32:
         raise ValueError("w4_planar_f32s_gemv: the padded width must be a multiple of 32")
     M = x.shape[0]
-    x = _aligned(x.contiguous())  # 8-byte x loads
-    # the launch shape of one 8-row chunk at every M: the split of K, and
-    # so a row's bits, never depend on M
-    nt, warps = _gemv_launch(x.device, 1, Np, K)
+    x = _aligned(x.contiguous())  # 8-byte x copies
+    # the split of K from (K, Np) alone: a row's bits never depend on M
+    splits, per = planar_splits(K, Np)
+    part = torch.empty((splits, M, Np), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((M, Np), dtype=torch.float32, device=x.device)
     code = _build.load_library().qllm_w4_planar_f32s_gemv(
-        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), out.data_ptr(), layer, M, K, Np, K // G, nt, warps,
-        _build.stream(x),
+        x.data_ptr(), qweight.data_ptr(), scales.data_ptr(), _build.ptr(part), out.data_ptr(), layer, M, K, Np, K // G,
+        splits, per, _build.stream(x),
     )
     _build.check("w4_planar_f32s_gemv", code)
     w4_planar_f32s_gemv.launches += 1

@@ -745,6 +745,69 @@ def test_k17_rows_do_not_depend_on_m(gen):
         assert torch.equal(qmm_planar.w4_planar_f32s_gemv(x[:m], qw, sc, 1), y[:m])
 
 
+@pytest.mark.parametrize("nw_dtype", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,Np", [(4096, 1024), (11008, 512)])
+def test_k1_rows_do_not_depend_on_m(gen, K, Np, nw_dtype):
+    """K1's rows at M = 1, 8 and 17 are bit-equal to those rows of one
+    M = 32 launch, with and without the norm (K split: the plan comes from
+    (K, Np) alone)."""
+    assert qmm.planar_splits(K, Np)[0] > 1
+    qw, sc, zs = _stack(gen, K, Np)
+    nw = None if nw_dtype is None else (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(nw_dtype)
+    x = torch.randn((32, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5)
+    for m in (1, 8, 17):
+        assert torch.equal(qmm.w4_planar_gemv(x[:m], qw, sc, zs, 1, nw, 1e-5), y[:m]), m
+
+
+# (g, K, Np, M, norm weight dtype): the group sizes the smoke's stacks take
+# (128, 16, 8, and 6 at Phi-3-mini's K = 3072) and the down_proj K of the
+# 7B (11008) and of Mixtral (14336)
+_PLANAR_TC = [(128, 4096, 1024, 8, torch.bfloat16), (128, 4096, 1024, 1, None), (16, 1024, 512, 17, None),
+              (16, 1024, 512, 8, torch.float32), (8, 768, 512, 32, torch.bfloat16), (8, 768, 640, 5, None),
+              (6, 3072, 512, 8, torch.bfloat16), (6, 768, 512, 32, None), (128, 11008, 512, 8, None),
+              (128, 11008, 512, 32, torch.bfloat16), (128, 14336, 512, 1, None), (128, 14336, 512, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("g,K,Np,M,nw_dtype", _PLANAR_TC)
+def test_k1_tensor_cores_match_plain(gen, g, K, Np, M, nw_dtype):
+    """K1 against its plain version within QMM_TOL (atol 2e-2 * max|plain|,
+    rtol 2e-2), which the plain version of the other layer misses."""
+    qw, sc, zs = _stack_g(gen, K, Np, g)
+    nw = None if nw_dtype is None else (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(nw_dtype)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5).float()
+    ref = qmm.w4_planar_gemv_plain(x, qw, sc, zs, 1, nw, 1e-5).float()
+    atol = 2e-2 * float(ref.abs().max())
+    torch.testing.assert_close(y, ref, atol=atol, rtol=2e-2)
+    other = qmm.w4_planar_gemv_plain(x, qw, sc, zs, 0, nw, 1e-5).float()
+    assert not torch.allclose(y, other, atol=atol, rtol=2e-2)
+
+
+@pytest.mark.parametrize("g,K,Np,M", [(g, K, Np, M) for g, K, Np, M, _ in _PLANAR_TC])
+def test_k17_tensor_cores_match_plain(gen, g, K, Np, M):
+    """K17 against its plain version (the limits and controls of
+    _f32s_close) at K1's cases."""
+    qw, sc = _f32s_stack(gen, K, Np, g)
+    x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+    _f32s_close(qmm_planar.w4_planar_f32s_gemv(x, qw, sc, 1), x, qw, sc)
+
+
+def test_k1_k17_x_views(gen):
+    """A decode x that is a view off a 16-byte boundary (the last position
+    of a prefill) gives the rows of a contiguous copy."""
+    K, Np = 1024, 512
+    qw, sc, zs = _stack(gen, K, Np)
+    fq, fs = _f32s_stack(gen, K, Np, 128)
+    nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    h = torch.randn((3, 5, K + 1), device="cuda", generator=gen).to(torch.bfloat16)
+    x = h[:, -1, 1:]
+    assert x.data_ptr() % 16 and not x.is_contiguous()
+    xc = x.contiguous()
+    assert torch.equal(qmm.w4_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5), qmm.w4_planar_gemv(xc, qw, sc, zs, 1, nw, 1e-5))
+    assert torch.equal(qmm_planar.w4_planar_f32s_gemv(x, fq, fs, 1), qmm_planar.w4_planar_f32s_gemv(xc, fq, fs, 1))
+
+
 @pytest.mark.parametrize("M", [8, 40])
 def test_planar_kernels_take_g16(gen, M):
     """K1 (M <= 32) and K2 (M > 32) on a g = 16 planar stack."""
