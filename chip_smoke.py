@@ -284,6 +284,9 @@ K9_KERNELS = {"stacked_mma_kernel": (1, 1), "split_sum_out_kernel": (0, 1)}
 # ``sums``: the profiler lost a K1 body's record now and then (1 of 2308 in
 # `long`, 1 of 516 in the f32s bf16 control), so no launch count holds them
 K1_KERNELS = K17_KERNELS = ("planar_mma_kernel", "planar_out_kernel")
+# K11's kernels in the a8 leg's profile (no K1 runs there): the quantizer,
+# the int8 body on the planar consumer and its split sum
+K11_KERNELS = ("quantize_rows_kernel", "planar_s8_kernel", "planar_out_kernel")
 # K19 (the fused expert MLP) at Qwen3-30B-A3B's batch-1 decode: experts in
 # the stack, hidden (K1), expert width (K2), padded down width, selections
 K19_CASE = dict(E=128, K1=2048, K2=768, Np2=2048, n=8)
@@ -535,9 +538,11 @@ def phase_kernels(torch, timer):
     ms = timer(lambda: att.kv_write_int8(k_new, v_new, *caches, 1, pos))
     plain_ms = timer(lambda: att.kv_write_int8_plain(k_new, v_new, *refs, 1, pos))
     b_ms, b_by = bound(2 * B * Hkv * D * 2 + 2 * B * Hkv * D + 2 * B * Hkv * 4 + B * 4)
+    # the event pair holds the wrapper's host time: a call's device time beside it
+    device_ms = launch_us(torch, lambda: att.kv_write_int8(k_new, v_new, *caches, 1, pos), key="") / 1e3
     rows.append(dict(kernel="kv_write_int8", case=f"B={B} Hkv={Hkv} D={D} S={S}", max_abs_err=err_q,
                      tol="int8 exact, scales rtol 1e-6", scale_rel_err=err_s, ok=bool(ok), ms=ms,
-                     plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                     plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, device_ms=device_ms))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"kv_write_int8: int8 err {err_q}, scale rel err {err_s}")
@@ -632,9 +637,10 @@ def phase_kernels(torch, timer):
     plain_ms = timer(lambda: att.kv_ring_flush_plain(*theirs, rk, rv, pos))
     n = L * B * Hkv * att.RING
     b_ms, b_by = bound(2 * n * D * 2 + 2 * n * D + 2 * n * 4 + B * 4)
+    device_ms = launch_us(torch, lambda: att.kv_ring_flush(*mine, rk, rv, pos), key="") / 1e3
     rows.append(dict(kernel="kv_ring_flush", case=f"L={L} B={B} Hkv={Hkv} D={D} S={S} rows [{p - att.RING}, {p})",
                      max_abs_err=err_q, tol="int8 exact, scales rtol 1e-6", scale_rel_err=err_s, ok=bool(ok),
-                     ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                     ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, device_ms=device_ms))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"kv_ring_flush: int8 err {err_q}, scale rel err {err_s}")
@@ -1100,7 +1106,9 @@ def mqa_rows(torch, timer, gen, shape):
 def batch_invariance_check(torch, gen):
     """A sequence's K3b and K6 outputs are bit-equal whether it is decoded
     in a batch of 8 or alone: lengths around and past split edges at
-    Mixtral's attention geometry (8 kv heads, n_rep 4, head 128)."""
+    Mixtral's attention geometry (8 kv heads, n_rep 4, head 128); and the
+    planar GEMVs' (K1, K17, K11) M = 8 rows equal those rows of an M = 32
+    launch."""
     from qllm_tpu_torch.ops import attention as att
 
     C, S, B, Hkv, n_rep, D = att.SPLIT_KEYS, 4096, 8, 8, 4, 128
@@ -1127,8 +1135,9 @@ def batch_invariance_check(torch, gen):
                                         decode_attention_ring=same_ring)))
     if not (same and same_ring):
         raise AssertionError(f"batch invariance: K3b {same}, K6 {same_ring}")
-    # K1 (with and without the norm) and K17 at the 7B gate|up: the rows of
-    # an M = 8 launch against the same rows of an M = 32 launch
+    # K1 (with and without the norm), K17 and K11 (with and without the
+    # norm) at the 7B gate|up: the rows of an M = 8 launch against the same
+    # rows of an M = 32 launch
     from qllm_tpu_torch.ops import qmm, qmm_planar
 
     Kf, Np = next((Kf, -(-N // 512) * 512) for name, Kf, N in PROJECTIONS if name == "gateup")
@@ -1139,7 +1148,9 @@ def batch_invariance_check(torch, gen):
     x = torch.randn((32, Kf), device=DEV, generator=gen).to(torch.bfloat16)
     gemv = {"w4_planar_gemv": lambda xs: qmm.w4_planar_gemv(xs, qw, sb, zs, 1),
             "w4_planar_gemv +norm": lambda xs: qmm.w4_planar_gemv(xs, qw, sb, zs, 1, nw, 1e-5),
-            "w4_planar_f32s_gemv": lambda xs: qmm_planar.w4_planar_f32s_gemv(xs, qw, sc, 1)}
+            "w4_planar_f32s_gemv": lambda xs: qmm_planar.w4_planar_f32s_gemv(xs, qw, sc, 1),
+            "w4a8_planar_gemv": lambda xs: qmm.w4a8_planar_gemv(xs, qw, sb, zs, 1),
+            "w4a8_planar_gemv +norm": lambda xs: qmm.w4a8_planar_gemv(xs, qw, sb, zs, 1, nw, 1e-5)}
     rows = {name: bool(torch.equal(fn(x[:8]), fn(x)[:8])) for name, fn in gemv.items()}
     log(f"[kernel] " + json.dumps(dict(check="M=8 rows against the rows of an M=32 launch, bit for bit",
                                         shape=f"gateup K={Kf} N={Np}", **rows)))
@@ -1492,6 +1503,9 @@ def fused_rows(torch, timer, gen, stack):
             return qmm.w4_planar_gemv(hn1.to(torch.bfloat16), q2, s2, z2, 1, nw, 1e-5)
 
         yard_ms = timer(k1_pair)
+        # a call's device time (all its kernels), K20's and the K1 pair's
+        device = dict(device_ms=launch_us(torch, lambda: qmm.w4_pnp_gemv(*args), key="") / 1e3,
+                      yardstick_device_ms=launch_us(torch, k1_pair, key="") / 1e3)
         ms = timer(lambda: qmm.w4_pnp_gemv(*args))
         plain_ms = timer(lambda: qmm.w4_pnp_gemv_plain(*args), reps=5, warmup=1)
         nbytes = (q1[1].numel() * 4 + 2 * s1[1].numel() * 2 + q2[1].numel() * 4 + 2 * s2[1].numel() * 2
@@ -1502,7 +1516,7 @@ def fused_rows(torch, timer, gen, stack):
                          tol=f"hn {HN_TOL} * max|plain| ({tol_hn:.4g}), y2 one bf16 ulp ({tol_y2:.4g})", ok=ok,
                          ms=ms, plain_ms=plain_ms, library_ms=None,
                          yardstick="K1 o_proj, + h, K1 gate|up with the norm", yardstick_ms=yard_ms, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes))
+                         bound_by=b_by, bytes=nbytes, **device))
         log(f"[kernel] {json.dumps(rows[-1])}")
         if not ok:
             raise AssertionError(f"w4_pnp_gemv M={M}: hn err {err_hn} (tol {tol_hn}), y2 err {err_y2} (tol {tol_y2})")
@@ -3022,7 +3036,8 @@ def w4a8_decode(torch, K, cfg, sp, tag):
             raise AssertionError("w4a8: decoded ids out of range")
         name = "w4a8" if a8 else "w4a16"
         streams[name] = [(prompts[b].tolist(), [int(first[b, 0])] + toks[b].tolist()) for b in range(B)]
-        busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + STEPS, w4a8=a8)
+        busy = profile_decode(torch, sp, cfg, toks[:, -1:].contiguous(), cache, T + STEPS, w4a8=a8,
+                              sums={"k11": K11_KERNELS} if a8 else {"k1": K1_KERNELS})
         legs[name] = {
             "decode_tok_s": B * STEPS / dt,
             "decode_ms_per_step": dt / STEPS * 1e3,

@@ -3,7 +3,7 @@ the package of the working directory: run it from the root of each tree of
 an A/B (an archived parent beside this one) in one call on the card, so
 that both sides share the card and its power limit.
 
-    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets,k12,k8,planar,k8_heads]
+    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets,k12,k8,planar,k8_heads,k11,pnp]
 
   * stacked: K14 gptq_stacked_gemv and K16 bitplane_stacked_gemv at the
     Llama-2-7B stacked projections;
@@ -26,6 +26,14 @@ that both sides share the card and its power limit.
     count of heads): K8's C entry at the k8 part's shapes with the split
     plan for each of K8_HEADS head blocks, and with the tree's own plan
     and every selection served on its own (runs off);
+  * k11 (not in the default parts): K11 w4a8_planar_gemv at the 7B
+    projections (q/k/v, o, gate|up with and without the norm, down,
+    lm_head) at M = 1, 8 and 32, each beside its bound and the library's
+    torch.matmul on the dequantized bf16 weight;
+  * pnp (not in the default parts): K20 w4_pnp_gemv at the 7B (o_proj
+    4096->4096, the residual, RMSNorm, gate|up 4096->22016) at M = 1 and
+    8, beside its bound and the K1 pair it fuses (K1 o_proj, + h, K1
+    gate|up with the norm), the yardstick, there being no one library call;
   * k8 (not in the default parts): K8 w4_grouped_gemv at the sparse MoE
     decode paths' shapes, with the sums a Mixtral b1, Qwen3 b1 and Qwen3
     b8 decode step make, and the long-run case; the Mixtral gate|up read
@@ -89,6 +97,8 @@ K8_RUNS = (12, 12, 10, 10, 10, 10)
 # the head blocks K8's split plan may count on (k8_heads), each read with
 # heads of up to 8 rows, and the tree's own count with runs off as well
 K8_HEADS = (1, 2, 4, 8, 16)
+K11_M = (1, 8, 32)
+PNP_M = (1, 8)
 K8_STEPS = {"mixtral_b1": (32, ("mixtral gateup", "mixtral down")), "qwen3_b1": (48, ("qwen3 gateup", "qwen3 down")),
             "qwen3_b8": (48, ("qwen3 gateup b8", "qwen3 down b8"))}
 
@@ -405,6 +415,80 @@ def k8_heads(torch, cs, gen, args):
                               device_ms_per_step_by_plan=by_plan)), flush=True)
 
 
+def planar_stack(torch, gen, K, Np, L=2):
+    """A random [L]-stacked planar W4 g128 serving stack (bf16 scales,
+    prefolded zs) and its layer-1 weight dequantized to bf16."""
+    from qllm_tpu_torch.ops import qmm
+
+    qw = torch.randint(-(2**31), 2**31, (L, K // 8, Np), dtype=torch.int32, device="cuda", generator=gen)
+    sc = ((torch.rand((L, K // 128, Np), device="cuda", generator=gen) + 0.5) * 0.01).to(torch.bfloat16)
+    zs = (sc.float() * 8).to(torch.bfloat16)
+    v = qmm._planar_values(qw[1], K).reshape(K // 128, 128, Np)
+    w = (v * sc[1].float()[:, None] - zs[1].float()[:, None]).reshape(K, Np).to(torch.bfloat16)
+    return qw, sc, zs, w
+
+
+def k11(torch, cs, gen, args):
+    """K11 per call (device ms of all its kernels: the quantizer, the body,
+    the split sum), its bound (bytes over 3.35 TB/s against the int8 MMAs
+    over 1979 TOP/s) and the library's torch.matmul on the dequantized
+    bf16 weight (the normalised x for the row with the norm)."""
+    from qllm_tpu_torch.ops import qmm
+
+    def us(fn):
+        return cs.launch_us(torch, fn, reps=args.reps, key="") / 1e3
+
+    for pname, K, N in PROJ:
+        Np = -(-N // 512) * 512
+        qw, sc, zs, w = planar_stack(torch, gen, K, Np)
+        nw = (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+        for M in K11_M:
+            x = torch.randn((M, K), device="cuda", generator=gen).to(torch.bfloat16)
+            for norm in (False, True) if pname == "gateup" else (False,):
+                a = (x, qw, sc, zs, 1, nw if norm else None, 1e-5)
+                xin = qmm._rms_norm_rows(x, nw[1], 1e-5) if norm else x
+                nbytes = qw[1].numel() * 4 + 2 * sc[1].numel() * 2 + M * K * 2 + M * Np * 2 + (K * 2 if norm else 0)
+                b_ms, b_by = cs.bound(nbytes, 2.0 * M * K * Np, cs.PEAK_INT8)
+                print(json.dumps(dict(tag=args.tag, kernel="w4a8_planar_gemv", projection=pname + (" +norm" if norm else ""),
+                                      K=K, Np=Np, M=M, device_ms=us(lambda: qmm.w4a8_planar_gemv(*a)),
+                                      library_device_ms=us(lambda: torch.matmul(xin, w)), bound_ms=b_ms,
+                                      bound_by=b_by)), flush=True)
+        del qw, sc, zs, w
+        torch.cuda.empty_cache()
+
+
+def pnp(torch, cs, gen, args):
+    """K20 per call (device ms of all its kernels) at the 7B's o_proj and
+    gate|up, its bound, and the K1 pair it fuses (K1 o_proj, + h in f32,
+    K1 gate|up with the norm on bf16(hn)): no one PyTorch call computes it."""
+    from qllm_tpu_torch.ops import qmm
+
+    def us(fn):
+        return cs.launch_us(torch, fn, reps=args.reps, key="") / 1e3
+
+    D, inter = 4096, 11008
+    Np = -(-2 * inter // 512) * 512
+    q1, s1, z1, _ = planar_stack(torch, gen, D, D)
+    q2, s2, z2, _ = planar_stack(torch, gen, D, Np)
+    nw = (torch.rand((2, D), device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    for M in PNP_M:
+        x1 = torch.randn((M, D), device="cuda", generator=gen).to(torch.bfloat16)
+        h = torch.randn((M, D), device="cuda", generator=gen) * 4.0
+        a = (x1, h, q1, s1, z1, q2, s2, z2, nw, 1, 1e-5)
+
+        def k1_pair():
+            hn1 = h + qmm.w4_planar_gemv(x1, q1, s1, z1, 1).float()
+            return qmm.w4_planar_gemv(hn1.to(torch.bfloat16), q2, s2, z2, 1, nw, 1e-5)
+
+        nbytes = (q1[1].numel() * 4 + 2 * s1[1].numel() * 2 + q2[1].numel() * 4 + 2 * s2[1].numel() * 2
+                  + M * D * 2 + M * D * 4 + D * 2 + M * D * 4 + M * Np * 2)
+        b_ms, b_by = cs.bound(nbytes, 2.0 * M * (D * D + D * Np))
+        print(json.dumps(dict(tag=args.tag, kernel="w4_pnp_gemv", M=M, device_ms=us(lambda: qmm.w4_pnp_gemv(*a)),
+                              k1_pair_device_ms=us(k1_pair), bound_ms=b_ms, bound_by=b_by)), flush=True)
+    del q1, s1, z1, q2, s2, z2
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="tree")
@@ -444,6 +528,10 @@ def main() -> int:
         planar(torch, cs, gen, args)
     if "k8_heads" in parts:
         k8_heads(torch, cs, gen, args)
+    if "k11" in parts:
+        k11(torch, cs, gen, args)
+    if "pnp" in parts:
+        pnp(torch, cs, gen, args)
     return 0
 
 

@@ -106,6 +106,15 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// D += A * B: A 16x16 s8, B 16x8 s8, D 16x8 s32, with a0 = A[gq][4c..4c+3],
+// a1 = A[gq+8][4c..4c+3], b0 = B[4c..4c+3][gq]; D as mma_s8_16832's
+__device__ __forceinline__ void mma_s8_16816(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }

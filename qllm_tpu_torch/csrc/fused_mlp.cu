@@ -1,5 +1,5 @@
 // K19 w4_grouped_fused_mlp and K20 w4_pnp_gemv: two W4 products with a
-// serial dependency between them, each pair in ONE launch.
+// serial dependency between them, each pair in ONE cooperative launch.
 //
 // K19 replaces _qmm_kernel_grouped_fused (qllm_tpu/ops/pallas_qmm.py:2239,
 // called by qmatmul_grouped_experts_fused :2363): for every MoE selection
@@ -19,35 +19,44 @@
 // (sum x_g) * zs_g[n] in f32, bf16 scales and prefolded zs. The second
 // product of each pair reads an f32 row (the activation, the normalised
 // residual) that the TPU kernels keep in VMEM and never round to bf16;
-// here it lives in an f32 scratch in device memory, read through L2.
+// here it lives in a scratch in device memory, read through L2.
 //
-// Design. The TPU kernel walks its grid in order on one core, so phase 2
-// simply follows phase 1. On the H100 the blocks run in parallel, so the
-// kernel is a cooperative launch (every block co-resident, or the launch
-// is refused) over a grid of min(tiles, blocks per SM x SMs) blocks: phase
-// 1 hands its column tiles to the blocks in turn, one grid-wide barrier
-// (two words in device memory: an arrival count and a generation, left
-// ready for the next launch), then phase 2 does the same with its tiles.
-// A tile is 128 output columns (4 per lane) over the whole K for up to
-// MR rows; the 8 warps of a block split K's word rows, each warp closes a
-// group's partial (its part of it) into f32 at the group's end, and the
-// warps' sums meet in shared memory in warp order (no atomics: the same
-// inputs give the same bits). The dots are f32 FMAs on the CUDA cores:
-// a nibble and a bf16 or f32 input multiply exactly or within f32
-// rounding, so the f32 inputs of phase 2 are used as they are. K20
-// recomputes each row's sum of squares from hn after the barrier, in
-// every tile (M x D floats from L2).
+// The TPU kernel walks its grid in order on one core, so phase 2 simply
+// follows phase 1. On the H100 the blocks run in parallel, so each kernel
+// is a cooperative launch (every block co-resident, or the launch is
+// refused) whose phases meet at grid-wide barriers (two words in device
+// memory: an arrival count and a generation, left ready for the next
+// launch; no atomics in any sum: the same inputs give the same bits).
 //
-// Bound on the H100: bytes (the selected experts' or the layer's words,
-// scales and zs, read once), ~19 MB for K19 at Qwen3 batch 1 (5.7 us at
-// 3.35 TB/s); the f32 FMAs (K19: 38 M a call) keep up with that stream.
-// This first version streams 512 bytes a warp per word row, 8 rows in
-// flight at one row a tile (K19, K20 at M = 1: 2 blocks a SM), 2 at 8
-// rows a tile (K20 at M > 1: 1 block a SM, and 256 FMAs a lane per word
-// row): it is not fast (PERF.md).
+// K19 (the first design): 128 output columns a tile over the whole K, the
+// 8 warps of a block splitting K's word rows, f32 FMAs on the CUDA cores
+// meeting in shared memory in warp order; bound by bytes (~19 MB at Qwen3
+// batch 1, 5.7 us at 3.35 TB/s), it runs at ~7x that (PERF.md).
+//
+// K20 on the tensor-core body (csrc/stacked_mma.cuh, planar_consume):
+// persistent blocks, each a producer warp that streams the words of its
+// items into the shared-memory ring and four consumer warps on mma.sync,
+// walk
+//   phase 1: o_proj's (row chunk, 128 columns, split of K1) items on bf16
+//            x1 (exact in bf16), each split's f32 partial sums to scratch;
+//   barrier; merge, by (row, 128 columns) over the grid: hn = (the splits
+//            in split order) + h, written out; x~ = hn * w (f32) as three
+//            exact bf16 parts hi + mid + lo, stored planar-interleaved; sum
+//            hn^2 of each (row, tile) in a fixed order;
+//   barrier; r_m = rsqrt(sum of the tiles' sums / D + eps), each block;
+//   phase 2: gate|up's items on x~ (kXParts3: three MMAs on each A), the
+//            splits' partial sums to scratch (unsplit: bf16(r_m y) straight
+//            out);
+//   barrier; y2 = bf16(r_m * the splits in split order).
+// The producer runs on into phase 2's words while the consumers wait at
+// the barriers. Items are at most 8 rows (one n-tile), and the splits of
+// K1 and D come from the shapes alone (ops.qmm.planar_splits), so a row's
+// bits depend neither on M nor on the grid. Bound: bytes (both layers'
+// words, scales and zs, read once), 57 MB at the 7B (17 us at 3.35 TB/s).
 #include <algorithm>
 
 #include "common.cuh"
+#include "stacked_mma.cuh"
 
 namespace {
 
@@ -91,21 +100,6 @@ struct XAct {  // K19 phase 2: act(gate) * up from this selection's f32 gate|up 
     const float4 u = __ldcg(reinterpret_cast<const float4*>(gu + K2 + k));
     return make_float4(gate_act(g.x, gelu) * u.x, gate_act(g.y, gelu) * u.y, gate_act(g.z, gelu) * u.z,
                        gate_act(g.w, gelu) * u.w);
-  }
-};
-
-struct XNorm {  // K20 phase 2: hn * rstd[m] * nw, f32
-  const float* hn;  // written in phase 1: read through L2 (__ldcg)
-  int D;
-  const float* rstd;  // shared memory
-  const void* nw;     // this layer's norm weight
-  int nw_f32;
-  __device__ float4 operator()(int m, int k) const {
-    const float4 h = __ldcg(reinterpret_cast<const float4*>(hn + static_cast<size_t>(m) * D + k));
-    const float4 w = nw_f32 ? __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(nw) + k))
-                            : bf16x4(__ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(nw) + k)));
-    const float r = rstd[m];
-    return make_float4(h.x * r * w.x, h.y * r * w.y, h.z * r * w.z, h.w * r * w.w);
   }
 };
 
@@ -234,12 +228,14 @@ __device__ void tile_product(const XS& xs, int M, const uint32_t* __restrict__ q
 }
 
 // Every block of the (cooperative, hence co-resident) grid waits here
-// until all have arrived. bar[0] counts arrivals, bar[1] is the
+// until all have arrived; sync() joins the block's threads that take part
+// (thread 0 among them). bar[0] counts arrivals, bar[1] is the
 // generation: the last block to arrive resets the count and moves the
 // generation on. Writes before the barrier are made visible by the fences;
-// what phase 1 wrote is read after it through L2 (__ldcg).
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
+// what another block wrote is read after it through L2 (__ldcg, cp.async.cg).
+template <class Sync>
+__device__ void grid_barrier(unsigned* bar, Sync sync) {
+  sync();
   if (threadIdx.x == 0) {
     volatile unsigned* gen = bar + 1;
     const unsigned g0 = *gen;
@@ -257,7 +253,7 @@ __device__ void grid_barrier(unsigned* bar) {
     }
     __threadfence();
   }
-  __syncthreads();
+  sync();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -286,7 +282,7 @@ __global__ void __launch_bounds__(kThreads)
                        gzs + static_cast<size_t>(e) * G1 * Np1, K1, g, Np1, ct * kCols, 2 * K2, red,
                        [&](int, int c, float s) { row[c] = s; });
   }
-  grid_barrier(bar);
+  grid_barrier(bar, [] { __syncthreads(); });
   // phase 2: down on act(gate) * up
   for (int t = blockIdx.x; t < n * ct2; t += gridDim.x) {
     const int sel = t / ct2, ct = t % ct2;
@@ -304,87 +300,131 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// MR: rows of a K20 tile, 1 for a single row (127 registers: two blocks
-// a SM and 8 word rows in flight a warp) or 8 (U = 2 rows in flight)
-template <int MR, int U>
-__global__ void __launch_bounds__(kThreads)
-    pnp_gemv_kernel(const __nv_bfloat16* __restrict__ x1,  // [M, K1]
-                    const float* __restrict__ h,           // [M, D]
-                    const void* __restrict__ nw, int nw_f32,  // [L, D]
-                    const uint32_t* __restrict__ qw1,      // [L, K1/8, D]
-                    const __nv_bfloat16* __restrict__ s1,  // [L, G1, D]
-                    const __nv_bfloat16* __restrict__ z1,
-                    const uint32_t* __restrict__ qw2,      // [L, D/8, Np2]
-                    const __nv_bfloat16* __restrict__ s2,  // [L, G2, Np2]
-                    const __nv_bfloat16* __restrict__ z2,
-                    float* hn,                              // out [M, D], read back in phase 2
-                    unsigned* bar, __nv_bfloat16* __restrict__ y2,  // out [M, Np2]
-                    int layer, int M, int K1, int D, int Np2, int g1, int g2, float eps) {
-  __shared__ float red[kWarps][MR][kCols];
-  __shared__ float ssq[kWarps][MR];
-  __shared__ float rstd[MR];
-  const int chunks = (M + MR - 1) / MR;
-  const int ct1 = (D + kCols - 1) / kCols, ct2 = (Np2 + kCols - 1) / kCols;
-  const int G1 = K1 / g1, G2 = D / g2;
-  const uint32_t* w1 = qw1 + static_cast<size_t>(layer) * (K1 / 8) * D;
-  const __nv_bfloat16* sc1 = s1 + static_cast<size_t>(layer) * G1 * D;
-  const __nv_bfloat16* zs1 = z1 + static_cast<size_t>(layer) * G1 * D;
-  const uint32_t* w2 = qw2 + static_cast<size_t>(layer) * (D / 8) * Np2;
-  const __nv_bfloat16* sc2 = s2 + static_cast<size_t>(layer) * G2 * Np2;
-  const __nv_bfloat16* zs2 = z2 + static_cast<size_t>(layer) * G2 * Np2;
-  const size_t nw_at = static_cast<size_t>(layer) * D;
-  const void* nwl = nw_f32 ? static_cast<const void*>(static_cast<const float*>(nw) + nw_at)
-                           : static_cast<const void*>(static_cast<const __nv_bfloat16*>(nw) + nw_at);
-  // phase 1: hn = h + x1 @ W1
-  for (int t = blockIdx.x; t < chunks * ct1; t += gridDim.x) {
-    const int m0 = (t / ct1) * MR, ct = t % ct1;
-    const int Mc = min(MR, M - m0);
-    const XBf16 xs{x1 + static_cast<size_t>(m0) * K1, K1};
-    tile_product<MR, U>(xs, Mc, w1, sc1, zs1, K1, g1, D, ct * kCols, D, red, [&](int m, int c, float s) {
-      const size_t i = static_cast<size_t>(m0 + m) * D + c;
-      hn[i] = s + h[i];
-    });
+namespace sm = stacked_mma;
+
+constexpr int kPnpRows = 8;  // the rows of x an item takes: one n-tile
+// the x rows and parameters a chunk may stage: with the ring, four blocks an SM
+constexpr int kPnpXBudget = 38 * 1024;
+
+// K20: one layer's pointers; hn, part1, x3, sq, part2 as the C entry's
+__global__ void __launch_bounds__(sm::kBlock, 4)
+    pnp_kernel(const __nv_bfloat16* __restrict__ x1,  // [M, K1]
+               const float* __restrict__ h,           // [M, D]
+               const void* __restrict__ nw, int nw_f32,  // [D] the norm weight
+               const uint32_t* __restrict__ w1,       // [K1/8, D]
+               const __nv_bfloat16* __restrict__ s1, const __nv_bfloat16* __restrict__ z1,  // [G1, D]
+               const uint32_t* __restrict__ w2,       // [D/8, Np2]
+               const __nv_bfloat16* __restrict__ s2, const __nv_bfloat16* __restrict__ z2,  // [G2, Np2]
+               float* hn, float* part1, __nv_bfloat16* x3, float* sq, float* part2, unsigned* bar,
+               __nv_bfloat16* __restrict__ y2, int M, int K1, int D, int Np2, int g1, int g2, int splits1,
+               int per1, int splits2, int per2, int kc1, int kc2, float eps) {
+  constexpr int S = sm::Planar::kStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[sm::kWarps];  // a merge's sum of squares by warp
+  __shared__ float rr[32];           // the rows' norm factors
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  unsigned char* ring = smem + sm::kBarBytes;
+  unsigned char* xt = ring + S * 4 * sm::ring_row_bytes<sm::Planar>();
+  const int chunks = (M + kPnpRows - 1) / kPnpRows;
+  const int T1 = D / sm::kCols, T2 = (Np2 + sm::kCols - 1) / sm::kCols, W1 = K1 / 8, W2 = D / 8;
+  const int items1 = chunks * T1 * splits1, items2 = chunks * T2 * splits2;
+  // item i of a phase: rows of chunk i % chunks, columns of tile (i /
+  // chunks) % T, split i / (chunks T)
+  sm::init_ring<S>(full, empty, false);
+  if ((threadIdx.x >> 5) == sm::kWarps) {  // the producer: phase 1's items, then phase 2's, without a stop
+    const int lane = threadIdx.x & 31;
+    int t = 0;
+    for (int i = blockIdx.x; i < items1; i += gridDim.x) {
+      const int ct = i / chunks % T1, u0 = i / (chunks * T1) * per1;
+      t = sm::produce<sm::Planar>(w1, full, empty, ring, lane, ct * sm::kCols, D, u0, min(W1, u0 + per1), W1,
+                                  sm::kCopyLanes, t);
+    }
+    for (int i = blockIdx.x; i < items2; i += gridDim.x) {
+      const int ct = i / chunks % T2, u0 = i / (chunks * T2) * per2;
+      t = sm::produce<sm::Planar>(w2, full, empty, ring, lane, ct * sm::kCols, Np2, u0, min(W2, u0 + per2), W2,
+                                  sm::kCopyLanes, t);
+    }
+    return;
   }
-  grid_barrier(bar);
-  // phase 2: y2 = (hn * rsqrt(mean(hn^2) + eps) * nw) @ W2
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = blockIdx.x; t < chunks * ct2; t += gridDim.x) {
-    const int m0 = (t / ct2) * MR, ct = t % ct2;
-    const int Mc = min(MR, M - m0);
-    for (int m = 0; m < Mc; ++m) {
-      const float* row = hn + static_cast<size_t>(m0 + m) * D;
-      float s = 0.f;
-      for (int k = 4 * threadIdx.x; k < D; k += 4 * kThreads) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(row + k));
-        s = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, s))));
-      }
-      s = warp_sum(s);
-      if (lane == 0) ssq[warp][m] = s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const auto sync = [] { sm::consumers_sync(); };
+  int t = 0;
+  // phase 1: o_proj, each split's partial sums
+  for (int i = blockIdx.x; i < items1; i += gridDim.x) {
+    const int m0 = i % chunks * kPnpRows, ct = i / chunks % T1, s = i / (chunks * T1), u0 = s * per1;
+    sync();  // the last item's tile is read
+    t = sm::planar_consume<1, sm::kXBf16, true>(full, empty, ring, xt, x1 + static_cast<size_t>(m0) * K1, K1,
+                                                nullptr, s1, z1, min(kPnpRows, M - m0), K1, D, g1, ct * sm::kCols, u0,
+                                                min(W1, u0 + per1), kc1,
+                                                part1 + (static_cast<size_t>(s) * M + m0) * D, nullptr, nullptr, t);
+  }
+  grid_barrier(bar, sync);
+  // merge, item (row m, tile ct): columns n = ct * 128 + tid of row m; hn =
+  // the splits in split order + h; x~ = hn * w as hi, mid, lo (each
+  // difference exact in f32) at the planar-interleaved place of k = n in
+  // rows 3m .. 3m + 2; the row's sum of squares over the tile
+  for (int i = blockIdx.x; i < M * T1; i += gridDim.x) {
+    const int m = i / T1, ct = i - m * T1, n = ct * sm::kCols + tid;
+    float acc = 0.f;
+    for (int s = 0; s < splits1; ++s) acc += __ldcg(part1 + (static_cast<size_t>(s) * M + m) * D + n);
+    const float v = acc + __ldg(h + static_cast<size_t>(m) * D + n);
+    hn[static_cast<size_t>(m) * D + n] = v;
+    const float w = nw_f32 ? __ldg(static_cast<const float*>(nw) + n)
+                           : __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(nw) + n));
+    const int half = n >= D / 2, k = n - half * (D / 2);
+    __nv_bfloat16* xr = x3 + static_cast<size_t>(3 * m) * D + (k / 4) * 8 + 4 * half + (k & 3);
+    float p = v * w;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const __nv_bfloat16 b = __float2bfloat16_rn(p);
+      xr[static_cast<size_t>(q) * D] = b;
+      p -= __bfloat162float(b);
     }
-    __syncthreads();
-    if (threadIdx.x < Mc) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += ssq[w][threadIdx.x];
-      rstd[threadIdx.x] = 1.0f / sqrtf(s * (1.0f / static_cast<float>(D)) + eps);
-    }
-    __syncthreads();
-    const XNorm xs{hn + static_cast<size_t>(m0) * D, D, rstd, nwl, nw_f32};
-    tile_product<MR, U>(xs, Mc, w2, sc2, zs2, D, g2, Np2, ct * kCols, Np2, red, [&](int m, int c, float s) {
-      y2[static_cast<size_t>(m0 + m) * Np2 + c] = __float2bfloat16_rn(s);
-    });
+    const float ss = warp_sum(v * v);
+    if (lane == 0) red[warp] = ss;
+    sync();
+    if (tid == 0) sq[static_cast<size_t>(m) * T1 + ct] = ((red[0] + red[1]) + red[2]) + red[3];
+    sync();
+  }
+  grid_barrier(bar, sync);
+  if (tid < M) {  // read after the next sync
+    float q = 0.f;
+    for (int ct = 0; ct < T1; ++ct) q += __ldcg(sq + static_cast<size_t>(tid) * T1 + ct);
+    rr[tid] = rsqrtf(q * (1.0f / static_cast<float>(D)) + eps);
+  }
+  // phase 2: gate|up on x~'s parts
+  for (int i = blockIdx.x; i < items2; i += gridDim.x) {
+    const int m0 = i % chunks * kPnpRows, ct = i / chunks % T2, s = i / (chunks * T2), u0 = s * per2;
+    sync();
+    t = sm::planar_consume<1, sm::kXParts3, true>(
+        full, empty, ring, xt, x3 + static_cast<size_t>(3 * m0) * D, D, nullptr, s2, z2, min(kPnpRows, M - m0), D,
+        Np2, g2, ct * sm::kCols, u0, min(W2, u0 + per2), kc2,
+        splits2 > 1 ? part2 + (static_cast<size_t>(s) * M + m0) * Np2 : nullptr, y2 + static_cast<size_t>(m0) * Np2,
+        rr + m0, t);
+  }
+  if (splits2 == 1) return;
+  grid_barrier(bar, sync);
+  // y2 = bf16(r_m * the splits in split order)
+  const size_t MN = static_cast<size_t>(M) * Np2;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * sm::kThreads + tid; i < MN;
+       i += static_cast<size_t>(gridDim.x) * sm::kThreads) {
+    float acc = 0.f;
+    for (int s = 0; s < splits2; ++s) acc += __ldcg(part2 + s * MN + i);
+    y2[i] = __float2bfloat16_rn(acc * rr[i / Np2]);
   }
 }
 
-// the grid of a cooperative launch: one block per tile, at most as many
-// as fit on the card at once; 0 where the card takes no cooperative launch
-int coop_grid(const void* kernel, int tiles) {
+// the grid of a cooperative launch: one block per work item, at most as
+// many as fit on the card at once; 0 where the card takes no cooperative launch
+int coop_grid(const void* kernel, int items, int threads, int smem) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) != cudaSuccess)
     return 0;
   if (!coop || per_sm < 1) return 0;
-  return std::max(1, std::min(tiles, per_sm * sms));
+  return std::max(1, std::min(items, per_sm * sms));
 }
 
 // the full-K planar geometry (K % 256 == 0, groups split at K/2, any g);
@@ -402,7 +442,7 @@ QLLM_API int qllm_w4_grouped_fused_mlp(const void* x, const void* gqw, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = (const void*)grouped_fused_mlp_kernel;
   const int tiles = n * std::max((2 * K2 + kCols - 1) / kCols, (Np2 + kCols - 1) / kCols);
-  const int grid = coop_grid(kernel, tiles);
+  const int grid = coop_grid(kernel, tiles, kThreads, 0);
   if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* args[] = {&x, &gqw, &gsc, &gzs, &dqw, &dsc, &dzs, &ids, &gu, &bar, &out, &n, &n_experts, &x_shared,
                   &K1, &K2, &Np1, &Np2, &g, &gelu};
@@ -411,20 +451,47 @@ QLLM_API int qllm_w4_grouped_fused_mlp(const void* x, const void* gqw, const voi
   return err != cudaSuccess ? static_cast<int>(err) : qllm_launch_status();
 }
 
+// K20: layer `layer` of the stacks; hn [M, D] and y2 [M, Np2] the outputs;
+// scratch part1 [splits1, M, D] f32, x3 [M, 3, D] bf16, sq [M, D / 128]
+// f32 and, when splits2 > 1, part2 [splits2, M, Np2] f32; K1 split in
+// splits1 of per1 word rows, D in splits2 of per2; bar: the grid barrier's
+// two words
 QLLM_API int qllm_w4_pnp_gemv(const void* x1, const void* h, const void* nw, int nw_f32, const void* qw1,
                               const void* s1, const void* z1, const void* qw2, const void* s2, const void* z2, void* hn,
-                              void* bar, void* y2, int layer, int M, int K1, int D, int Np2, int g1, int g2, float eps,
-                              void* stream) {
-  if (M < 1 || layer < 0 || !fullk_geometry(K1, g1) || !fullk_geometry(D, g2) || Np2 % 4 || Np2 < 4)
+                              void* part1, void* x3, void* sq, void* part2, void* bar, void* y2, int layer, int M,
+                              int K1, int D, int Np2, int g1, int g2, int splits1, int per1, int splits2, int per2,
+                              float eps, void* stream) {
+  using sm::aligned16;
+  if (M < 1 || M > 32 || layer < 0 || !planar_geometry_ok(K1, g1) || !planar_geometry_ok(D, g2) || Np2 % 4 ||
+      Np2 < 4 || !sm::split_plan_ok(K1 / 8, splits1, per1) || !sm::split_plan_ok(D / 8, splits2, per2) ||
+      (splits2 > 1 && part2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = M == 1 ? (const void*)pnp_gemv_kernel<1, 8> : (const void*)pnp_gemv_kernel<8, 2>;
-  const int chunks = M == 1 ? 1 : (M + 7) / 8;
-  const int tiles = chunks * std::max((D + kCols - 1) / kCols, (Np2 + kCols - 1) / kCols);
-  const int grid = coop_grid(kernel, tiles);
+  const size_t l = static_cast<size_t>(layer), G1 = K1 / g1, G2 = D / g2;
+  const auto* w1 = static_cast<const uint32_t*>(qw1) + l * (K1 / 8) * D;
+  const auto* sc1 = static_cast<const __nv_bfloat16*>(s1) + l * G1 * D;
+  const auto* zs1 = static_cast<const __nv_bfloat16*>(z1) + l * G1 * D;
+  const auto* w2 = static_cast<const uint32_t*>(qw2) + l * (D / 8) * Np2;
+  const auto* sc2 = static_cast<const __nv_bfloat16*>(s2) + l * G2 * Np2;
+  const auto* zs2 = static_cast<const __nv_bfloat16*>(z2) + l * G2 * Np2;
+  const void* nwl = static_cast<const char*>(nw) + l * D * (nw_f32 ? 4 : 2);
+  if (!aligned16(x1) || !aligned16(w1) || !aligned16(sc1) || !aligned16(zs1) || !aligned16(w2) || !aligned16(sc2) ||
+      !aligned16(zs2) || !aligned16(part1) || !aligned16(x3) || (part2 != nullptr && !aligned16(part2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = std::min(M, kPnpRows);
+  int kc1 = sm::planar_chunk_units(rows, per1, g1, 2, 2, false, kPnpXBudget);
+  int kc2 = sm::planar_chunk_units(3 * rows, per2, g2, 2, 2, false, kPnpXBudget);
+  const int smem = sm::ring_bytes<sm::Planar>() + std::max(sm::planar_chunk_bytes(rows, kc1, g1, 2, 2, false),
+                                                           sm::planar_chunk_bytes(3 * rows, kc2, g2, 2, 2, false));
+  static int allowed[kMaxDevices];
+  if (const int e = allow_dynamic_smem(pnp_kernel, smem, allowed)) return e;
+  const int chunks = (M + kPnpRows - 1) / kPnpRows;
+  const int items = std::max(chunks * (D / sm::kCols) * splits1, chunks * ((Np2 + sm::kCols - 1) / sm::kCols) * splits2);
+  const void* kernel = (const void*)pnp_kernel;
+  const int grid = coop_grid(kernel, items, sm::kBlock, smem);
   if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* args[] = {&x1, &h, &nw, &nw_f32, &qw1, &s1, &z1, &qw2, &s2, &z2, &hn, &bar, &y2, &layer, &M, &K1, &D, &Np2,
-                  &g1, &g2, &eps};
+  void* args[] = {&x1, &h, &nwl, &nw_f32, &w1, &sc1, &zs1, &w2, &sc2, &zs2, &hn, &part1, &x3, &sq, &part2, &bar, &y2,
+                  &M, &K1, &D, &Np2, &g1, &g2, &splits1, &per1, &splits2, &per2, &kc1, &kc2, &eps};
   const cudaError_t err =
-      cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+      cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(sm::kBlock), args, smem, static_cast<cudaStream_t>(stream));
   return err != cudaSuccess ? static_cast<int>(err) : qllm_launch_status();
 }

@@ -108,9 +108,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + S;
   unsigned char* ring = smem + kBarBytes;
-  init_ring<S>(full, empty, 1);
+  init_ring<S>(full, empty, false);
   if (warp == kWarps) {
-    produce<P>(qw, full, empty, ring, lane, n0, Np, u0, u1, W, 1);
+    produce<P>(qw, full, empty, ring, lane, n0, Np, u0, u1, W, kCopyLanes);
     return;
   }
   planar_consume<1, kXBf16, true>(full, empty, ring, ring + S * 4 * ring_row_bytes<P>(),

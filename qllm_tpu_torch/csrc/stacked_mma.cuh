@@ -3,8 +3,10 @@
 // K12 gptq_w4a8_gemv and K9 gptq_gemv (csrc/gptq_stacked.cu), K16
 // bitplane_stacked_gemv (csrc/bitplane.cu); on planar words (the Planar
 // policy and planar_consume, at the end) K1 w4_planar_gemv (csrc/qmm.cu),
-// K17 w4_planar_f32s_gemv (csrc/planar_f32.cu) and K8 w4_grouped_gemv
-// (csrc/grouped_mma.cu). Each GPTQ-order or bit-plane GEMV reads one
+// K17 w4_planar_f32s_gemv (csrc/planar_f32.cu), K8 w4_grouped_gemv
+// (csrc/grouped_mma.cu) and both products of K20 w4_pnp_gemv
+// (csrc/fused_mlp.cu), and K11 w4a8_planar_gemv (csrc/w4a8.cu) on its int8
+// twin, planar_s8_kernel. Each GPTQ-order or bit-plane GEMV reads one
 // layer of 2/4/8-bit GPTQ-order or 3/5/6/7-bit bit-plane words (a
 // per-layer weight is layer 0), with x in bf16 or f32 (K15: int8). With q
 // the unsigned field, the bf16 kernel (stacked_mma_kernel) computes
@@ -56,8 +58,9 @@
 //
 // Bytes in flight: a producer warp keeps the next S steps' weight rows of
 // the block in a ring in shared memory, one bulk copy (cp.async.bulk, the
-// copy engine of TMA) a row and plane (4-byte cp.async by its 32 lanes
-// when Np % 4 != 0), each stage's arrival and release tracked by a pair of
+// copy engine of TMA) a row and plane (or, for most planar GEMVs, a
+// 16-byte cp.async by each of its 32 lanes: kCopyLanes; 4-byte ones when
+// Np % 4 != 0), each stage's arrival and release tracked by a pair of
 // mbarriers, so the four consumer warps spend no issue slots on loads and
 // do not wait for them (a ring filled by the consumers' own cp.async held
 // K14 at twice this time: their loads and products did not overlap); the
@@ -265,13 +268,13 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t (&b)[3]) {
 }
 
 // the ring's barriers: full[i] completes when stage i's rows have landed
-// (one arrival and the bulk copies' bytes, or the 32 producer lanes'
-// cp.async), empty[i] when the four consumer warps are done with it
+// (one arrival and the bulk copies' bytes when bulk, else the 32 producer
+// lanes' cp.async), empty[i] when the four consumer warps are done with it
 template <int S>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int vec) {
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, bool bulk) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
-      mbar_init(full + i, vec ? 1 : 32);
+      mbar_init(full + i, bulk ? 1 : 32);
       mbar_init(empty + i, kWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -279,29 +282,48 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int v
   __syncthreads();
 }
 
+// How the producer fills the ring: kCopyBulk, one bulk copy a row and
+// plane; kCopyLanes, a 16-byte cp.async by each of its 32 lanes (both need
+// Np % 4 == 0 and 16-byte aligned words); kCopyWords, 4-byte cp.async.
+// The planar GEMVs take the lanes' copies at two or more blocks an SM
+// (4-16% faster than bulk copies at M <= 8 on the H100: K1, K17, K8, K11,
+// K20; K11 also at M = 17-32) and bulk copies at one (K1 and K17 at four
+// n-tiles, where the lanes' were 3-7% slower)
+enum : int { kCopyWords = 0, kCopyBulk = 1, kCopyLanes = 2 };
+
 // The producer warp: stage t of the ring holds units u0 + 4t .. + 3 of
 // every plane, the block's kCols columns each (units past u1 are left as
-// they are: the consumers' x is zero there)
+// they are: the consumers' x is zero there), copied as `copy` says (the
+// stacked kernels pass vec: bulk copies or words). t0: the stages the ring
+// took before (a persistent block's earlier items, K20); returns the count
+// after
 template <class P>
-__device__ __forceinline__ void produce(const uint32_t* __restrict__ qw, uint64_t* full, uint64_t* empty,
-                                        unsigned char* ring, int lane, int n0, int Np, int u0, int u1, int W,
-                                        int vec) {
+__device__ __forceinline__ int produce(const uint32_t* __restrict__ qw, uint64_t* full, uint64_t* empty,
+                                       unsigned char* ring, int lane, int n0, int Np, int u0, int u1, int W,
+                                       int copy, int t0 = 0) {
   constexpr int PL = P::kPlanes, S = P::kStages, RS = ring_row_bytes<P>();
   const int T = (u1 - u0 + 3) / 4;
   const int seg = min(kCols, Np - n0) * 4;  // bytes of a row in range
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    const int st = t & (S - 1);
-    if (t >= S) mbar_wait(empty + st, ((t / S) - 1) & 1);
+    const int tt = t0 + t, st = tt & (S - 1);
+    if (tt >= S) mbar_wait(empty + st, ((tt / S) - 1) & 1);
     unsigned char* dst = ring + st * 4 * RS;
     const int rows = min(4, u1 - u0 - 4 * t);
-    if (vec) {
+    if (copy == kCopyBulk) {
       if (lane == 0) {
         mbar_expect(full + st, static_cast<uint32_t>(rows * PL * seg));
         for (int r = 0; r < rows; ++r)
           for (int b = 0; b < PL; ++b)
             bulk_copy(dst + r * RS + b * kCols * 4, qw + P::row(b, u0 + 4 * t + r, W) * Np + n0, seg, full + st);
       }
+    } else if (copy == kCopyLanes) {  // four columns a lane (Np % 4 == 0: in range or not)
+      const bool on = 4 * lane < Np - n0;
+      for (int r = 0; r < rows; ++r)
+        for (int b = 0; b < PL; ++b)
+          cp_async16(dst + r * RS + (b * kCols + 4 * lane) * 4,
+                     on ? qw + P::row(b, u0 + 4 * t + r, W) * Np + n0 + 4 * lane : qw, on);
+      cp_async_arrive(full + st);
     } else {
       for (int i = lane; i < 4 * PL * kCols; i += 32) {
         const int r = i / (PL * kCols), b = (i / kCols) % PL, col = i % kCols;
@@ -313,6 +335,7 @@ __device__ __forceinline__ void produce(const uint32_t* __restrict__ qw, uint64_
     }
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
+  return t0 + T;
 }
 
 // a consumer's step t: wait for its stage, read the lane's row c (four
@@ -380,11 +403,12 @@ __device__ __forceinline__ void stage_params(unsigned char* pt, const void* sc, 
 // end runs compute(w, ul, kunit, lo, hi, true) once per group it touches,
 // only k in [lo, hi) of the lane's unit taken. close(row) closes the open
 // group (or the part of it in this split), whose parameters are row `row`
-// of the chunk's tables.
+// of the chunk's tables. t0 and the result: the ring's stages taken, as
+// produce's.
 template <class P, class Stage, class Compute, class Close>
-__device__ __forceinline__ void walk_split(uint64_t* full, uint64_t* empty, const unsigned char* ring, int c, int lcol,
-                                           int lane, int k0, int k1, int kc, int step, int unit_k, int g,
-                                           Stage&& stage, Compute&& compute, Close&& close) {
+__device__ __forceinline__ int walk_split(uint64_t* full, uint64_t* empty, const unsigned char* ring, int c, int lcol,
+                                          int lane, int k0, int k1, int kc, int step, int unit_k, int g,
+                                          Stage&& stage, Compute&& compute, Close&& close, int t0 = 0) {
   // the open group, its end, and the chunk's first group (row 0 of its tables)
   int gcur = k0 / g;
   int kend = (gcur + 1) * g;
@@ -396,7 +420,7 @@ __device__ __forceinline__ void walk_split(uint64_t* full, uint64_t* empty, cons
   };
   int ch0 = k0, ch1 = min(k0 + kc, k1);
   stage(ch0, ch1);
-  int t = 0;
+  int t = t0;
 #pragma unroll 1
   while (true) {
 #pragma unroll 1
@@ -427,6 +451,7 @@ __device__ __forceinline__ void walk_split(uint64_t* full, uint64_t* empty, cons
     consumers_sync();
     stage(ch0, ch1);
   }
+  return t;
 }
 
 // The lane's outputs: rows mt * 8 + 2c + r, its four columns, from the
@@ -952,8 +977,10 @@ int run_s8(const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, voi
 // ---------------------------------------------------------------------------
 // The planar consumer: K1 w4_planar_gemv and K17 w4_planar_f32s_gemv
 // (planar_mma_kernel below, one block per 128 columns and split of K along
-// gridDim.z, the rows of x as NT n-tiles) and K8 w4_grouped_gemv (its own
-// kernel, csrc/grouped_mma.cu, a run of selections as the rows).
+// gridDim.z, the rows of x as NT n-tiles), K8 w4_grouped_gemv (its own
+// kernel, csrc/grouped_mma.cu, a run of selections as the rows) and K20
+// w4_pnp_gemv (csrc/fused_mlp.cu: persistent blocks take item after item,
+// the ring's stages counted on from one to the next).
 //
 // Planar words as the A operand (the Planar policy): GptqOrder<4>::pair(s)
 // of a word row r is the bf16 pair 128 + q of k (4r + j, 4r + j + 2), j =
@@ -969,23 +996,28 @@ int run_s8(const int8_t* x8, const uint32_t* qw, const void* sc, int s_type, voi
 // With the norm (K1), x~ = x * w in f32 (w the norm weight, staged as f32
 // once a chunk) enters as exact bf16 parts (split3; two of them hold it
 // when w is bf16), each run on the same A; the row factor rsqrt(mean(x^2)
-// + eps) is planar_out_kernel's.
+// + eps) is planar_out_kernel's. K20's second product takes an f32 x as
+// its three exact bf16 parts, split once by K20 and stored planar-
+// interleaved (kXParts3): three tile rows an x row, each run on the same A.
+//
+// Its int8 twin, planar_s8_kernel (K11 w4a8_planar_gemv, csrc/w4a8.cu),
+// is at the end.
 // ---------------------------------------------------------------------------
 
 // bytes of a staged x row of `units` units (16 bytes each); the pad puts
 // rows 2i and 2i + 1 in the two halves of the banks
 __host__ __device__ inline int planar_x_row_bytes(int units) { return (units * 16 + 127) / 128 * 128 + 64; }
-// bytes of a chunk of `units` units: M x rows, the norm weight (32 bytes a
-// unit) and the parameter tables, nf (scales, and zs when fused) of ps
-// bytes for each half
+// bytes of a chunk of `units` units: M x rows (tile rows), the norm weight
+// (32 bytes a unit) and the parameter tables, nf (scales, and zs when
+// fused) of ps bytes for each half
 __host__ __device__ inline int planar_chunk_bytes(int M, int units, int g, int nf, int ps, bool norm) {
   return M * planar_x_row_bytes(units) + (norm ? 32 * units : 0) + 2 * nf * groups_of_chunk(4 * units, g) * kCols * ps;
 }
 // the units a block stages at once: its split's in whole steps (4 units),
-// unless its x rows, norm weight and parameters would pass kXBudget
-inline int planar_chunk_units(int M, int units_per_split, int g, int nf, int ps, bool norm) {
+// unless its x rows, norm weight and parameters would pass `budget`
+inline int planar_chunk_units(int M, int units_per_split, int g, int nf, int ps, bool norm, int budget = kXBudget) {
   int kc = (units_per_split + 3) / 4 * 4;
-  while (kc > 4 && planar_chunk_bytes(M, kc, g, nf, ps, norm) > kXBudget) kc -= 4;
+  while (kc > 4 && planar_chunk_bytes(M, kc, g, nf, ps, norm) > budget) kc -= 4;
   return kc;
 }
 // splits of `per` units that cover `units`, none empty (a grid's z)
@@ -997,25 +1029,61 @@ inline bool split_plan_ok(int units, int splits, int per) {
 // The parts a planar consumer takes x in: 1, x in bf16 (no norm); with the
 // norm, x~ = x * w in f32 as bf16 parts hi + mid (+ lo): a bf16 x times a
 // bf16 w has at most 16 significant bits, which hi and mid hold exactly
-// (lo would be 0), a product with an f32 w needs all three
-enum : int { kXBf16 = 1, kNormBf16 = 2, kNormF32 = 3 };
+// (lo would be 0), a product with an f32 w needs all three; kXParts3: the
+// three parts of an f32 x, given as three bf16 rows [M][3][K] planar-
+// interleaved (row r's unit u at r K + 8 u: x[4u .. 4u+3], x[K/2 + 4u ..])
+enum : int { kXBf16 = 1, kNormBf16 = 2, kNormF32 = 3, kXParts3 = 4 };
+// tile rows an x row takes, and the MMAs a product runs on each A
+__host__ __device__ constexpr int staged_parts(int xp) { return xp == kXParts3 ? 3 : 1; }
+__host__ __device__ constexpr int mma_parts(int xp) { return xp == kXParts3 ? 3 : xp; }
+
+// A planar consumer's rows: y[mt][pr][e] is column ncol + 2pr + (e >> 1),
+// row 8 mt + 2c + (e & 1); to prt (the split's f32 partial sums, [M, Np])
+// if given, else to o ([M, Np], bf16 or f32) times rs[m] when rs is given
+template <int NT>
+__device__ __forceinline__ void planar_store(const float (&y)[NT][2][4], int M, int Np, int ncol,
+                                             float* __restrict__ prt, void* __restrict__ o, bool out_bf16,
+                                             const float* rs) {
+  const int c = threadIdx.x & 3;
+  if (ncol >= Np) return;  // Np % 4 == 0: a lane's four columns are in range or not
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = mt * 8 + 2 * c + r;
+      if (m >= M) continue;
+      const float f = prt == nullptr && rs != nullptr ? rs[m] : 1.f;
+      const float v[4] = {y[mt][0][r] * f, y[mt][0][2 + r] * f, y[mt][1][r] * f, y[mt][1][2 + r] * f};
+      const size_t at = static_cast<size_t>(m) * Np + ncol;
+      if (prt != nullptr || !out_bf16)
+        *reinterpret_cast<float4*>((prt != nullptr ? prt : static_cast<float*>(o)) + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      else
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(o) + at) =
+            make_uint2(bf16x2_bits(__floats2bfloat162_rn(v[0], v[1])), bf16x2_bits(__floats2bfloat162_rn(v[2], v[3])));
+    }
+  }
+}
 
 // The consumer warps' whole part of a planar block: units [u0, u1) of the
 // layer (word rows), columns n0 .. n0 + kCols, M <= 8 NT rows of x (row m
-// at x + m * x_stride; stride 0: one row for all), chunks of kc units
-// staged at xt. FUSE: bf16 scales and zs [G, Np] (the zero-point term in
-// the kernel), bf16 out; else f32 scales, f32 out. XP: kXBf16, or the norm
-// x~ = x * nw with nw [K] bf16 (kNormBf16) or f32 (kNormF32). Writes the
-// rows to prt (the split's f32 partial sums, [M, Np]) if given, else to o
-// ([M, Np]).
+// at x + m * x_stride; stride 0: one row for all; kXParts3: tile row r at
+// x + r * x_stride), chunks of kc units staged at xt. FUSE: bf16 scales
+// and zs [G, Np] (the zero-point term in the kernel), bf16 out; else f32
+// scales, f32 out. XP: kXBf16, the norm x~ = x * nw with nw [K] bf16
+// (kNormBf16) or f32 (kNormF32), or kXParts3. Writes the rows to prt (the
+// split's f32 partial sums, [M, Np]) if given, else to o ([M, Np]), times
+// rs[m] when rs is given. t0 and the result: the ring's stages taken.
 template <int NT, int XP, bool FUSE>
-__device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, const unsigned char* ring,
-                                               unsigned char* xt, const __nv_bfloat16* __restrict__ x,
-                                               size_t x_stride, const void* __restrict__ nw,
-                                               const void* __restrict__ sc, const void* __restrict__ zs, int M,
-                                               int K, int Np, int g, int n0, int u0, int u1, int kc,
-                                               float* __restrict__ prt, void* __restrict__ o) {
-  constexpr bool NORM = XP != kXBf16;
+__device__ __forceinline__ int planar_consume(uint64_t* full, uint64_t* empty, const unsigned char* ring,
+                                              unsigned char* xt, const __nv_bfloat16* __restrict__ x,
+                                              size_t x_stride, const void* __restrict__ nw,
+                                              const void* __restrict__ sc, const void* __restrict__ zs, int M,
+                                              int K, int Np, int g, int n0, int u0, int u1, int kc,
+                                              float* __restrict__ prt, void* __restrict__ o,
+                                              const float* rs = nullptr, int t0 = 0) {
+  constexpr bool NORM = XP == kNormBf16 || XP == kNormF32;
+  constexpr int SP = staged_parts(XP), MP = mma_parts(XP);
   constexpr int NF = FUSE ? 2 : 1;  // parameter tables of each half: the scales (and zs)
   constexpr int PS = FUSE ? 2 : 4;  // bytes of a parameter
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1024,8 +1092,8 @@ __device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, 
   const int Kh = K / 2, Gh = K / g / 2;
   const int rb = planar_x_row_bytes(kc);
   const int ngc = groups_of_chunk(4 * kc, g);
-  float* wt = reinterpret_cast<float*>(xt + M * rb);       // NORM: [kc units][low 4 | high 4] f32
-  unsigned char* pt = xt + M * rb + (NORM ? 32 * kc : 0);  // [half][NF][ngc][kCols]
+  float* wt = reinterpret_cast<float*>(xt + SP * M * rb);       // NORM: [kc units][low 4 | high 4] f32
+  unsigned char* pt = xt + SP * M * rb + (NORM ? 32 * kc : 0);  // [half][NF][ngc][kCols]
 
   // x of units [c0, c1) into the tile (zero past c1 up to a whole step),
   // the norm weight's, and the parameters of every group the chunk touches
@@ -1035,11 +1103,19 @@ __device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, 
     stage_params(pt, sc, zs, NF, ngc, gf, ng, n0, Np, PS, 1);
     stage_params(param_row(pt, NF, ngc, 0, 0, PS), sc, zs, NF, ngc, Gh + gf, ng, n0, Np, PS, 1);
     const int U = (c1 - c0 + 3) / 4 * 4;
-    for (int i = threadIdx.x; i < M * 2 * U; i += kThreads) {
-      const int m = i / (2 * U), r = i - m * 2 * U;
-      const int ul = r >> 1, half = r & 1, u = c0 + ul;
-      const bool on = u < c1;
-      cp_async8(xt + m * rb + ul * 16 + 8 * half, on ? x + m * x_stride + half * Kh + 4 * u : x, on);
+    if constexpr (XP == kXParts3) {  // whole units, 16 bytes each, through L2 (written by this launch)
+      for (int i = threadIdx.x; i < 3 * M * U; i += kThreads) {
+        const int r = i / U, ul = i - r * U, u = c0 + ul;
+        const bool on = u < c1;
+        cp_async16(xt + r * rb + ul * 16, on ? x + r * x_stride + 8 * u : x, on);
+      }
+    } else {
+      for (int i = threadIdx.x; i < M * 2 * U; i += kThreads) {
+        const int m = i / (2 * U), r = i - m * 2 * U;
+        const int ul = r >> 1, half = r & 1, u = c0 + ul;
+        const bool on = u < c1;
+        cp_async8(xt + m * rb + ul * 16 + 8 * half, on ? x + m * x_stride + half * Kh + 4 * u : x, on);
+      }
     }
     if constexpr (NORM) {
       for (int i = threadIdx.x; i < 2 * U; i += kThreads) {
@@ -1104,23 +1180,30 @@ __device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, 
 #pragma unroll
     for (int mt = 0; mt < NT; ++mt) {
       const int m = mt * 8 + gq;
-      const uint4 v = m < M ? *reinterpret_cast<const uint4*>(xt + m * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
+      uint4 v[SP];
+#pragma unroll
+      for (int q = 0; q < SP; ++q)
+        v[q] = m < M ? *reinterpret_cast<const uint4*>(xt + (SP * m + q) * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint32_t a01 = h ? v.z : v.x, a23 = h ? v.w : v.y;  // x (k0, k1), (k2, k3) of half h
         uint32_t b0[3], b1[3];  // B registers of each part
         if constexpr (!NORM) {
-          b0[0] = __byte_perm(a01, a23, 0x5410) & m0;
-          b1[0] = __byte_perm(a01, a23, 0x7632) & m1;
+#pragma unroll
+          for (int q = 0; q < SP; ++q) {
+            const uint32_t a01 = h ? v[q].z : v[q].x, a23 = h ? v[q].w : v[q].y;  // x (k0, k1), (k2, k3) of half h
+            b0[q] = __byte_perm(a01, a23, 0x5410) & m0;
+            b1[q] = __byte_perm(a01, a23, 0x7632) & m1;
+          }
         } else {
           // x~ of k0..k3 in f32, the other groups' zeroed, as parts (k0, k2) and (k1, k3)
+          const uint32_t a01 = h ? v[0].z : v[0].x, a23 = h ? v[0].w : v[0].y;
           const float4 wv = wn[h];
           split3(in[0] ? __uint_as_float(a01 << 16) * wv.x : 0.f, in[2] ? __uint_as_float(a23 << 16) * wv.z : 0.f, b0);
           split3(in[1] ? __uint_as_float(a01 & 0xFFFF0000u) * wv.y : 0.f,
                  in[3] ? __uint_as_float(a23 & 0xFFFF0000u) * wv.w : 0.f, b1);
         }
 #pragma unroll
-        for (int q = 0; q < XP; ++q) {
+        for (int q = 0; q < MP; ++q) {
 #pragma unroll
           for (int pr = 0; pr < 2; ++pr)
             mma_bf16_16816(acc[mt][h][pr], a[h][pr][0], a[h][pr][1], a[h][pr][2], a[h][pr][3], b0[q], b1[q]);
@@ -1165,27 +1248,10 @@ __device__ __forceinline__ void planar_consume(uint64_t* full, uint64_t* empty, 
   };
 
   // the body's walk on the k of each half (4 a unit), chunks of kc units
-  walk_split<Planar>(full, empty, ring, c, lcol, lane, 4 * u0, 4 * u1, 4 * kc, 16, 4, g,
-                     [&](int ch0, int ch1) { stage_chunk(ch0 / 4, ch1 / 4); }, compute, close);
-
-  const int ncol = n0 + lcol;
-  if (ncol >= Np) return;  // Np % 4 == 0: a lane's four columns are in range or not
-#pragma unroll
-  for (int mt = 0; mt < NT; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = mt * 8 + 2 * c + r;
-      if (m >= M) continue;
-      const float v[4] = {y[mt][0][r], y[mt][0][2 + r], y[mt][1][r], y[mt][1][2 + r]};
-      const size_t at = static_cast<size_t>(m) * Np + ncol;
-      if (prt != nullptr || !FUSE)
-        *reinterpret_cast<float4*>((prt != nullptr ? prt : static_cast<float*>(o)) + at) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      else
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(o) + at) =
-            make_uint2(bf16x2_bits(__floats2bfloat162_rn(v[0], v[1])), bf16x2_bits(__floats2bfloat162_rn(v[2], v[3])));
-    }
-  }
+  const int t = walk_split<Planar>(full, empty, ring, c, lcol, lane, 4 * u0, 4 * u1, 4 * kc, 16, 4, g,
+                                   [&](int ch0, int ch1) { stage_chunk(ch0 / 4, ch1 / 4); }, compute, close, t0);
+  planar_store<NT>(y, M, Np, n0 + lcol, prt, o, FUSE, rs);
+  return t;
 }
 
 // K1 (FUSE: bf16 scales and zs, bf16 out; XP: the fused RMSNorm, f32
@@ -1209,9 +1275,10 @@ __global__ void __launch_bounds__(kBlock, NT == 1 ? 4 : NT == 2 ? 2 : 1)
   unsigned char* ring = smem + kBarBytes;
   const int W = K / 8, n0 = blockIdx.x * kCols;
   const int u0 = blockIdx.z * units_per_split, u1 = min(W, u0 + units_per_split);
-  init_ring<S>(full, empty, 1);
+  constexpr int kCopy = NT == 4 ? kCopyBulk : kCopyLanes;  // one block an SM at four n-tiles
+  init_ring<S>(full, empty, kCopy == kCopyBulk);
   if ((threadIdx.x >> 5) == kWarps) {
-    produce<Planar>(qw, full, empty, ring, threadIdx.x & 31, n0, Np, u0, u1, W, 1);
+    produce<Planar>(qw, full, empty, ring, threadIdx.x & 31, n0, Np, u0, u1, W, kCopy);
     return;
   }
   planar_consume<NT, XP, FUSE>(full, empty, ring, ring + S * 4 * ring_row_bytes<Planar>(), x, K, nw, sc, zs, M, K, Np,
@@ -1220,14 +1287,15 @@ __global__ void __launch_bounds__(kBlock, NT == 1 ? 4 : NT == 2 ? 2 : 1)
 }
 
 // The planar GEMVs' second kernel: y[m, n] = r_m * sum_s part[s, m, n] in
-// split order, as OutT (K1 bf16, K17 f32), with r_m = rsqrt(sum_k x[m,
-// k]^2 / K + eps) when x is given (K1's norm), else 1. Block (i, m) takes
-// columns [256 i, 256 (i + 1)) of row m and sums the row's squares itself,
-// the same way at any M
+// split order, as OutT (K1 and K11 bf16, K17 f32), with r_m = rsqrt(sum_k
+// x[m, k]^2 / K + eps) when x is given (K1's norm), rs[m] when rs is given
+// (K11's token scale), else 1. Block (i, m) takes columns [256 i, 256 (i +
+// 1)) of row m and sums the row's squares itself, the same way at any M.
+// Static: each source that launches it has its own
 template <class OutT>
-__global__ void __launch_bounds__(256)
+static __global__ void __launch_bounds__(256)
     planar_out_kernel(const float* __restrict__ part, int splits, int M, int Np, const __nv_bfloat16* __restrict__ x,
-                      int K, float eps, OutT* __restrict__ out) {
+                      int K, float eps, const float* __restrict__ rs, OutT* __restrict__ out) {
   const int m = blockIdx.y, n = blockIdx.x * 256 + threadIdx.x;
   const size_t MN = static_cast<size_t>(M) * Np, i = static_cast<size_t>(m) * Np + n;
   float acc = 0.f;
@@ -1256,6 +1324,7 @@ __global__ void __launch_bounds__(256)
     for (int j = 0; j < 8; ++j) q += red[j];
     acc *= rsqrtf(q * (1.0f / static_cast<float>(K)) + eps);
   }
+  if (rs != nullptr) acc *= __ldg(rs + m);
   if (n >= Np) return;
   if constexpr (std::is_same<OutT, float>::value)
     out[i] = acc;
@@ -1302,8 +1371,161 @@ int run_planar(const __nv_bfloat16* x, const uint32_t* qw, const void* sc, const
   using OutT = typename std::conditional<FUSE, __nv_bfloat16, float>::type;
   if (p != nullptr)
     planar_out_kernel<OutT><<<dim3((Np + 255) / 256, M), 256, 0, st>>>(p, splits, M, Np, xp != kXBf16 ? x : nullptr, K,
-                                                                       eps, static_cast<OutT*>(out));
+                                                                       eps, nullptr, static_cast<OutT*>(out));
   return qllm_launch_status();
+}
+
+// ---------------------------------------------------------------------------
+// K11's int8 twin of the planar consumer (planar_s8_kernel): the
+// quantizer's x8 against the planar nibbles on mma.sync m16n8k16 s8 with
+// s32 accumulators, one block per (128 columns, split of K along
+// gridDim.z), the rows of x8 as NT n-tiles. A planar word masked with
+// 0x0F0F0F0F is four s8 values of k = 4r .. 4r + 3 of the low half, and its
+// high nibbles are the same k of the high half: lane c's word row of a
+// stage fills A's k slots 4c .. 4c + 3 (rows gq / gq + 8: columns 2pr /
+// 2pr + 1) with no conversion, and x8 staged at the same k (a row's low
+// half's bytes, then its high half's) is B. One MMA per half into its own
+// accumulator set, as the bf16 consumer keeps them; one m16n8k32 MMA with
+// A rows gq ones on k 0..15 and rows gq + 8 ones on k 16..31, against
+// (low, high), gives both halves' sum x8 of each row in the C layout. At a
+// group's end, y += d * s - sum(x8) * zs (d an exact s32 dot, y f32); a
+// step that holds a group's end runs once per group it touches, the other
+// groups' bytes of B zeroed. K is split by whole 4-row steps (x8 is staged
+// by 16-byte copies) from (K, Np) alone, so a row's bits do not depend on
+// M; the rows are written as bf16(sx * y), or as partial sums that
+// planar_out_kernel adds in split order and scales by sx.
+// ---------------------------------------------------------------------------
+
+// bytes of a staged x8 row of kc units (kc % 4 == 0): the low half's 4 kc
+// bytes, then the high half's; the pad puts rows 0..7 in distinct 16-byte
+// bank groups
+__host__ __device__ inline int planar_x8_row_bytes(int kc) { return (8 * kc + 127) / 128 * 128 + 16; }
+// a chunk's x8 rows and both halves' bf16 scales and zs
+__host__ __device__ inline int planar_s8_chunk_bytes(int M, int kc, int g) {
+  return M * planar_x8_row_bytes(kc) + 2 * 2 * groups_of_chunk(4 * kc, g) * kCols * 2;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kBlock, NT == 1 ? 4 : 2)
+    planar_s8_kernel(const int8_t* __restrict__ x8,      // [M, K]
+                     const float* __restrict__ sx,       // [M]
+                     const uint32_t* __restrict__ qw,    // [K/8, Np] the layer's words
+                     const __nv_bfloat16* __restrict__ sc, const __nv_bfloat16* __restrict__ zs,  // [G, Np]
+                     int M, int K, int Np, int g, int units_per_split, int kc,
+                     float* __restrict__ part,            // [splits, M, Np] when split
+                     __nv_bfloat16* __restrict__ out) {   // [M, Np] when not
+  constexpr int S = Planar::kStages;
+  constexpr uint32_t kLow = 0x0F0F0F0Fu, kOnes8 = 0x01010101u;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  unsigned char* ring = smem + kBarBytes;
+  const int W = K / 8, n0 = blockIdx.x * kCols;
+  const int u0 = blockIdx.z * units_per_split, u1 = min(W, u0 + units_per_split);
+  init_ring<S>(full, empty, false);
+  if ((threadIdx.x >> 5) == kWarps) {
+    produce<Planar>(qw, full, empty, ring, threadIdx.x & 31, n0, Np, u0, u1, W, kCopyLanes);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, c = lane & 3;
+  const int lcol = warp * 32 + 4 * gq;
+  const int Kh = K / 2, Gh = K / g / 2;
+  const int rb = planar_x8_row_bytes(kc), hb = 4 * kc;  // a row's bytes; the high half's offset in it
+  const int ngc = groups_of_chunk(4 * kc, g);
+  unsigned char* xt = ring + S * 4 * ring_row_bytes<Planar>();
+  unsigned char* pt = xt + M * rb;  // [half][scales, zs][ngc][kCols] bf16
+
+  // x8 of units [c0, c1) (whole steps) of both halves into the tile, and
+  // both halves' scales and zs of every group the chunk touches
+  auto stage_chunk = [&](int c0, int c1) {
+    const int gf = 4 * c0 / g, ng = (4 * c1 - 1) / g - gf + 1;
+    stage_params(pt, sc, zs, 2, ngc, gf, ng, n0, Np, 2, 1);
+    stage_params(param_row(pt, 2, ngc, 0, 0, 2), sc, zs, 2, ngc, Gh + gf, ng, n0, Np, 2, 1);
+    const int Q = (c1 - c0) / 4;  // 16-byte pieces of a half
+    for (int i = threadIdx.x; i < M * 2 * Q; i += kThreads) {
+      const int m = i / (2 * Q), r = i - m * 2 * Q, half = r / Q, j = r - half * Q;
+      cp_async16(xt + m * rb + half * hb + 16 * j, x8 + static_cast<size_t>(m) * K + half * Kh + 4 * c0 + 16 * j, true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    consumers_sync();
+  };
+
+  // acc[mt][half]: the open group's dot; xs[mt]: its sum x8, rows 2c, 2c + 1
+  // of the low half, then of the high; y: the closed groups
+  int acc[NT][2][2][4], xs[NT][4];
+  float y[NT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      xs[mt][e] = 0;
+      y[mt][0][e] = y[mt][1][e] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) acc[mt][h][0][e] = acc[mt][h][1][e] = 0;
+    }
+
+  auto compute = [&](const uint32_t (&w)[1][4], int ul, int kunit, int lo, int hi, bool masked) {
+    uint32_t keep = 0xFFFFFFFFu;  // the bytes of B in the group being summed
+    if (masked) {
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) keep |= (kunit + j >= lo && kunit + j < hi ? 0xFFu : 0u) << (8 * j);
+    }
+    uint32_t a[2][2][2];  // [half][pr][column 2pr, 2pr + 1]
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        a[0][pr][i] = w[0][2 * pr + i] & kLow;
+        a[1][pr][i] = (w[0][2 * pr + i] >> 4) & kLow;
+      }
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt) {
+      const int m = mt * 8 + gq;
+      const unsigned char* xr = xt + m * rb + 4 * ul;
+      const uint32_t b[2] = {m < M ? *reinterpret_cast<const uint32_t*>(xr) & keep : 0u,
+                             m < M ? *reinterpret_cast<const uint32_t*>(xr + hb) & keep : 0u};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) mma_s8_16816(acc[mt][h][pr], a[h][pr][0], a[h][pr][1], b[h]);
+      mma_s8_16832(xs[mt], kOnes8, 0u, 0u, kOnes8, b[0], b[1]);
+    }
+  };
+
+  auto close = [&](int row) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned char* srow = param_row(pt, 2 * h, ngc, row, lcol, 2);
+      const unsigned char* zrow = param_row(pt, 2 * h + 1, ngc, row, lcol, 2);
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float s = param_at(srow, 2, 2 * pr + half), z = param_at(zrow, 2, 2 * pr + half);
+#pragma unroll
+          for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * half + r;
+              const float t = fmaf(static_cast<float>(acc[mt][h][pr][e]), s, y[mt][pr][e]);
+              y[mt][pr][e] = fmaf(-static_cast<float>(xs[mt][2 * h + r]), z, t);
+              acc[mt][h][pr][e] = 0;
+            }
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < NT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[mt][e] = 0;
+  };
+
+  walk_split<Planar>(full, empty, ring, c, lcol, lane, 4 * u0, 4 * u1, 4 * kc, 16, 4, g,
+                     [&](int ch0, int ch1) { stage_chunk(ch0 / 4, ch1 / 4); }, compute, close);
+  planar_store<NT>(y, M, Np, n0 + lcol, part != nullptr ? part + static_cast<size_t>(blockIdx.z) * M * Np : nullptr,
+                   out, true, sx);
 }
 
 }  // namespace stacked_mma

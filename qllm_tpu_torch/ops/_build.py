@@ -58,7 +58,7 @@ _SIGNATURES = {
     "qllm_gptq_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "qllm_gptq_gemm": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
     "qllm_quantize_rows_int8": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "qllm_w4a8_planar_gemv": [_P, _I] + [_P] * 6 + [_I, _F, _P] + [_I] * 6 + [_P],
+    "qllm_w4a8_planar_gemv": [_P, _I] + [_P] * 6 + [_I, _F, _P, _P] + [_I] * 7 + [_P],
     "qllm_gptq_w4a8_gemv": [_P, _I] + [_P] * 7 + [_I, _P, _P] + [_I] * 7 + [_P],
     "qllm_stream_pass": [_P, _P] + [_I] * 5 + [_P],
     "qllm_gptq_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
@@ -67,7 +67,7 @@ _SIGNATURES = {
     "qllm_w4_planar_f32s_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "qllm_w4_planar_f32s_gemm": [_P] * 4 + [_I] * 5 + [_P],
     "qllm_w4_grouped_fused_mlp": [_P] * 11 + [_I] * 9 + [_P],
-    "qllm_w4_pnp_gemv": [_P] * 3 + [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
+    "qllm_w4_pnp_gemv": [_P] * 3 + [_I] + [_P] * 13 + [_I] * 11 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

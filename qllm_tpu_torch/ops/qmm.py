@@ -16,7 +16,8 @@ package's gate takes on its chip (``stacked_route``, pallas_qmm.py:
     ``w4a8_planar_gemv`` (M <= 32 with ``w4a8=True`` where the JAX package
     takes its full-K kernel: per-token int8 activations,
     ``quantize_rows_int8``, bit for bit the JAX package's, in s8 x s8 ->
-    s32 tensor-core products, the RMSNorm in K11's quantizer prologue);
+    s32 tensor-core products on the body's int8 planar consumer, the
+    RMSNorm in K11's quantizer prologue);
   * every other 4-bit planar stack (f32 scales, the JAX package's default,
     or zeros not prefolded): K17 ``w4_planar_f32s_gemv`` (M <= 32) and
     K18 ``w4_planar_f32s_gemm`` (M > 32) (``ops.qmm_planar``), with the
@@ -45,8 +46,9 @@ Two products with a serial dependency run as one cooperative launch
 each (``csrc/fused_mlp.cu``): ``qmatmul_grouped_experts_fused`` (K19
 ``w4_grouped_fused_mlp``, JAX's ``_qmm_kernel_grouped_fused``) computes
 a selection's whole expert MLP, gate|up, the activation and down, and
-``qmatmul_pnp_stacked`` (K20 ``w4_pnp_gemv``, JAX's ``_qmm_kernel_pnp``)
-o_proj, the residual, RMSNorm and gate|up.
+``qmatmul_pnp_stacked`` (K20 ``w4_pnp_gemv``, JAX's ``_qmm_kernel_pnp``,
+both products on the tensor-core body's planar consumer) o_proj, the
+residual, RMSNorm and gate|up.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor. The TPU autotuner does not
@@ -96,6 +98,7 @@ __all__ = [
     "w4_planar_gemm_plain",
     "planar_full_ok",
     "planar_splits",
+    "a8_splits",
     "planar_bk",
     "planar_bk_relaxed",
 ]
@@ -298,6 +301,15 @@ def planar_splits(K: int, Np: int):
     K/8 word rows over Np columns on the planar target, from (K, Np)
     alone, so a row's bits never depend on M."""
     return tc_splits(K // 8, Np, TC_TARGET_BLOCKS["planar"])
+
+
+def a8_splits(K: int, Np: int):
+    """K11's (splits of K, word rows a split): ``planar_splits`` with each
+    split widened to whole 4-row steps (its x8 is staged by 16-byte
+    copies); from (K, Np) alone, so a row's bits never depend on M."""
+    _, per = planar_splits(K, Np)
+    per = -(-per // 4) * 4
+    return -(-(K // 8) // per), per
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -521,7 +533,9 @@ def w4a8_planar_gemv(
     quantized per row in the kernel's prologue -> y [M, Np] bf16 (see the
     plain version). Replaces the a8 branch of _qmm_kernel_planar_full
     (pallas_qmm.py:832). Bound: bytes (words + scales + zs + x + y) over
-    3.35 TB/s."""
+    3.35 TB/s. The product runs on the body's int8 planar consumer, K split
+    by ``a8_splits``; a third kernel adds the splits in split order and
+    scales by sx."""
     if not _build.use_kernel(x, "w4a8_planar_gemv"):
         return w4a8_planar_gemv_plain(x, qweight, scales, zs, layer, norm_w, eps)
     if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32) or not 1 <= x.shape[0] <= GEMV_MAX_M:
@@ -530,22 +544,23 @@ def w4a8_planar_gemv(
     L, Np, G = _check_stack("w4a8_planar_gemv", x, qweight, scales, zs, layer, K)
     if not planar_full_ok(K, K // G) or Np % 32:
         raise ValueError(f"w4a8_planar_gemv: K={K}, G={G}, Np={Np} is not the full-K geometry")
-    x = x.contiguous()
+    x = _aligned(x.contiguous())
     nw_f32 = 0
     if norm_w is not None:
         if tuple(norm_w.shape) != (L, K) or norm_w.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError("w4a8_planar_gemv: norm_w must be bf16/f32 [L, K]")
-        norm_w = norm_w.contiguous()
+        norm_w = _aligned(norm_w.contiguous())
         nw_f32 = int(norm_w.dtype == torch.float32)
-    x8 = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    splits, per = a8_splits(K, Np)
+    # the body stages x8 by 16-byte copies; the splits' partial sums when K is split
+    x8 = _aligned(torch.empty((M, K), dtype=torch.int8, device=x.device))
     sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    part = torch.empty((splits, M, Np), dtype=torch.float32, device=x.device) if splits > 1 else None
     out = torch.empty((M, Np), dtype=torch.bfloat16, device=x.device)
-    sms = _sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
-    warps = max(1, min(8, K // 64, -(-16 * sms // (Np // 32))))
     code = _build.load_library().qllm_w4a8_planar_gemv(
         x.data_ptr(), int(x.dtype == torch.float32), x8.data_ptr(), sx.data_ptr(), qweight.data_ptr(),
-        scales.data_ptr(), zs.data_ptr(), _build.ptr(norm_w), nw_f32, float(eps), out.data_ptr(), layer, M, K, Np,
-        K // G, warps, _build.stream(x),
+        scales.data_ptr(), zs.data_ptr(), _build.ptr(norm_w), nw_f32, float(eps), _build.ptr(part), out.data_ptr(),
+        layer, M, K, Np, K // G, splits, per, _build.stream(x),
     )
     _build.check("w4a8_planar_gemv", code)
     w4a8_planar_gemv.launches += 1
@@ -1164,15 +1179,19 @@ def w4_pnp_gemv(
     layer: int,
     eps: float,
 ):
-    """K20: x1 [M, K1] bf16, h [M, D] f32, proj1 [L, K1/8, D] / [L, G1, D],
-    proj2 [L, D/8, Np2] / [L, G2, Np2], norm_w [L, D] bf16 / f32 -> (hn f32
-    [M, D], y2 bf16 [M, Np2]) in one cooperative launch (see the plain
-    version)."""
+    """K20: x1 [M <= 32, K1] bf16, h [M, D] f32, proj1 [L, K1/8, D] / [L,
+    G1, D], proj2 [L, D/8, Np2] / [L, G2, Np2], norm_w [L, D] bf16 / f32 ->
+    (hn f32 [M, D], y2 bf16 [M, Np2]) in one cooperative launch (see the
+    plain version) on the tensor-core body: K1 and D split by
+    ``planar_splits`` of each product's shape; the scratch (both products'
+    partial sums, x~ = hn * w as three bf16 parts, the rows' sums of
+    squares by 128-column tile) allocated here. Bound: bytes (both layers'
+    words, scales and zs) over 3.35 TB/s."""
     if not _build.use_kernel(x1, "w4_pnp_gemv"):
         return w4_pnp_gemv_plain(x1, h, qw1, s1, z1, qw2, s2, z2, norm_w, layer, eps)
     name = "w4_pnp_gemv"
-    if x1.dtype != torch.bfloat16 or x1.dim() != 2 or x1.shape[0] < 1:
-        raise ValueError(f"{name}: x1 must be bf16 [M, K1]")
+    if x1.dtype != torch.bfloat16 or x1.dim() != 2 or not 1 <= x1.shape[0] <= GEMV_MAX_M:
+        raise ValueError(f"{name}: x1 must be bf16 [M <= {GEMV_MAX_M}, K1]")
     M, K1 = x1.shape
     L, D, G1 = _check_stack(name, x1, qw1, s1, z1, layer, K1)
     L2, Np2, G2 = _check_stack(name, x1, qw2, s2, z2, layer, D)
@@ -1183,13 +1202,20 @@ def w4_pnp_gemv(
     x1 = _aligned(x1.contiguous())
     h = _aligned(h.contiguous())
     norm_w = _aligned(norm_w.contiguous())
-    hn = torch.empty((M, D), dtype=torch.float32, device=x1.device)
-    y2 = torch.empty((M, Np2), dtype=torch.bfloat16, device=x1.device)
+    splits1, per1 = planar_splits(K1, D)
+    splits2, per2 = planar_splits(D, Np2)
+    dev = x1.device
+    hn = torch.empty((M, D), dtype=torch.float32, device=dev)
+    y2 = torch.empty((M, Np2), dtype=torch.bfloat16, device=dev)
+    part1 = torch.empty((splits1, M, D), dtype=torch.float32, device=dev)
+    x3 = torch.empty((M, 3, D), dtype=torch.bfloat16, device=dev)
+    sq = torch.empty((M, D // 128), dtype=torch.float32, device=dev)
+    part2 = torch.empty((splits2, M, Np2), dtype=torch.float32, device=dev) if splits2 > 1 else None
     code = _build.load_library().qllm_w4_pnp_gemv(
         x1.data_ptr(), h.data_ptr(), norm_w.data_ptr(), int(norm_w.dtype == torch.float32), qw1.data_ptr(),
-        s1.data_ptr(), z1.data_ptr(), qw2.data_ptr(), s2.data_ptr(), z2.data_ptr(), hn.data_ptr(),
-        _grid_barrier(x1.device).data_ptr(), y2.data_ptr(), layer, M, K1, D, Np2, K1 // G1, D // G2, float(eps),
-        _build.stream(x1),
+        s1.data_ptr(), z1.data_ptr(), qw2.data_ptr(), s2.data_ptr(), z2.data_ptr(), hn.data_ptr(), part1.data_ptr(),
+        x3.data_ptr(), sq.data_ptr(), _build.ptr(part2), _grid_barrier(dev).data_ptr(), y2.data_ptr(), layer, M, K1, D,
+        Np2, K1 // G1, D // G2, splits1, per1, splits2, per2, float(eps), _build.stream(x1),
     )
     _build.check(name, code)
     w4_pnp_gemv.launches += 1

@@ -1346,6 +1346,78 @@ def test_k19_k20_at_g8(gen):
     torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)
 
 
+@pytest.mark.parametrize("nw_dtype", [None, torch.bfloat16, torch.float32])
+def test_k11_rows_do_not_depend_on_m(gen, nw_dtype):
+    """K11's rows at M = 1 and 8 are bit-equal to those rows of one M = 32
+    launch, with and without the norm (K split: the plan comes from (K,
+    Np) alone)."""
+    K, Np = 4096, 1024
+    assert qmm.a8_splits(K, Np)[0] > 1
+    qw, sc, zs = _stack(gen, K, Np)
+    nw = None if nw_dtype is None else (torch.rand((2, K), device="cuda", generator=gen) + 0.5).to(nw_dtype)
+    x = torch.randn((32, K), device="cuda", generator=gen).to(torch.bfloat16)
+    y = qmm.w4a8_planar_gemv(x, qw, sc, zs, 1, nw, 1e-5)
+    for m in (1, 8):
+        assert torch.equal(qmm.w4a8_planar_gemv(x[:m], qw, sc, zs, 1, nw, 1e-5), y[:m]), m
+
+
+def _pnp_args(gen, L, M, K1, D, Np2, g=128, nw_dtype=torch.bfloat16):
+    q1, s1, z1 = _stack_g(gen, K1, D, g, L=L)
+    q2, s2, z2 = _stack_g(gen, D, Np2, g, L=L)
+    nw = (torch.rand((L, D), device="cuda", generator=gen) + 0.5).to(nw_dtype)
+    x1 = torch.randn((M, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    h = torch.randn((M, D), device="cuda", generator=gen) * 4.0
+    return x1, h, q1, s1, z1, q2, s2, z2, nw, L - 1, 1e-6
+
+
+def _pnp_close(hn, y2, hn_ref, y2_ref):
+    torch.testing.assert_close(hn, hn_ref, atol=1e-5 * float(hn_ref.abs().max()), rtol=0)
+    torch.testing.assert_close(y2.float(), y2_ref.float(), atol=_bf16_ulp(y2_ref.float()), rtol=0)
+
+
+@pytest.mark.parametrize("K1,D,Np2", [(1024, 1024, 2048), (4096, 4096, 22016)])
+def test_k20_rows_do_not_depend_on_m(gen, K1, D, Np2):
+    """K20's row at M = 1 is bit-equal to that row of an M = 8 launch, hn
+    and y2 (both products split: the plans come from the shapes alone)."""
+    args = _pnp_args(gen, 2, 8, K1, D, Np2)
+    assert qmm.planar_splits(K1, D)[0] > 1 and qmm.planar_splits(D, Np2)[0] > 1
+    hn, y2 = qmm.w4_pnp_gemv(*args)
+    hn1, y21 = qmm.w4_pnp_gemv(args[0][:1], args[1][:1], *args[2:])
+    assert torch.equal(hn1, hn[:1]) and torch.equal(y21, y2[:1])
+
+
+def test_k20_twice_and_after_k19_on_the_same_barrier(gen):
+    """K20 twice back to back, then K19 and K20 again, all on the device's
+    one pair of barrier words: each K20 call gives the same bits, within
+    its limits of the plain version, and the words are left ready (count 0)."""
+    args = _pnp_args(gen, 2, 8, 1024, 1024, 2048)
+    first = qmm.w4_pnp_gemv(*args)
+    second = qmm.w4_pnp_gemv(*args)
+    E, K1, K2, Np2, n = 4, 512, 256, 512, 3
+    gq, gs, gz = _stack(gen, K1, 2 * K2, L=E)
+    dq, ds, dz = _stack(gen, K2, Np2, L=E)
+    ids = torch.tensor([2, 0, 3], dtype=torch.int32, device="cuda")
+    x = torch.randn((n, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    fargs = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", False)
+    y = qmm.w4_grouped_fused_mlp(*fargs)
+    third = qmm.w4_pnp_gemv(*args)
+    torch.cuda.synchronize()
+    ref = qmm.w4_grouped_fused_mlp_plain(*fargs).float()
+    torch.testing.assert_close(y.float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    for got in (second, third):
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+    _pnp_close(*first, *qmm.w4_pnp_gemv_plain(*args))
+    assert int(qmm._grid_barrier(x.device)[0]) == 0
+
+
+@pytest.mark.parametrize("M,nw_dtype", [(1, torch.float32), (8, torch.float32), (5, torch.bfloat16)])
+def test_k20_at_g8_with_either_norm_weight(gen, M, nw_dtype):
+    """K20 on g = 8 stacks with bf16 and f32 norm weights, at M = 1, 5 and
+    8, against its plain version (hn 1e-5 * max|hn|, y2 one bf16 ulp)."""
+    args = _pnp_args(gen, 2, M, 512, 768, 640, g=8, nw_dtype=nw_dtype)
+    _pnp_close(*qmm.w4_pnp_gemv(*args), *qmm.w4_pnp_gemv_plain(*args))
+
+
 @pytest.mark.parametrize("int8", [True, False])
 @pytest.mark.parametrize("D,n_rep,softcap,window", [(384, 2, 0.0, 0), (512, 1, 50.0, 0), (512, 2, 0.0, 90)])
 def test_flash_prefill_kernel_at_d384_and_d512(gen, int8, D, n_rep, softcap, window):
