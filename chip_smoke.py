@@ -176,6 +176,9 @@ CROSS = dict(B=2, T=32, STEPS=4, MAX_SEQ=64, LAYERS=2)
 CROSS1 = dict(T=256, STEPS=8, MAX_SEQ=280)
 # the K3a / K3b phase: layers, batch, kv heads, cache length, head width
 ATTN_SHAPE = dict(L=2, B=8, Hkv=32, S=256, D=128)
+# K3a beside ATTN_SHAPE's bf16 row: the other head widths the port serves
+# (Llama-3.2-1B's 64, Gemma-2-9B's 256) and an f32 k / v, at its B, Hkv, S
+KV_WRITE_CASES = ((64, "bfloat16"), (256, "bfloat16"), (128, "float32"), (64, "float32"), (256, "float32"))
 K4_SHAPE = (32, 512, 22016)  # the gateup stack, [L, 4096/8, N]
 # K1 / K2 rows per case: (kernel, M, projection or None for all)
 QMM_CASES = (
@@ -287,6 +290,10 @@ K1_KERNELS = K17_KERNELS = ("planar_mma_kernel", "planar_out_kernel")
 # K11's kernels in the a8 leg's profile (no K1 runs there): the quantizer,
 # the int8 body on the planar consumer and its split sum
 K11_KERNELS = ("quantize_rows_kernel", "planar_s8_kernel", "planar_out_kernel")
+# K3a's kernel in the main path's profile (its share of the 7B b8 step)
+K3A_KERNELS = ("kv_write_kernel",)
+# K19's kernel in the fused leg's profile: one cooperative launch a call
+K19_KERNELS = {"fused_mlp_kernel": (1, 1)}
 # K19 (the fused expert MLP) at Qwen3-30B-A3B's batch-1 decode: experts in
 # the stack, hidden (K1), expert width (K2), padded down width, selections
 K19_CASE = dict(E=128, K1=2048, K2=768, Np2=2048, n=8)
@@ -546,6 +553,30 @@ def phase_kernels(torch, timer):
     log(f"[kernel] {json.dumps(rows[-1])}")
     if not ok:
         raise AssertionError(f"kv_write_int8: int8 err {err_q}, scale rel err {err_s}")
+    for Dx, dname in KV_WRITE_CASES:
+        dt = getattr(torch, dname)
+        base = (torch.randint(-127, 128, (L, B, Hkv, S, Dx), dtype=torch.int8, device=dev, generator=gen),
+                torch.randint(-127, 128, (L, B, Hkv, S, Dx), dtype=torch.int8, device=dev, generator=gen),
+                torch.rand((L, B, Hkv, S), device=dev, generator=gen), torch.rand((L, B, Hkv, S), device=dev, generator=gen))
+        kx = torch.randn((B, Hkv, Dx), device=dev, generator=gen).to(dt)
+        vx = torch.randn((B, Hkv, Dx), device=dev, generator=gen).to(dt)
+        mine, want = [t.clone() for t in base], [t.clone() for t in base]
+        att.kv_write_int8(kx, vx, *mine, 1, pos)
+        torch.cuda.synchronize()
+        att.kv_write_int8_plain(kx, vx, *want, 1, pos)
+        same = all(torch.equal(a, b) for a, b in zip(mine, want))
+        err_x = max(float((a.float() - b.float()).abs().max()) for a, b in zip(mine, want))
+        b_ms, b_by = bound(2 * B * Hkv * Dx * kx.element_size() + 2 * B * Hkv * Dx + 2 * B * Hkv * 4 + B * 4)
+        rows.append(dict(kernel="kv_write_int8", case=f"B={B} Hkv={Hkv} D={Dx} S={S} {dname}", max_abs_err=err_x,
+                         tol="bit-equal (int8 and scales)", ok=same,
+                         ms=timer(lambda: att.kv_write_int8(kx, vx, *mine, 1, pos)),
+                         plain_ms=timer(lambda: att.kv_write_int8_plain(kx, vx, *want, 1, pos)), library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by,
+                         device_ms=launch_us(torch, lambda: att.kv_write_int8(kx, vx, *mine, 1, pos), key="") / 1e3))
+        log(f"[kernel] {json.dumps(rows[-1])}")
+        if not same:
+            raise AssertionError(f"kv_write_int8 D={Dx} {dname}: not bit-equal to its plain version (err {err_x})")
+        del base, mine, want
 
     lengths = pos + 1
     q = torch.randn((B, Hkv, D), device=dev, generator=gen).to(torch.bfloat16)
@@ -1469,13 +1500,16 @@ def fused_rows(torch, timer, gen, stack):
     yard_ms = timer(two_launch)
     ms = timer(lambda: qmm.w4_grouped_fused_mlp(*args))
     plain_ms = timer(lambda: qmm.w4_grouped_fused_mlp_plain(*args), reps=5, warmup=1)
+    # a call's device time (all its kernels), K19's and the yardstick's
+    device = dict(device_ms=launch_us(torch, lambda: qmm.w4_grouped_fused_mlp(*args), key="") / 1e3,
+                  yardstick_device_ms=launch_us(torch, two_launch, key="") / 1e3)
     per_expert = gq[0].numel() * 4 + 2 * gs[0].numel() * 2 + dq[0].numel() * 4 + 2 * ds[0].numel() * 2
     nbytes = n * per_expert + x.numel() * 2 + n * Np2 * 2 + n * 4
     b_ms, b_by = bound(nbytes, 2.0 * n * (K1 * 2 * K2 + K2 * Np2))
     rows.append(dict(kernel="w4_grouped_fused_mlp", case=f"qwen3 K1={K1} K2={K2} N2={Np2} E={E} n={n} shared",
                      max_abs_err=err, tol=f"one bf16 ulp of max|plain| ({tol:.4g})", ok=err <= tol, ms=ms,
                      plain_ms=plain_ms, library_ms=None, yardstick="K8 gate|up, silu * up, K8 down",
-                     yardstick_ms=yard_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+                     yardstick_ms=yard_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, **device))
     log(f"[kernel] {json.dumps(rows[-1])}")
     if err > tol:
         raise AssertionError(f"w4_grouped_fused_mlp: max_abs_err {err} > {tol}")
@@ -1654,7 +1688,8 @@ def phase_main(torch, K):
     torch.cuda.synchronize()
     decode_warm_s = time.perf_counter() - t0
     same = bool(torch.equal(toks, toks2))
-    busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + STEPS, sums={"k1": K1_KERNELS})
+    busy = profile_decode(torch, sp, cfg, toks2[:, -1:].contiguous(), cache, T + STEPS,
+                          sums={"k1": K1_KERNELS, "k3a": K3A_KERNELS})
     result = {
         "config": f"Llama-2-7B shape, {cfg.num_hidden_layers} layers, W4 g128, quantized lm_head, "
         f"int8 KV, B={B}, T={T}, max_seq {MAX_SEQ}",
@@ -2296,6 +2331,7 @@ def qwen3_fused_leg(torch, K, cfg, sp):
     round differently)."""
     from qllm_tpu_torch.models.decode_loop import decode_loop
     from qllm_tpu_torch.models.generate import decode_step, make_cache, prefill
+    from qllm_tpu_torch.ops import qmm
 
     T, MAX, STEPS, L = MOE["T1"], MOE["MAX1"], FUSED["STEPS"], cfg.num_hidden_layers
     gen = torch.Generator(device=DEV)
@@ -2320,20 +2356,26 @@ def qwen3_fused_leg(torch, K, cfg, sp):
             "two_launch": {"w4_grouped_fused_mlp": 0, "w4_grouped_gemv": 2 * L * STEPS}}
     check_launches({k: legs[k][2] for k in want}, want)
     toks_f, c = legs["fused_warm"][0], legs["fused_warm"][3]
-    busy = profile_decode(torch, sp, cfg, toks_f[:, -1:].contiguous(), c, T + STEPS, steps=8, moe_fused=True)
+    busy = profile_decode(torch, sp, cfg, toks_f[:, -1:].contiguous(), c, T + STEPS, steps=8, moe_fused=True,
+                          watch={"k19": (qmm.w4_grouped_fused_mlp, K19_KERNELS)})
+    # the two-launch leg profiled on from its own state: K8's share of its step beside K19's of the fused one
+    toks_t, ct = legs["two_launch"][0], legs["two_launch"][3]
+    busy_t = profile_decode(torch, sp, cfg, toks_t[:, -1:].contiguous(), ct, T + STEPS, steps=8,
+                            watch={"k8": watched("k8")})
     agree = float((legs["fused"][0] == legs["two_launch"][0]).float().mean())
     out = {"config": f"Qwen3-30B-A3B, {L} layers, B=1, T={T} ring prefill, {STEPS} steps each way from its cache",
            "first_step_logits_rel_err": rel, "rel_bound": FUSED["REL"],
            "two_launch_ms_per_step": legs["two_launch"][1], "fused_ms_per_step": legs["fused"][1],
            "fused_ms_per_step_warm": legs["fused_warm"][1], "greedy_agreement": agree,
            "fused_repeat_same_ids": bool(torch.equal(legs["fused"][0], toks_f)),
-           "fused_launches_per_step": {k: v / STEPS for k, v in legs["fused"][2].items() if v}, **busy}
+           "fused_launches_per_step": {k: v / STEPS for k, v in legs["fused"][2].items() if v}, **busy,
+           **{f"two_launch_{k}": v for k, v in busy_t.items()}}
     log(f"[moe_qwen3 fused] {json.dumps(out)}")
     if not rel <= FUSED["REL"] or not out["fused_repeat_same_ids"]:
         raise AssertionError(f"moe_qwen3 fused: first-step logits rel err {rel}, "
                              f"repeat ids {out['fused_repeat_same_ids']}")
     total = {k: sum(leg[2][k] for leg in legs.values()) for k in K}
-    del legs, cache, c
+    del legs, cache, c, ct
     torch.cuda.empty_cache()
     check_no_sync(torch, "moe_qwen3 fused b1", cfg, sp, 1, moe_fused=True)
     return total
@@ -4148,12 +4190,15 @@ def summary_entry(name, replaces, launches, mine, headline=""):
                                   "gptq_gemm", "w4a8_planar_gemv", "gptq_w4a8_gemv",
                                   "gptq_stacked_gemv", "gptq_stacked_w4a8_gemv", "bitplane_stacked_gemv",
                                   "w4_planar_f32s_gemv", "w4_planar_f32s_gemm", "w4_pnp_gemv",
-                                  "decode_attn_int8_4d"):
+                                  "decode_attn_int8_4d", "kv_write_int8"):
         entry["readings"] = [{k: r[k] for k in ("case", "ms", "device_ms", "max_abs_err", "bound_ms", "library_ms",
                                                 "library_device_ms", "plain_ms") if k in r} for r in mine]
     if "yardstick_ms" in head:
         entry["yardstick"] = head["yardstick"]
         entry["yardstick_ms"] = head["yardstick_ms"]
+    for k in ("device_ms", "yardstick_device_ms"):
+        if k in head:
+            entry[k] = head[k]
     return entry
 
 

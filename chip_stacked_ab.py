@@ -3,7 +3,7 @@ the package of the working directory: run it from the root of each tree of
 an A/B (an archived parent beside this one) in one call on the card, so
 that both sides share the card and its power limit.
 
-    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets,k12,k8,planar,k8_heads,k11,pnp]
+    python3 chip_stacked_ab.py [--tag NAME] [--reps N] [--parts stacked,k9,k15,engine,k9_targets,k12,k8,planar,k8_heads,k11,pnp,k19,k3a]
 
   * stacked: K14 gptq_stacked_gemv and K16 bitplane_stacked_gemv at the
     Llama-2-7B stacked projections;
@@ -34,6 +34,13 @@ that both sides share the card and its power limit.
     4096->4096, the residual, RMSNorm, gate|up 4096->22016) at M = 1 and
     8, beside its bound and the K1 pair it fuses (K1 o_proj, + h, K1
     gate|up with the norm), the yardstick, there being no one library call;
+  * k19 (not in the default parts): K19 w4_grouped_fused_mlp at
+    chip_smoke's K19_CASE (Qwen3-30B-A3B's experts, silu, one shared x
+    row) at n = 1, 8 and 16 selections, beside its bound and its yardstick,
+    what the port runs without it (K8 gate|up, silu * up, K8 down, as
+    chip_smoke's fused_rows builds it): no one PyTorch call computes it;
+  * k3a (not in the default parts): K3a kv_write_int8 at B = 8, Hkv = 32,
+    S = 256 and D = 64, 128 and 256, in bf16 and f32, beside its bound;
   * k8 (not in the default parts): K8 w4_grouped_gemv at the sparse MoE
     decode paths' shapes, with the sums a Mixtral b1, Qwen3 b1 and Qwen3
     b8 decode step make, and the long-run case; the Mixtral gate|up read
@@ -489,6 +496,67 @@ def pnp(torch, cs, gen, args):
     torch.cuda.empty_cache()
 
 
+K19_N = (1, 8, 16)
+K3A_D = (64, 128, 256)
+
+
+def k19(torch, cs, gen, args):
+    """K19 per call (device ms of all its kernels) at K19_CASE for each of
+    K19_N, its bound (the selected experts' bytes over 3.35 TB/s) and the
+    yardstick's device ms (K8's two launches and the activation between
+    them, all their kernels)."""
+    from qllm_tpu_torch.ops import qmm
+
+    def us(fn):
+        return cs.launch_us(torch, fn, reps=args.reps, key="") / 1e3
+
+    E, K1, K2, Np2 = (cs.K19_CASE[k] for k in ("E", "K1", "K2", "Np2"))
+    gq, gs, gz, _ = planar_stack(torch, gen, K1, 2 * K2, L=E)
+    dq, ds, dz, _ = planar_stack(torch, gen, K2, Np2, L=E)
+    x = torch.randn((1, K1), device="cuda", generator=gen).to(torch.bfloat16)
+    for n in K19_N:
+        ids = torch.randperm(E, generator=gen, device="cuda")[:n].to(torch.int32)
+        a = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", True)
+
+        def two_launch():
+            gu = qmm.w4_grouped_gemv(x, gq, gs, gz, ids, True).float()
+            act = gu[:, :K2] * torch.sigmoid(gu[:, :K2]) * gu[:, K2 : 2 * K2]
+            return qmm.w4_grouped_gemv(act.to(torch.bfloat16), dq, ds, dz, ids, False)
+
+        per_expert = gq[0].numel() * 4 + 2 * gs[0].numel() * 2 + dq[0].numel() * 4 + 2 * ds[0].numel() * 2
+        nbytes = n * per_expert + x.numel() * 2 + n * Np2 * 2 + n * 4
+        b_ms, b_by = cs.bound(nbytes, 2.0 * n * (K1 * 2 * K2 + K2 * Np2))
+        print(json.dumps(dict(tag=args.tag, kernel="w4_grouped_fused_mlp", n=n, K1=K1, K2=K2, Np2=Np2, E=E,
+                              device_ms=us(lambda: qmm.w4_grouped_fused_mlp(*a)),
+                              yardstick_device_ms=us(two_launch), bound_ms=b_ms, bound_by=b_by)), flush=True)
+    del gq, gs, gz, dq, ds, dz
+    torch.cuda.empty_cache()
+
+
+def k3a(torch, cs, gen, args):
+    """K3a per call (device ms) at B = 8, Hkv = 32, S = 256 (layer 1 of 2)
+    for each head width of K3A_D and each input dtype, beside its bound
+    (k and v in, their int8 rows and scales out)."""
+    from qllm_tpu_torch.ops import attention as att
+
+    L, B, H, S = 2, 8, 32, 256
+    for D in K3A_D:
+        caches = (torch.zeros((L, B, H, S, D), dtype=torch.int8, device="cuda"),
+                  torch.zeros((L, B, H, S, D), dtype=torch.int8, device="cuda"),
+                  torch.zeros((L, B, H, S), device="cuda"), torch.zeros((L, B, H, S), device="cuda"))
+        pos = torch.randint(0, S, (B,), dtype=torch.int32, device="cuda", generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            kn = torch.randn((B, H, D), device="cuda", generator=gen).to(dt)
+            vn = torch.randn((B, H, D), device="cuda", generator=gen).to(dt)
+            es = kn.element_size()
+            b_ms, b_by = cs.bound(2 * B * H * D * es + 2 * B * H * D + 2 * B * H * 4 + B * 4)
+            dev_ms = cs.launch_us(torch, lambda: att.kv_write_int8(kn, vn, *caches, 1, pos), reps=args.reps,
+                                  key="") / 1e3
+            print(json.dumps(dict(tag=args.tag, kernel="kv_write_int8", B=B, Hkv=H, S=S, D=D, dtype=str(dt),
+                                  device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)), flush=True)
+        del caches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="tree")
@@ -532,6 +600,10 @@ def main() -> int:
         k11(torch, cs, gen, args)
     if "pnp" in parts:
         pnp(torch, cs, gen, args)
+    if "k19" in parts:
+        k19(torch, cs, gen, args)
+    if "k3a" in parts:
+        k3a(torch, cs, gen, args)
     return 0
 
 

@@ -18,53 +18,69 @@
 // is a Mosaic constraint; a CUDA thread block writes the single row.
 //
 // Bound on the H100: bytes, and tiny (B*Hkv*D*2 values in, as many int8
-// out); the launch itself dominates. One block per (b, kv-head), one
-// thread per element, one block-wide max.
+// out); the launch itself dominates. One warp a (b, kv head, k or v) row,
+// eight rows a 256-thread block: each lane holds 4 consecutive d of each
+// 128-wide chunk of the row (one 8-byte load in bf16, one 16-byte load in
+// f32), the row's amax is a warp shuffle max (no shared memory, no block
+// barrier), and each lane stores its four int8 as one 32-bit word. D % 4
+// == 0 and D <= 512 (the wrapper refuses the rest; every model served has
+// D in 64-256).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kWriteThreads = 128;
+constexpr int kWriteRows = 8;       // warps (rows) a block
+constexpr int kWriteChunks = 4;     // 128-wide chunks a lane may hold: D <= 512
 
-__device__ __forceinline__ float load_in(const void* p, int f32, size_t i) {
-  return f32 ? static_cast<const float*>(p)[i] : bf2f(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-__global__ void __launch_bounds__(kWriteThreads)
+__global__ void __launch_bounds__(32 * kWriteRows)
     kv_write_kernel(const void* __restrict__ k_new, const void* __restrict__ v_new, int in_f32,
                     int8_t* __restrict__ kc, int8_t* __restrict__ vc, float* __restrict__ ks,
                     float* __restrict__ vs, const int* __restrict__ pos, int layer, int B, int H,
                     int S, int D) {
-  __shared__ float red[kWriteThreads / 32];
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  const int p = pos[b];
-  if (p < 0 || p >= S) return;  // uniform across the block
-  const size_t row = ((static_cast<size_t>(layer) * B + b) * H + h) * S + p;
-  for (int which = 0; which < 2; ++which) {
-    const void* src = which ? v_new : k_new;
-    int8_t* cache = which ? vc : kc;
-    float* scale_row = which ? vs : ks;
-    float amax = 0.f;
-    for (int d = tid; d < D; d += kWriteThreads)
-      amax = fmaxf(amax, fabsf(load_in(src, in_f32, static_cast<size_t>(bh) * D + d)));
-    amax = warp_max(amax);
-    if ((tid & 31) == 0) red[tid >> 5] = amax;
-    __syncthreads();
-    amax = red[0];
-    for (int w = 1; w < kWriteThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-    const float scale = fmaxf(amax / 127.0f, 1e-8f);
-    for (int d = tid; d < D; d += kWriteThreads) {
-      // divide (not multiply by the reciprocal) and round half to even,
-      // as jnp.round does, so the int8 values equal the JAX kernel's
-      float q = rintf(load_in(src, in_f32, static_cast<size_t>(bh) * D + d) / scale);
-      q = fminf(fmaxf(q, -127.f), 127.f);
-      cache[row * D + d] = static_cast<int8_t>(q);
+  const int r = blockIdx.x * kWriteRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (r >= 2 * B * H) return;  // uniform across the warp
+  const int which = r & 1, bh = r >> 1, b = bh / H;
+  const size_t in_at = static_cast<size_t>(bh) * D;
+  float v[kWriteChunks][4];
+  float amax = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < kWriteChunks; ++ch) {
+    const int d = ch * 128 + 4 * lane;
+    if (d < D) {
+      if (in_f32) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(which ? v_new : k_new) + in_at + d));
+        v[ch][0] = f.x, v[ch][1] = f.y, v[ch][2] = f.z, v[ch][3] = f.w;
+      } else {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(which ? v_new : k_new) + in_at + d));
+        v[ch][0] = __uint_as_float(u.x << 16), v[ch][1] = __uint_as_float(u.x & 0xFFFF0000u);
+        v[ch][2] = __uint_as_float(u.y << 16), v[ch][3] = __uint_as_float(u.y & 0xFFFF0000u);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) amax = fmaxf(amax, fabsf(v[ch][j]));
     }
-    if (tid == 0) scale_row[row] = scale;
-    __syncthreads();  // red is reused by the next tensor
   }
+  const int p = __ldg(pos + b);  // loaded with the row, not before it
+  if (p < 0 || p >= S) return;    // the row is left untouched
+  amax = warp_max(amax);
+  const float scale = fmaxf(amax / 127.0f, 1e-8f);
+  const size_t row = ((static_cast<size_t>(layer) * B + b) * H + bh % H) * S + p;
+  int8_t* dst = (which ? vc : kc) + row * D;
+#pragma unroll
+  for (int ch = 0; ch < kWriteChunks; ++ch) {
+    const int d = ch * 128 + 4 * lane;
+    if (d < D) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // divide (not multiply by the reciprocal) and round half to even,
+        // as jnp.round does, so the int8 values equal the JAX kernel's
+        const float q = fminf(fmaxf(rintf(v[ch][j] / scale), -127.f), 127.f);
+        word |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu) << (8 * j);
+      }
+      *reinterpret_cast<uint32_t*>(dst + d) = word;
+    }
+  }
+  if (lane == 0) (which ? vs : ks)[row] = scale;
 }
 
 }  // namespace
@@ -72,8 +88,13 @@ __global__ void __launch_bounds__(kWriteThreads)
 QLLM_API int qllm_kv_write_int8(const void* k_new, const void* v_new, void* k_cache,
                                 void* v_cache, void* k_scale, void* v_scale, const void* pos,
                                 int in_f32, int layer, int B, int H, int S, int D, void* stream) {
-  if (B < 1 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  kv_write_kernel<<<B * H, kWriteThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const uintptr_t in_align = in_f32 ? 16 : 8;
+  if (B < 1 || H < 1 || D < 4 || D % 4 || D > 128 * kWriteChunks ||
+      (reinterpret_cast<uintptr_t>(k_new) | reinterpret_cast<uintptr_t>(v_new)) % in_align ||
+      (reinterpret_cast<uintptr_t>(k_cache) | reinterpret_cast<uintptr_t>(v_cache)) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = 2 * B * H;
+  kv_write_kernel<<<(rows + kWriteRows - 1) / kWriteRows, 32 * kWriteRows, 0, static_cast<cudaStream_t>(stream)>>>(
       k_new, v_new, in_f32, static_cast<int8_t*>(k_cache), static_cast<int8_t*>(v_cache),
       static_cast<float*>(k_scale), static_cast<float*>(v_scale), static_cast<const int*>(pos),
       layer, B, H, S, D);

@@ -1031,11 +1031,14 @@ inline bool split_plan_ok(int units, int splits, int per) {
 // bf16 w has at most 16 significant bits, which hi and mid hold exactly
 // (lo would be 0), a product with an f32 w needs all three; kXParts3: the
 // three parts of an f32 x, given as three bf16 rows [M][3][K] planar-
-// interleaved (row r's unit u at r K + 8 u: x[4u .. 4u+3], x[K/2 + 4u ..])
-enum : int { kXBf16 = 1, kNormBf16 = 2, kNormF32 = 3, kXParts3 = 4 };
+// interleaved (row r's unit u at r K + 8 u: x[4u .. 4u+3], x[K/2 + 4u ..]);
+// kXRows3: the same three rows of one x row (M = 1, K19) as B rows 0-2 of
+// a single MMA, each row's products exact, the rows added at the store as
+// (hi + mid) + lo: one MMA on each A where kXParts3 runs three
+enum : int { kXBf16 = 1, kNormBf16 = 2, kNormF32 = 3, kXParts3 = 4, kXRows3 = 5 };
 // tile rows an x row takes, and the MMAs a product runs on each A
-__host__ __device__ constexpr int staged_parts(int xp) { return xp == kXParts3 ? 3 : 1; }
-__host__ __device__ constexpr int mma_parts(int xp) { return xp == kXParts3 ? 3 : xp; }
+__host__ __device__ constexpr int staged_parts(int xp) { return xp == kXParts3 || xp == kXRows3 ? 3 : 1; }
+__host__ __device__ constexpr int mma_parts(int xp) { return xp == kXParts3 ? 3 : xp == kXRows3 ? 1 : xp; }
 
 // A planar consumer's rows: y[mt][pr][e] is column ncol + 2pr + (e >> 1),
 // row 8 mt + 2c + (e & 1); to prt (the split's f32 partial sums, [M, Np])
@@ -1071,7 +1074,7 @@ __device__ __forceinline__ void planar_store(const float (&y)[NT][2][4], int M, 
 // x + r * x_stride), chunks of kc units staged at xt. FUSE: bf16 scales
 // and zs [G, Np] (the zero-point term in the kernel), bf16 out; else f32
 // scales, f32 out. XP: kXBf16, the norm x~ = x * nw with nw [K] bf16
-// (kNormBf16) or f32 (kNormF32), or kXParts3. Writes the rows to prt (the
+// (kNormBf16) or f32 (kNormF32), kXParts3, or kXRows3 (M = 1). Writes the rows to prt (the
 // split's f32 partial sums, [M, Np]) if given, else to o ([M, Np]), times
 // rs[m] when rs is given. t0 and the result: the ring's stages taken.
 template <int NT, int XP, bool FUSE>
@@ -1084,6 +1087,8 @@ __device__ __forceinline__ int planar_consume(uint64_t* full, uint64_t* empty, c
                                               const float* rs = nullptr, int t0 = 0) {
   constexpr bool NORM = XP == kNormBf16 || XP == kNormF32;
   constexpr int SP = staged_parts(XP), MP = mma_parts(XP);
+  constexpr int LP = XP == kXRows3 ? 1 : SP;  // tile rows a lane loads for its B row
+  static_assert(XP != kXRows3 || NT == 1, "kXRows3 takes one x row");
   constexpr int NF = FUSE ? 2 : 1;  // parameter tables of each half: the scales (and zs)
   constexpr int PS = FUSE ? 2 : 4;  // bytes of a parameter
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -1103,7 +1108,7 @@ __device__ __forceinline__ int planar_consume(uint64_t* full, uint64_t* empty, c
     stage_params(pt, sc, zs, NF, ngc, gf, ng, n0, Np, PS, 1);
     stage_params(param_row(pt, NF, ngc, 0, 0, PS), sc, zs, NF, ngc, Gh + gf, ng, n0, Np, PS, 1);
     const int U = (c1 - c0 + 3) / 4 * 4;
-    if constexpr (XP == kXParts3) {  // whole units, 16 bytes each, through L2 (written by this launch)
+    if constexpr (SP == 3) {  // whole units, 16 bytes each, through L2 (written by this launch)
       for (int i = threadIdx.x; i < 3 * M * U; i += kThreads) {
         const int r = i / U, ul = i - r * U, u = c0 + ul;
         const bool on = u < c1;
@@ -1180,16 +1185,20 @@ __device__ __forceinline__ int planar_consume(uint64_t* full, uint64_t* empty, c
 #pragma unroll
     for (int mt = 0; mt < NT; ++mt) {
       const int m = mt * 8 + gq;
-      uint4 v[SP];
+      uint4 v[LP];
+      if constexpr (XP == kXRows3) {  // B row gq: part gq of the one x row
+        v[0] = gq < 3 ? *reinterpret_cast<const uint4*>(xt + gq * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
 #pragma unroll
-      for (int q = 0; q < SP; ++q)
-        v[q] = m < M ? *reinterpret_cast<const uint4*>(xt + (SP * m + q) * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
+        for (int q = 0; q < SP; ++q)
+          v[q] = m < M ? *reinterpret_cast<const uint4*>(xt + (SP * m + q) * rb + ul * 16) : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t b0[3], b1[3];  // B registers of each part
         if constexpr (!NORM) {
 #pragma unroll
-          for (int q = 0; q < SP; ++q) {
+          for (int q = 0; q < LP; ++q) {
             const uint32_t a01 = h ? v[q].z : v[q].x, a23 = h ? v[q].w : v[q].y;  // x (k0, k1), (k2, k3) of half h
             b0[q] = __byte_perm(a01, a23, 0x5410) & m0;
             b1[q] = __byte_perm(a01, a23, 0x7632) & m1;
@@ -1250,7 +1259,16 @@ __device__ __forceinline__ int planar_consume(uint64_t* full, uint64_t* empty, c
   // the body's walk on the k of each half (4 a unit), chunks of kc units
   const int t = walk_split<Planar>(full, empty, ring, c, lcol, lane, 4 * u0, 4 * u1, 4 * kc, 16, 4, g,
                                    [&](int ch0, int ch1) { stage_chunk(ch0 / 4, ch1 / 4); }, compute, close, t0);
-  planar_store<NT>(y, M, Np, n0 + lcol, prt, o, FUSE, rs);
+  if constexpr (XP == kXRows3) {  // row 0 = (hi + mid) + lo: C rows 0 and 1 in lane c = 0, row 2 in lane c = 1
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float lo = __shfl_down_sync(0xffffffffu, y[0][pr][2 * j], 1);
+        y[0][pr][2 * j] = (y[0][pr][2 * j] + y[0][pr][2 * j + 1]) + lo;
+      }
+  }
+  planar_store<NT>(y, XP == kXRows3 ? 1 : M, Np, n0 + lcol, prt, o, FUSE, rs);
   return t;
 }
 

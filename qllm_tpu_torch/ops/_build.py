@@ -66,7 +66,7 @@ _SIGNATURES = {
     "qllm_bitplane_stacked_gemv": [_P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 9 + [_P],
     "qllm_w4_planar_f32s_gemv": [_P] * 5 + [_I] * 7 + [_P],
     "qllm_w4_planar_f32s_gemm": [_P] * 4 + [_I] * 5 + [_P],
-    "qllm_w4_grouped_fused_mlp": [_P] * 11 + [_I] * 9 + [_P],
+    "qllm_w4_grouped_fused_mlp": [_P] * 13 + [_I] * 13 + [_P],
     "qllm_w4_pnp_gemv": [_P] * 3 + [_I] + [_P] * 13 + [_I] * 11 + [_F, _P],
 }
 

@@ -39,6 +39,7 @@ import torch
 
 from . import _build
 from .kv_cache import _quantize_kv
+from .qmm import _aligned
 
 __all__ = [
     "ONESHOT_S",
@@ -62,6 +63,7 @@ __all__ = [
 
 RING = 8  # ring depth == the rows one flush writes
 _MAX_D = 256
+_KV_WRITE_MAX_D = 512  # K3a: four 128-wide chunks a lane
 # The key rows a block of K3b / K22 / K21 / K6 takes: split j covers rows
 # [j * SPLIT_KEYS, (j + 1) * SPLIT_KEYS). A multiple of the kernel's
 # 128-key tile, and one constant for every batch, cache length and
@@ -110,7 +112,8 @@ def kv_write_int8(
     layer: int,
     pos: torch.Tensor,  # [B] int32 write positions
 ) -> None:
-    """K3a: quantize + write one token per sequence into the cache."""
+    """K3a: quantize + write one token per sequence into the cache; one
+    warp a (b, kv head, k or v) row, D a multiple of 4 up to 512."""
     if not _build.use_kernel(k_new, "kv_write_int8"):
         return kv_write_int8_plain(k_new, v_new, k_cache, v_cache, k_scale, v_scale, layer, pos)
     _check_cache("kv_write_int8", k_cache, v_cache, k_scale, v_scale, layer)
@@ -121,7 +124,10 @@ def kv_write_int8(
         raise ValueError("kv_write_int8: k_new/v_new must both be bf16 or f32")
     if tuple(pos.shape) != (B,):
         raise ValueError("kv_write_int8: pos must be [B]")
-    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    if D % 4 or D > _KV_WRITE_MAX_D:
+        raise ValueError(f"kv_write_int8: head width {D} is not a multiple of 4 up to {_KV_WRITE_MAX_D}")
+    # a lane loads 4 consecutive d at once: rows on a 16-byte boundary
+    k_new, v_new = (_aligned(t.contiguous()) for t in (k_new, v_new))
     pos = pos.to(torch.int32).contiguous()
     lib = _build.load_library()
     code = lib.qllm_kv_write_int8(

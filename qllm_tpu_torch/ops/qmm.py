@@ -46,9 +46,9 @@ Two products with a serial dependency run as one cooperative launch
 each (``csrc/fused_mlp.cu``): ``qmatmul_grouped_experts_fused`` (K19
 ``w4_grouped_fused_mlp``, JAX's ``_qmm_kernel_grouped_fused``) computes
 a selection's whole expert MLP, gate|up, the activation and down, and
-``qmatmul_pnp_stacked`` (K20 ``w4_pnp_gemv``, JAX's ``_qmm_kernel_pnp``,
-both products on the tensor-core body's planar consumer) o_proj, the
-residual, RMSNorm and gate|up.
+``qmatmul_pnp_stacked`` (K20 ``w4_pnp_gemv``, JAX's ``_qmm_kernel_pnp``)
+o_proj, the residual, RMSNorm and gate|up; both run each product on the
+tensor-core body's planar consumer.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and runs
 its plain PyTorch version on a CPU tensor. The TPU autotuner does not
@@ -959,9 +959,9 @@ _grid_barriers = {}
 
 
 def _grid_barrier(dev: torch.device) -> torch.Tensor:
-    """The [count, generation] words of K19's / K20's grid barrier on
-    ``dev``, zeroed once: each barrier leaves the count at 0 and moves the
-    generation on, so launches on one stream share them without a reset."""
+    """The 64-bit arrival count of K19's / K20's grid barriers on ``dev``
+    (two int32 words), zeroed once: each launch leaves it at the next
+    multiple of 2^16, so launches on one stream share it without a reset."""
     key = dev.index if dev.index is not None else torch.cuda.current_device()
     t = _grid_barriers.get(key)
     if t is None:
@@ -1053,7 +1053,11 @@ def w4_grouped_fused_mlp(
     gate|up stack [E, K1/8, Np1] / [E, G1, Np1] (gate in columns [0, K2),
     up in [K2, 2K2)), the down stack [E, K2/8, Np2] / [E, G2, Np2], ids [n]
     int on the device -> bf16 [n, Np2] in one cooperative launch (see the
-    plain version). An id outside [0, E) gives a row of NaN."""
+    plain version) on the tensor-core body: K1 and K2 split by
+    ``grouped_splits`` of each stack's shape, as K8 splits them; the
+    scratch (both products' partial sums, the activation as three bf16
+    parts) allocated here. An id outside [0, E) gives a row of NaN. Bound:
+    bytes (the selected experts' words, scales and zs) over 3.35 TB/s."""
     if not _build.use_kernel(x_rows, "w4_grouped_fused_mlp"):
         return w4_grouped_fused_mlp_plain(x_rows, gu_qw, gu_sc, gu_zs, dn_qw, dn_sc, dn_zs, ids, K2, act, x_shared)
     name = "w4_grouped_fused_mlp"
@@ -1074,12 +1078,18 @@ def w4_grouped_fused_mlp(
         raise ValueError(f"{name}: 1 <= n <= 65535 selections")
     x_rows = _aligned(x_rows.contiguous())
     ids = ids.to(torch.int32).contiguous()
-    gu = torch.empty((n, 2 * K2), dtype=torch.float32, device=x_rows.device)
-    out = torch.empty((n, Np2), dtype=torch.bfloat16, device=x_rows.device)
+    splits1, per1 = grouped_splits(K1, Np1)
+    splits2, per2 = grouped_splits(K2, Np2)
+    dev = x_rows.device
+    part1 = torch.empty((splits1, n, 2 * K2), dtype=torch.float32, device=dev)
+    a3 = torch.empty((n, 3, K2), dtype=torch.bfloat16, device=dev)
+    part2 = torch.empty((splits2, n, Np2), dtype=torch.float32, device=dev) if splits2 > 1 else None
+    out = torch.empty((n, Np2), dtype=torch.bfloat16, device=dev)
     code = _build.load_library().qllm_w4_grouped_fused_mlp(
         x_rows.data_ptr(), gu_qw.data_ptr(), gu_sc.data_ptr(), gu_zs.data_ptr(), dn_qw.data_ptr(), dn_sc.data_ptr(),
-        dn_zs.data_ptr(), ids.data_ptr(), gu.data_ptr(), _grid_barrier(x_rows.device).data_ptr(), out.data_ptr(),
-        n, E, int(bool(x_shared)), K1, K2, Np1, Np2, K1 // G1, _FUSED_ACTS.index(act), _build.stream(x_rows),
+        dn_zs.data_ptr(), ids.data_ptr(), part1.data_ptr(), a3.data_ptr(), _build.ptr(part2),
+        _grid_barrier(dev).data_ptr(), out.data_ptr(), n, E, int(bool(x_shared)), K1, K2, Np1, Np2, K1 // G1,
+        splits1, per1, splits2, per2, _FUSED_ACTS.index(act), _build.stream(x_rows),
     )
     _build.check(name, code)
     w4_grouped_fused_mlp.launches += 1

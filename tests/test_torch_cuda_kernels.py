@@ -878,7 +878,58 @@ def test_k19_grouped_fused_mlp_matches_plain(gen, E, K1, K2, Np2, n, shared, act
     bad = ids.clone()
     bad[1] = E
     yb = qmm.w4_grouped_fused_mlp(x, gq, gs, gz, dq, ds, dz, bad, K2, act, shared)
-    assert bool(torch.isnan(yb[1].float()).all()) and torch.equal(yb[0], y[0])
+    keep = [i for i in range(n) if i != 1]
+    assert bool(torch.isnan(yb[1].float()).all()) and torch.equal(yb[keep], y[keep])
+
+
+@pytest.mark.parametrize("shared,act", [(True, "silu"), (False, "gelu")])
+def test_k19_rows_do_not_depend_on_n(gen, shared, act):
+    """At Qwen3-30B-A3B's expert shape (both products split: the plans
+    come from the stacks alone) the rows of an n = 8 launch are bit-equal
+    to n = 1 launches of the same selections and to the first 8 rows of an
+    n = 16 launch, which holds within one bf16 ulp of its plain version."""
+    E, K1, K2, Np2 = 16, 2048, 768, 2048
+    assert qmm.grouped_splits(K1, 2 * K2)[0] > 1 and qmm.grouped_splits(K2, Np2)[0] > 1
+    gq, gs, gz = _stack(gen, K1, 2 * K2, L=E)
+    dq, ds, dz = _stack(gen, K2, Np2, L=E)
+    ids = torch.randperm(E, generator=gen, device="cuda").to(torch.int32)
+    x = torch.randn((1 if shared else 16, K1), device="cuda", generator=gen).to(torch.bfloat16)
+
+    def rows(lo, hi):
+        xs = x if shared else x[lo:hi]
+        return qmm.w4_grouped_fused_mlp(xs, gq, gs, gz, dq, ds, dz, ids[lo:hi], K2, act, shared)
+
+    y16 = rows(0, 16)
+    ref = qmm.w4_grouped_fused_mlp_plain(x, gq, gs, gz, dq, ds, dz, ids, K2, act, shared).float()
+    torch.testing.assert_close(y16.float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    y8 = rows(0, 8)
+    assert torch.equal(y8, y16[:8])
+    for i in range(8):
+        assert torch.equal(rows(i, i + 1)[0], y8[i]), i
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3a_bit_equal_to_plain(gen, D, dtype):
+    """K3a against its plain version bit for bit (int8 rows and scales) at
+    head widths 64, 128 and 256 in bf16 and f32; the sequences whose pos
+    lies outside [0, S) keep their rows untouched."""
+    L, B, Hkv, S = 2, 6, 3, 40
+    kc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    vc = torch.randint(-127, 128, (L, B, Hkv, S, D), dtype=torch.int8, device="cuda", generator=gen)
+    ks = torch.rand((L, B, Hkv, S), device="cuda", generator=gen)
+    vs = torch.rand((L, B, Hkv, S), device="cuda", generator=gen)
+    pos = torch.tensor([0, 17, S - 1, S, -1, 5], dtype=torch.int32, device="cuda")
+    kn = (torch.randn((B, Hkv, D), device="cuda", generator=gen) * 3).to(dtype)
+    vn = (torch.randn((B, Hkv, D), device="cuda", generator=gen) * 0.01).to(dtype)
+    kn[5] = 0  # a zero row: the scale's floor
+    got = [t.clone() for t in (kc, vc, ks, vs)]
+    want = [t.clone() for t in (kc, vc, ks, vs)]
+    att.kv_write_int8(kn, vn, *got, 1, pos)
+    for b in (0, 1, 2, 5):  # the plain version on each sequence in range, through views
+        att.kv_write_int8_plain(kn[b : b + 1], vn[b : b + 1], *(t[:, b : b + 1] for t in want), 1, pos[b : b + 1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("L,M,K1,D,Np2", [(2, 1, 512, 512, 1024), (3, 8, 1024, 512, 640), (2, 11, 512, 256, 512)])
@@ -1323,13 +1374,23 @@ def test_k11_at_g8(gen, g, norm):
 
 
 def test_k19_k20_at_g8(gen):
-    """K19 and K20 on g = 8 stacks, with the limits of their tests above."""
+    """K19 (n = 3 silu, and n = 16 gelu on a shared row) and K20 on g = 8
+    stacks, with the limits of their tests above."""
     E, K1, K2, Np2, n = 4, 512, 256, 512, 3
     gq, gs, gz = _stack_g(gen, K1, 2 * K2, 8, L=E)
     dq, ds, dz = _stack_g(gen, K2, Np2, 8, L=E)
     ids = torch.tensor([2, 0, 3], dtype=torch.int32, device="cuda")
     x = torch.randn((n, K1), device="cuda", generator=gen).to(torch.bfloat16)
     args = (x, gq, gs, gz, dq, ds, dz, ids, K2, "silu", False)
+    y = qmm.w4_grouped_fused_mlp(*args)
+    ref = qmm.w4_grouped_fused_mlp_plain(*args).float()
+    torch.testing.assert_close(y.float(), ref, atol=_bf16_ulp(ref), rtol=0)
+    # n = 16 selections of a 16-expert g = 8 stack, gelu, one shared row
+    E, n = 16, 16
+    gq, gs, gz = _stack_g(gen, K1, 2 * K2, 8, L=E)
+    dq, ds, dz = _stack_g(gen, K2, Np2, 8, L=E)
+    ids = torch.randperm(E, generator=gen, device="cuda").to(torch.int32)
+    args = (x[:1], gq, gs, gz, dq, ds, dz, ids, K2, "gelu", True)
     y = qmm.w4_grouped_fused_mlp(*args)
     ref = qmm.w4_grouped_fused_mlp_plain(*args).float()
     torch.testing.assert_close(y.float(), ref, atol=_bf16_ulp(ref), rtol=0)
@@ -1388,9 +1449,12 @@ def test_k20_rows_do_not_depend_on_m(gen, K1, D, Np2):
 
 def test_k20_twice_and_after_k19_on_the_same_barrier(gen):
     """K20 twice back to back, then K19 and K20 again, all on the device's
-    one pair of barrier words: each K20 call gives the same bits, within
-    its limits of the plain version, and the words are left ready (count 0)."""
+    one barrier word: each K20 call gives the same bits, within its limits
+    of the plain version, and each launch leaves the word ready for the
+    next (its 64-bit arrival count moved on to the next multiple of 2^16)."""
     args = _pnp_args(gen, 2, 8, 1024, 1024, 2048)
+    word = qmm._grid_barrier(torch.device("cuda")).view(torch.int64)
+    before = int(word[0])
     first = qmm.w4_pnp_gemv(*args)
     second = qmm.w4_pnp_gemv(*args)
     E, K1, K2, Np2, n = 4, 512, 256, 512, 3
@@ -1407,7 +1471,7 @@ def test_k20_twice_and_after_k19_on_the_same_barrier(gen):
     for got in (second, third):
         assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
     _pnp_close(*first, *qmm.w4_pnp_gemv_plain(*args))
-    assert int(qmm._grid_barrier(x.device)[0]) == 0
+    assert before % (1 << 16) == 0 and int(word[0]) == before + 4 * (1 << 16)
 
 
 @pytest.mark.parametrize("M,nw_dtype", [(1, torch.float32), (8, torch.float32), (5, torch.bfloat16)])

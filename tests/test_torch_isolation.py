@@ -1,5 +1,6 @@
 """The port stands alone: importing every qllm_tpu_torch module (and
-chip_smoke.py, chip_stacked_ab.py) loads neither jax nor qllm_tpu, and
+chip_smoke.py, chip_stacked_ab.py, chip_k19_timeline.py) loads neither
+jax nor qllm_tpu, and
 the entry points run on the card unless the caller asks for the CPU."""
 
 import os
@@ -20,6 +21,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 import chip_stacked_ab
+import chip_k19_timeline
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "qllm_tpu" or m.startswith("qllm_tpu."))
